@@ -1,0 +1,45 @@
+"""Carry the JAX package's state across to the port's tensors.
+
+The functions take plain objects by their fields (anything ``np.asarray``
+accepts: numpy arrays, or JAX arrays, whose ``__array__`` copies them to the
+host), so this module needs no import of the JAX package: a
+``hichap_master_tpu.ops.sparse.BlockMatrix``, a
+``hichap_master_tpu.core.ContactBatch`` or a weight vector from either
+package go straight onto the given device, and both packages compute on
+identical data.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.sparse import BlockMatrix
+
+
+def tensor(a, device=None, dtype=None) -> torch.Tensor:
+    """Any array-like as a tensor on ``device`` (a copy, never a view of
+    the source's memory)."""
+    return torch.from_numpy(np.array(a, copy=True)).to(device=device,
+                                                       dtype=dtype)
+
+
+def block_matrix(bm, device=None, dtype=torch.float32) -> BlockMatrix:
+    """An object with ``.tiles/.brow/.bcol/.n/.T/.R`` as the port's
+    BlockMatrix with tensor fields (tiles in ``dtype``, coordinates int32)."""
+    return BlockMatrix(tiles=tensor(bm.tiles, device, dtype),
+                       brow=tensor(bm.brow, device, torch.int32),
+                       bcol=tensor(bm.bcol, device, torch.int32),
+                       n=int(bm.n), T=int(bm.T), R=int(bm.R))
+
+
+def contact_batch(cb, device=None, dtype=torch.float32):
+    """An object with ``.data [C, N, N]`` and ``.n_bins [C]`` (a
+    ``ContactBatch``) as (data, n_bins) tensors."""
+    return (tensor(cb.data, device, dtype),
+            tensor(cb.n_bins, device, torch.int32))
+
+
+def weights(w, device=None) -> torch.Tensor:
+    """A weight vector (NaN at filtered bins) as a float32 tensor."""
+    return tensor(w, device, torch.float32)

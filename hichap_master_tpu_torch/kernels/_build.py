@@ -1,0 +1,108 @@
+"""Build the CUDA kernels of ``csrc/`` and bind them with ctypes.
+
+Every ``csrc/*.cu`` file exposes a plain C interface (``extern "C"``
+functions that take raw device pointers, sizes and a ``cudaStream_t`` and
+return the ``cudaError_t`` of their launch), so the sources build in
+seconds with ``nvcc`` alone: no PyTorch headers, no extension machinery.
+
+The library is built at first use into ``_build/`` next to the package
+(listed in ``.gitignore``), named by a hash of the sources and flags, so an
+edited source rebuilds and an unchanged one loads the cached ``.so``.  A
+failed build raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points -> argument types (pointers and the stream as c_void_p;
+# every function returns the launch's cudaError_t as int)
+SIGNATURES = {
+    "ice_matvec": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "ice_update": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "sparse_marginal": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "escalation_ladder": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _P],
+}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libhichap_kernels_{h.hexdigest()[:16]}.so"
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (nvcc on PATH or under /usr/local/cuda)")
+
+
+def build(path: Path, extra_flags: tuple = ()) -> str:
+    """Compile every ``csrc/*.cu`` into one shared library at ``path``.
+    Returns the compiler's output (``extra_flags=("-Xptxas", "-v")`` makes
+    it report registers and spills per kernel)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cu = [str(p) for p in sources() if p.suffix == ".cu"]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), *cu]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {r.returncode}):\n"
+                           f"{' '.join(cmd)}\n{r.stdout}\n{r.stderr}")
+    os.replace(tmp, path)
+    return r.stdout + r.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call.  Raises if it cannot be
+    built or lacks an entry point."""
+    path = library_path()
+    if not path.exists():
+        build(path)
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"CUDA launch of {name} failed: cudaError_t {rc}")
+
+
+def stream_ptr(device) -> int:
+    """The current CUDA stream of ``device`` as an integer handle."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,249 @@
+"""Block-sparse (tiled-COO) genome-wide contact matrices and their ICE.
+
+Counterpart of ``hichap_master_tpu/ops/sparse.py`` (the symmetric half).
+At 10 kb the hg19 genome-wide matrix has ~304k bins: dense float32 would be
+~343 GB.  It is kept as dense ``T x T`` tiles at occupied block coordinates
+(contact mass concentrates near the diagonal, so the tile count grows with
+band width x genome length):
+
+    tiles [K, T, T], brow/bcol [K] with brow <= bcol
+    y[brow] += tile @ x[bcol]        (all tiles)
+    y[bcol] += tile^T @ x[brow]      (off-diagonal tiles)
+
+Diagonal tiles are stored full (mirrored inside the tile).  The host-side
+builders below are numpy copies of the JAX package's; the matvec is K2
+(``kernels/sparse_marginal.py``) and ``sparse_ice_balance`` runs all of its
+matvecs through it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..kernels.sparse_marginal import block_sym_matvec
+from .masked import masked_mean, masked_median, masked_var
+
+CHECK_EVERY = 4  # iterations between host reads of the convergence flag
+
+
+@dataclasses.dataclass
+class BlockMatrix:
+    """Symmetric block-sparse matrix (see the module docstring)."""
+
+    tiles: np.ndarray | torch.Tensor  # [K, T, T]
+    brow: np.ndarray | torch.Tensor   # [K] int32, brow <= bcol
+    bcol: np.ndarray | torch.Tensor   # [K] int32
+    n: int                            # true bin count (R*T >= n)
+    T: int                            # tile size
+    R: int                            # block rows
+
+    @property
+    def K(self) -> int:
+        return int(self.tiles.shape[0])
+
+
+def _block_shape(n: int, T: int) -> int:
+    return (n + T - 1) // T
+
+
+def blocks_from_coo(rows, cols, vals, n: int, T: int = 128,
+                    dtype=np.float32) -> BlockMatrix:
+    """Build symmetric block storage from upper-triangle COO (rows <= cols).
+    Host-side; diagonal tiles are mirrored to full symmetric form."""
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    vals = np.asarray(vals, dtype)
+    if rows.size and (rows > cols).any():
+        raise ValueError("blocks_from_coo expects upper-triangle pixels")
+    R = _block_shape(n, T)
+
+    bid = (rows // T) * R + cols // T
+    uniq, inv = np.unique(bid, return_inverse=True)
+    K = uniq.size
+    tiles = np.zeros((max(K, 1), T, T), dtype)
+    np.add.at(tiles, (inv, rows % T, cols % T), vals)
+    brow = (uniq // R).astype(np.int32)
+    bcol = (uniq % R).astype(np.int32)
+    diag = brow == bcol
+    if diag.any():
+        ut = np.triu(tiles[diag], 1)
+        tiles[diag] = tiles[diag] + np.swapaxes(ut, -1, -2)
+    if K == 0:
+        brow = np.zeros(1, np.int32)
+        bcol = np.zeros(1, np.int32)
+    return BlockMatrix(tiles=tiles, brow=brow, bcol=bcol, n=n, T=T, R=R)
+
+
+def blocks_from_dense(M: np.ndarray, T: int = 128,
+                      keep_empty: bool = False) -> BlockMatrix:
+    """Tile a dense symmetric matrix (drops all-zero tiles unless
+    ``keep_empty``)."""
+    n = M.shape[0]
+    iu = np.triu_indices(n)
+    v = M[iu]
+    nz = v != 0 if not keep_empty else np.ones(v.size, bool)
+    return blocks_from_coo(iu[0][nz], iu[1][nz], v[nz], n, T, M.dtype)
+
+
+def blocks_to_dense(bm: BlockMatrix) -> np.ndarray:
+    """Materialize the full symmetric matrix (test helper)."""
+    N = bm.R * bm.T
+    tiles = _np(bm.tiles)
+    brow = _np(bm.brow)
+    bcol = _np(bm.bcol)
+    M = np.zeros((N, N), tiles.dtype)
+    for k in range(tiles.shape[0]):
+        r0, c0 = brow[k] * bm.T, bcol[k] * bm.T
+        M[r0:r0 + bm.T, c0:c0 + bm.T] += tiles[k]
+        if brow[k] != bcol[k]:
+            M[c0:c0 + bm.T, r0:r0 + bm.T] += tiles[k].T
+    return M[:bm.n, :bm.n]
+
+
+def pad_blocks(bm: BlockMatrix, multiple: int) -> BlockMatrix:
+    """Pad the tile axis with zero tiles at block (0, 0), which contribute
+    nothing, so K is a multiple of ``multiple``."""
+    K = bm.K
+    Kp = ((K + multiple - 1) // multiple) * multiple
+    if Kp == K:
+        return bm
+    src = _np(bm.tiles)
+    tiles = np.zeros((Kp,) + src.shape[1:], src.dtype)
+    tiles[:K] = src
+    brow = np.zeros(Kp, np.int32)
+    bcol = np.zeros(Kp, np.int32)
+    brow[:K] = _np(bm.brow)
+    bcol[:K] = _np(bm.bcol)
+    return BlockMatrix(tiles=tiles, brow=brow, bcol=bcol, n=bm.n, T=bm.T,
+                       R=bm.R)
+
+
+def blocks_to_coo(bm: BlockMatrix
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Upper-triangle COO (rows, cols, vals) of a symmetric BlockMatrix,
+    sorted by (row, col)."""
+    tiles = _np(bm.tiles)
+    brow = _np(bm.brow)
+    bcol = _np(bm.bcol)
+    T = bm.T
+    out_r, out_c, out_v = [], [], []
+    li, lj = np.meshgrid(np.arange(T), np.arange(T), indexing="ij")
+    for k in range(tiles.shape[0]):
+        t = tiles[k]
+        sel = (t != 0) & (lj >= li) if brow[k] == bcol[k] else t != 0
+        if not sel.any():
+            continue
+        out_r.append(brow[k] * T + li[sel])
+        out_c.append(bcol[k] * T + lj[sel])
+        out_v.append(t[sel])
+    if not out_r:
+        z = np.zeros(0)
+        return z.astype(np.int64), z.astype(np.int64), z
+    r = np.concatenate(out_r)
+    c = np.concatenate(out_c)
+    v = np.concatenate(out_v)
+    ok = (r < bm.n) & (c < bm.n)
+    order = np.lexsort((c[ok], r[ok]))
+    return r[ok][order], c[ok][order], v[ok][order]
+
+
+def _np(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def zero_tile_diagonals(tiles: torch.Tensor, brow: torch.Tensor,
+                        bcol: torch.Tensor, ignore_diags: int) -> torch.Tensor:
+    """Tiles with the entries at global distance |i - j| < ignore_diags
+    zeroed (a copy; the input is returned when there is nothing to do)."""
+    if ignore_diags <= 0:
+        return tiles
+    T = tiles.shape[-1]
+    li = torch.arange(T, device=tiles.device)
+    gdiff = ((bcol - brow).long()[:, None, None] * T
+             + (li[None, :] - li[:, None])[None])
+    return tiles.masked_fill(gdiff.abs() < ignore_diags, 0.0)
+
+
+def sparse_ice_balance(tiles: torch.Tensor, brow: torch.Tensor,
+                       bcol: torch.Tensor, n: int, *, R: int, T: int,
+                       ignore_diags: int = 1, mad_max: int = 5,
+                       min_nnz: int = 10, min_count: int = 0,
+                       tol: float = 1e-5, max_iters: int = 200,
+                       fast: bool = False):
+    """ICE balancing of a block-sparse symmetric matrix.
+
+    Same semantics as ``ops.balance.ice_balance`` (ignore-diags 1, MAD-max 5,
+    min-nnz 10) with the marginal as a block matvec, so each iteration's
+    traffic is proportional to the occupied tiles.  The two filter matvecs
+    (marginal and nonzero count) and every iteration's marginal go through
+    K2.  ``fast`` iterates on bfloat16 tiles with float32 accumulation.
+    Returns (weights [R*T], stats); weights are NaN at filtered bins.
+    """
+    if tiles.dtype != torch.float32:
+        raise TypeError(f"tiles must be float32, got {tiles.dtype}")
+    brow = brow.to(device=tiles.device, dtype=torch.int32).contiguous()
+    bcol = bcol.to(device=tiles.device, dtype=torch.int32).contiguous()
+    K = brow.shape[0]
+    if K and (int(brow.min()) < 0 or int(bcol.max()) >= R
+              or bool((brow > bcol).any())):
+        raise ValueError("block coordinates must satisfy "
+                         "0 <= brow <= bcol < R")
+    dev = tiles.device
+    N = R * T
+    tiles = zero_tile_diagonals(tiles, brow, bcol, ignore_diags)
+
+    valid = torch.arange(N, device=dev) < n
+    ones = valid.to(torch.float32)
+    marg0 = block_sym_matvec(tiles, brow, bcol, ones, R=R, T=T) * ones
+    nnz = block_sym_matvec((tiles != 0).to(torch.float32), brow, bcol, ones,
+                           R=R, T=T)
+    keep = valid & (nnz >= min_nnz) & (marg0 >= min_count)
+    if mad_max > 0:
+        sel = keep & (marg0 > 0)
+        logm = torch.where(sel, torch.log(torch.clamp(marg0, min=1e-300)),
+                           torch.zeros_like(marg0))
+        med = masked_median(logm, sel)
+        dev_ = masked_median((logm - med).abs(), sel)
+        keep = keep & (marg0 >= torch.exp(med - mad_max * dev_))
+
+    tiles_it = tiles.to(torch.bfloat16) if fast else tiles
+    b = keep.to(torch.float32)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    var = torch.full((), float("inf"), device=dev)
+    scale = torch.ones((), device=dev)
+    active = torch.tensor(max_iters > 0, device=dev)
+    for start in range(0, max_iters, CHECK_EVERY):
+        for _ in range(min(CHECK_EVERY, max_iters - start)):
+            marg = block_sym_matvec(tiles_it, brow, bcol, b, R=R, T=T) * b
+            nz = marg != 0
+            mean = masked_mean(marg, nz)
+            v = masked_var(marg, nz)
+            margn = marg / torch.where(mean != 0, mean, torch.ones_like(mean))
+            margn = torch.where(margn == 0, torch.ones_like(margn), margn)
+            b = torch.where(active, b / margn, b)
+            iters = iters + active.to(torch.int32)
+            var = torch.where(active, v, var)
+            scale = torch.where(active, mean, scale)
+            active = active & (var >= tol) & (iters < max_iters)
+        if not bool(active):
+            break
+
+    w = b / torch.sqrt(torch.where(scale > 0, scale, torch.ones_like(scale)))
+    w = torch.where(keep & (b != 0), w, torch.full_like(w, float("nan")))
+    stats = {"scale": scale, "var": var, "iters": iters,
+             "converged": var < tol}
+    return w, stats
+
+
+def ice_balance_blocks(bm: BlockMatrix, device=None, **kw):
+    """``sparse_ice_balance`` on a BlockMatrix; returns (weights[:n], stats)."""
+    from ..convert import block_matrix
+
+    t = block_matrix(bm, device)
+    w, stats = sparse_ice_balance(t.tiles, t.brow, t.bcol, t.n, R=t.R, T=t.T,
+                                  **kw)
+    return w[:t.n], stats

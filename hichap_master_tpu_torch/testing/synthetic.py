@@ -1,0 +1,146 @@
+"""Synthetic hg19-scale inputs for the main path.
+
+Counterparts of the generators in ``scripts/perf_sparse_gw.py`` (hg19
+lengths, genome-wide tile coordinates and values) and
+``scripts/perf_hg19.py`` (dense per-chromosome batches, loop-calling band
+COO).  The numpy generators take a seeded ``numpy.random.Generator``; the
+tensor generators draw on the target device from a seeded
+``torch.Generator``, so no hg19-scale array crosses the host link.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# hg19 / GRCh37 chromosome lengths, chr1..22 + X (the reference's default
+# chromosome set)
+HG19 = [
+    249250621, 243199373, 198022430, 191154276, 180915260, 171115067,
+    159138663, 146364022, 141213431, 135534747, 135006516, 133851895,
+    115169878, 107349540, 102531392, 90354753, 81195210, 78077248,
+    59128983, 63025520, 48129895, 51304566, 155270560,
+]
+HG19_NAMES = [str(i + 1) for i in range(22)] + ["X"]
+
+
+def hg19_bins(res: int = 10_000) -> int:
+    """Genome-wide bin count of chr1..22+X at ``res``."""
+    return int(sum((l + res - 1) // res for l in HG19))
+
+
+def chrom_bins(res: int) -> dict:
+    """{chrom: bin count} at ``res``."""
+    return {c: (l + res - 1) // res for c, l in zip(HG19_NAMES, HG19)}
+
+
+def band_coords(R: int, band_tiles: int = 3, far_per_row: int = 1,
+                seed: int = 0) -> np.ndarray:
+    """Block coordinates [K, 2]: the diagonal band of ``band_tiles`` tile
+    diagonals plus ``far_per_row`` sampled far-field tiles per block row
+    (sparse inter-chromosomal content), deduplicated, brow <= bcol."""
+    coords = []
+    for off in range(band_tiles):
+        rr = np.arange(R - off, dtype=np.int32)
+        coords.append(np.stack([rr, rr + off], 1))
+    rng = np.random.default_rng(seed)
+    for _ in range(far_per_row):
+        rr = np.arange(R, dtype=np.int32)
+        cc = rng.integers(0, R, R).astype(np.int32)
+        lo = np.minimum(rr, cc)
+        hi = np.maximum(rr, cc)
+        far = np.stack([lo, hi], 1)
+        coords.append(far[hi - lo >= band_tiles])
+    allc = np.concatenate(coords)
+    key = allc[:, 0].astype(np.int64) * R + allc[:, 1]
+    _, idx = np.unique(key, return_index=True)
+    return allc[np.sort(idx)]
+
+
+def gen_tiles(coords: np.ndarray, T: int, seed: int = 0, device=None,
+              far_floor: float = 0.0):
+    """Tile values drawn on ``device``: floor(Exp) counts with mean
+    ~60 / (1 + |distance|), diagonal tiles mirrored full.  Returns
+    (tiles [K, T, T] float32, brow [K] int32, bcol [K] int32).
+
+    far_floor : mean of an extra Poisson count on every pixel of the
+    far-field tiles (those off the 3-tile band), standing for the long-range
+    cis and inter-chromosomal contacts the band-only generator leaves out.
+    0 reproduces ``scripts/perf_sparse_gw.py``'s data, on which ICE is a
+    slow diffusion along the genome: the JAX package itself ends 200
+    iterations at variance ~14, far above tol 1e-5.  With 1.0 the far tiles
+    hold ~35% of the contact mass and ICE converges at tol 1e-5.
+    """
+    device = torch.device(device) if device is not None else None
+    brow = torch.as_tensor(coords[:, 0], dtype=torch.int32, device=device)
+    bcol = torch.as_tensor(coords[:, 1], dtype=torch.int32, device=device)
+    g = torch.Generator(device=device if device is not None else "cpu")
+    g.manual_seed(seed)
+    K = coords.shape[0]
+    li = torch.arange(T, device=device)
+    tiles = torch.empty(K, T, T, device=device)
+    step = 1024  # tiles per draw (bounds the temporaries)
+    for k0 in range(0, K, step):
+        k1 = min(K, k0 + step)
+        dist = ((bcol[k0:k1] - brow[k0:k1]).long()[:, None, None] * T
+                + (li[None, :] - li[:, None])[None]).abs()
+        lam = 60.0 / (1.0 + dist.float())
+        u = torch.rand(k1 - k0, T, T, generator=g, device=device)
+        u = u * (1.0 - 1e-6) + 1e-6
+        t = torch.floor(-torch.log(u) * lam)
+        if far_floor > 0:
+            far = (bcol[k0:k1] - brow[k0:k1]) >= 3
+            bg = torch.poisson(torch.full_like(t, far_floor), generator=g)
+            t = t + bg * far[:, None, None]
+        tiles[k0:k1] = t
+    diag = brow == bcol
+    td = tiles[diag]
+    tiles[diag] = torch.triu(td) + torch.triu(td, 1).transpose(-1, -2)
+    return tiles, brow, bcol
+
+
+def hap_batch(sizes, n_pad: int, seed: int = 0, device=None,
+              background: float = 0.0) -> torch.Tensor:
+    """Padded symmetric count matrices ``[C, n_pad, n_pad]`` drawn on
+    ``device``: floor(Exp) counts with mean 80 / d^0.9 at distance d, zero
+    beyond each chromosome's size.
+
+    background : mean of an extra Poisson count on every pixel.  The
+    floor(Exp) draw of ``scripts/perf_hg19.py`` leaves almost no contact
+    beyond ~500 bins, and ICE on such a banded matrix is a slow diffusion
+    along the chromosome: var < 1e-5 takes ~3,300 iterations at chr1's
+    6,232 bins (40 kb).  With 0.05 (~1/4 of the mass at long range, as in
+    real Hi-C) it takes ~30.
+    """
+    device = torch.device(device) if device is not None else None
+    g = torch.Generator(device=device if device is not None else "cpu")
+    g.manual_seed(seed)
+    i = torch.arange(n_pad, device=device)
+    d = (i[:, None] - i[None, :]).abs() + 1.0
+    lam = 80.0 / d ** 0.9
+    out = torch.empty(len(sizes), n_pad, n_pad, device=device)
+    for c, n in enumerate(sizes):
+        u = torch.rand(n_pad, n_pad, generator=g, device=device)
+        m = torch.floor(-torch.log(u * (1.0 - 1e-6) + 1e-6) * lam)
+        if background > 0:
+            m = m + torch.poisson(torch.full_like(m, background), generator=g)
+        m = torch.triu(m) + torch.triu(m, 1).T
+        valid = i < n
+        out[c] = torch.where(valid[:, None] & valid[None, :], m, 0.0)
+    return out
+
+
+def band_coo(rng: np.random.Generator, n: int, band: int, loops: int = 40):
+    """Upper-band COO (rows, cols, vals) of one chromosome: Poisson counts
+    with mean 80 / (d + 1)^0.9 for d < band, plus ``loops`` enriched pixels."""
+    d = np.arange(band)
+    lam = 80.0 / (d + 1.0) ** 0.9
+    counts = rng.poisson(np.broadcast_to(lam, (n, band))).astype(np.float64)
+    for _ in range(loops if n > band + 10 else 0):
+        x = int(rng.integers(5, n - band - 5))
+        e = int(rng.integers(20, band - 20))
+        counts[x, e] = counts[x, e] * 8 + 60
+    rows, es = np.nonzero(counts)
+    cols = rows + es
+    keep = cols < n
+    return rows[keep], cols[keep], counts[rows, es][keep]

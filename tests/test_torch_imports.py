@@ -1,0 +1,60 @@
+"""The port stands alone: every module of hichap_master_tpu_torch imports
+with jax, h5py and pandas blocked (the GPU machine has none of them) and
+with the JAX package blocked, and chip_smoke.py refuses to run without a
+CUDA device or without the repo."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import sys
+for name in ("jax", "jaxlib", "h5py", "pandas", "hichap_master_tpu"):
+    sys.modules[name] = None          # any import of them now raises
+import importlib, pkgutil
+import hichap_master_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+loaded = [k for k, v in sys.modules.items()
+          if v is not None and k.split(".")[0] in ("jax", "jaxlib")]
+assert not loaded, loaded
+print(len(names))
+"""
+
+
+def _env(**extra):
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    env.update(extra)
+    return env
+
+
+def test_port_imports_without_jax():
+    r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                       capture_output=True, text=True, timeout=300,
+                       env=_env())
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[-1]) >= 15  # every module was imported
+
+
+def _smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=300,
+                          env=_env(CUDA_VISIBLE_DEVICES=""))
+
+
+def test_chip_smoke_fails_without_cuda():
+    r = _smoke(REPO)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_fails_outside_the_repo(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    r = _smoke(tmp_path)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout

@@ -1,0 +1,62 @@
+"""Kernel plumbing of the port that runs without a GPU: the build cache key,
+the missing-toolkit error, and the wrappers' refusal to fall back to the
+plain version for a device that is not the CPU."""
+
+import pytest
+import torch
+
+from hichap_master_tpu_torch.kernels import _build
+from hichap_master_tpu_torch.kernels.escalation import escalation_batch
+from hichap_master_tpu_torch.kernels.ice_sweep import IceState, ice_sweeps
+from hichap_master_tpu_torch.kernels.sparse_marginal import block_sym_matvec
+
+# the suite runs as several worker processes: one torch thread each
+torch.set_num_threads(1)
+
+
+def test_every_entry_point_has_a_source():
+    srcs = "".join(p.read_text() for p in _build.sources())
+    for name in _build.SIGNATURES:
+        assert f'extern "C" int {name}(' in srcs, name
+    assert {p.name for p in _build.sources()} >= {
+        "ice_sweep.cu", "sparse_marginal.cu", "escalation.cu"}
+
+
+def test_library_name_follows_the_sources(tmp_path, monkeypatch):
+    (tmp_path / "a.cu").write_text("int x;")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    first = _build.library_path()
+    assert first == _build.library_path()
+    (tmp_path / "a.cu").write_text("int y;")
+    assert _build.library_path() != first
+    assert first.parent == _build.BUILD_DIR
+
+
+def test_missing_nvcc_raises(monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.nvcc_path()
+
+
+def test_launch_error_code_raises():
+    _build.check(0, "k")
+    with pytest.raises(RuntimeError, match="cudaError_t 9"):
+        _build.check(9, "k")
+
+
+def test_wrappers_do_not_fall_back_off_the_cpu():
+    meta = torch.device("meta")
+    tiles = torch.empty(2, 128, 128, device=meta)
+    idx = torch.zeros(2, dtype=torch.int32, device=meta)
+    with pytest.raises(RuntimeError, match="no block-sparse"):
+        block_sym_matvec(tiles, idx, idx, torch.empty(128, device=meta),
+                         R=1, T=128)
+    st = IceState.start(torch.ones(1, 8, device=meta), 3)
+    with pytest.raises(RuntimeError, match="no ICE kernel"):
+        ice_sweeps(torch.empty(1, 8, 8, device=meta), st, iters=1, tol=0.0,
+                   max_iters=3)
+    D = torch.empty(1, 4, 8, device=meta)
+    p = torch.empty(1, 3, dtype=torch.int32, device=meta)
+    with pytest.raises(RuntimeError, match="no escalation kernel"):
+        escalation_batch(D, D, D, p, p, p.bool(), 1, 2, 1, 2, 0, 0)

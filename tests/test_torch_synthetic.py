@@ -1,0 +1,71 @@
+"""The port's synthetic generators (hichap_master_tpu_torch.testing.synthetic)
+against the JAX package's perf-script generators they mirror, and their
+shape, symmetry and seeding contracts."""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from hichap_master_tpu_torch.testing import synthetic as S
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "scripts"))
+import perf_hg19  # noqa: E402  (numpy at import; jax only inside main)
+import perf_sparse_gw  # noqa: E402
+
+# the suite runs as several worker processes: one torch thread each
+torch.set_num_threads(1)
+
+
+def test_hg19_tables_match_scripts():
+    assert S.HG19 == perf_sparse_gw.HG19
+    for res in (10_000, 40_000):
+        assert S.hg19_bins(res) == perf_sparse_gw.hg19_bins(res)
+        assert sum(S.chrom_bins(res).values()) == S.hg19_bins(res)
+    assert S.hg19_bins(10_000) == 303_641
+
+
+@pytest.mark.parametrize("R", [7, 60])
+def test_band_coords_match_script(R):
+    np.testing.assert_array_equal(S.band_coords(R),
+                                  perf_sparse_gw.band_coords(R))
+
+
+def test_band_coo_matches_script():
+    a = S.band_coo(np.random.default_rng(0), 400, 60)
+    b = perf_hg19.band_coo(np.random.default_rng(0), 400, 60)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("far_floor", [0.0, 1.0])
+def test_gen_tiles_contract(far_floor):
+    coords = S.band_coords(12)
+    tiles, brow, bcol = S.gen_tiles(coords, 16, seed=3, far_floor=far_floor)
+    assert tiles.shape == (coords.shape[0], 16, 16)
+    assert brow.dtype == bcol.dtype == torch.int32
+    assert (tiles >= 0).all() and (tiles == tiles.floor()).all()
+    diag = brow == bcol
+    torch.testing.assert_close(tiles[diag], tiles[diag].transpose(1, 2))
+    again, _, _ = S.gen_tiles(coords, 16, seed=3, far_floor=far_floor)
+    torch.testing.assert_close(tiles, again)
+    far = (bcol - brow) >= 3
+    mean_far = float(tiles[far].mean())
+    assert (mean_far > 0.5) == (far_floor > 0)
+
+
+def test_hap_batch_contract():
+    sizes = [50, 37]
+    for bg in (0.0, 0.05):
+        M = S.hap_batch(sizes, 64, seed=1, background=bg)
+        assert M.shape == (2, 64, 64)
+        torch.testing.assert_close(M, M.transpose(1, 2))
+        assert float(M[1, 37:].abs().sum()) == 0.0
+        assert float(M[1, :, 37:].abs().sum()) == 0.0
+        torch.testing.assert_close(M, S.hap_batch(sizes, 64, seed=1,
+                                                  background=bg))
+    far = S.hap_batch([64], 64, seed=1, background=0.5)[0].triu(40)
+    assert float(far.sum()) > 0
