@@ -14,14 +14,23 @@ Phases, each printed on its own line, any failure raising:
    (median of 5 warm runs, synchronized around each):
    K1 dense ICE iterations on chr1 at 40 kb (f32 and bf16), K2 the
    block-sparse marginal on the hg19 10 kb tile set (f32 and bf16), K3 the
-   escalation ladder on chr1 at 10 kb;
-3. the main path at full size, after zeroing the kernels' launch counters:
+   escalation ladder on chr1 at 10 kb, K4 the HMM forward-backward and K5
+   the HMM Viterbi on the 23 DI segments of the 40 kb TAD input (T = 8,192,
+   3 states, float64);
+3. the main path at full size, after zeroing the kernels' launch counters,
+   each stage's wall on its own line:
    genome-wide block-sparse ICE at 10 kb (tiles with a far-field floor,
    see ``testing.synthetic.gen_tiles``; tol 1e-5, 200 iterations at most),
    dense ICE of all 23 chromosomes at 40 kb by size bucket (matrices with
-   a long-range floor, ``testing.synthetic.hap_batch``), and loop
-   calling at 10 kb on all 23 chromosomes; then the chr1 loop call again
-   through the plain ladder, which must give the same loop set;
+   a long-range floor, ``testing.synthetic.hap_batch``), loop calling at
+   10 kb on all 23 chromosomes, the two-step correction of maternal and
+   paternal matrices at 40 kb by size bucket followed by dense ICE of
+   their sum, compartments at 500 kb (planted A/B blocks,
+   ``testing.synthetic.ab_coo``) and TADs at 40 kb (planted domains,
+   ``testing.synthetic.tad_coo``), all on the 23 chromosomes; then the chr1
+   loop call again through the plain ladder, which must give the same loop
+   set, and chr1's TAD segments again through the plain Viterbi, which
+   must give the same paths, boundaries and domains;
 4. the launch counters of phase 3, each > 0, and one JSON line with the
    per-kernel results.
 
@@ -41,17 +50,20 @@ import torch
 REPS = 5
 # long-range contact floor of the 40 kb matrices (see synthetic.hap_batch)
 BACKGROUND_40KB = 0.05
+# diagonals of the synthetic 40 kb TAD input: DI reads 15 (600 kb window),
+# the gap rule 5 (200 kb); 300 bins (12 Mb) keeps the COO realistic
+TAD_BAND = 300
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def median_ms(fn) -> float:
+def median_ms(fn, reps: int = REPS) -> float:
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -224,6 +236,85 @@ def k3_compare(loops, dev, results):
         max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
+# ------------------------------------------------------------------ K4/K5
+def tad_inputs():
+    """hg19 40 kb COO with planted 20-bin domains for all 23 chromosomes,
+    unit weights, seed 0."""
+    from hichap_master_tpu_torch.testing.synthetic import chrom_bins, tad_coo
+
+    rng = np.random.default_rng(0)
+    inputs = {}
+    for c, n in chrom_bins(40_000).items():
+        rows, cols, vals = tad_coo(rng, n, 20, band=TAD_BAND)
+        inputs[c] = (rows, cols, vals, np.ones(n), n)
+    return inputs
+
+
+def hmm_compare(tads, dev, results):
+    from hichap_master_tpu_torch.kernels import hmm_scan
+    from hichap_master_tpu_torch.models.tads import (_di_batched,
+                                                     init_parameters)
+    from hichap_master_tpu_torch.ops import hmm
+
+    prep = _di_batched(tads, list(tads), 40_000, 200_000, 600_000, "ttest",
+                       dev)
+    seqs = [segs[k] for _, _, segs in prep.values() for k in sorted(segs)]
+    model = init_parameters(3)
+    X, L, _ = hmm._inputs(seqs, dev)
+    A, pi, means, varis, weights = hmm._params(model, dev)
+    logb, _ = hmm._log_mix(X, means, varis, weights)
+    b = torch.exp(logb - logb.amax(-1, keepdim=True))
+    logA, logpi = (torch.as_tensor(a, device=dev)
+                   for a in hmm._log_params(model))
+    B, T, S = b.shape
+    shape = f"[{B}, {T}, {S}] f64, L {int(L.min())}..{int(L.max())}"
+
+    def timed(kernel, plain, args):
+        ms = median_ms(lambda: kernel(*args))
+        t0 = time.perf_counter()
+        plain(*args)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        plain_ms = median_ms(lambda: plain(*args), 3 if first > 1.0 else REPS)
+        return ms, plain_ms
+
+    gk, xk, lk = hmm_scan.forward_backward(b, A, pi, L)
+    gp, xp, lp = hmm_scan.forward_backward_plain(b, A, pi, L)
+    torch.cuda.synchronize()
+    errs = (rel_err(gk, gp), rel_err(xk, xp), rel_err(lk.sum(), lp.sum()))
+    check(max(errs) <= 1e-10, f"K4 differs from plain: gamma {errs[0]:.2e}, "
+          f"xi {errs[1]:.2e}, log-likelihood {errs[2]:.2e}")
+    ms, plain_ms = timed(hmm_scan.forward_backward,
+                         hmm_scan.forward_backward_plain, (b, A, pi, L))
+    log(f"K4 hmm_forward_backward {shape}: max rel err gamma {errs[0]:.3e} "
+        f"xi {errs[1]:.3e} loglik {errs[2]:.3e} (tol 1e-10), {ms:.3f} ms "
+        f"kernel vs {plain_ms:.3f} ms plain")
+    results["hmm_forward_backward"] = dict(
+        route="cuda", source="hichap_master_tpu_torch/csrc/hmm_scan.cu",
+        replaces="hichap_master_tpu/ops/hmm.py:87",
+        unit=f"ms per E-step recurrence, {B} DI segments, hg19 40 kb",
+        max_abs_err=max(float((gk - gp).abs().max()),
+                        float((xk - xp).abs().max())),
+        ms=ms, plain_ms=plain_ms)
+
+    pk, vk = hmm_scan.viterbi(logb, logA, logpi, L)
+    pp, vp = hmm_scan.viterbi_plain(logb, logA, logpi, L)
+    torch.cuda.synchronize()
+    check(torch.equal(pk, pp), "K5 paths differ from plain")
+    err = rel_err(vk, vp)
+    check(err <= 1e-10, f"K5 log-probabilities differ: {err:.2e}")
+    ms, plain_ms = timed(hmm_scan.viterbi, hmm_scan.viterbi_plain,
+                         (logb, logA, logpi, L))
+    log(f"K5 hmm_viterbi {shape}: identical paths, logprob max rel err "
+        f"{err:.3e} (tol 1e-10), {ms:.3f} ms kernel vs {plain_ms:.3f} ms "
+        "plain")
+    results["hmm_viterbi"] = dict(
+        route="cuda", source="hichap_master_tpu_torch/csrc/hmm_scan.cu",
+        replaces="hichap_master_tpu/ops/hmm.py:251",
+        unit=f"ms per decode, {B} DI segments, hg19 40 kb",
+        max_abs_err=float((vk - vp).abs().max()), ms=ms, plain_ms=plain_ms)
+
+
 # ------------------------------------------------------------ main path
 def gw_ice(gw):
     from hichap_master_tpu_torch.kernels.sparse_marginal import \
@@ -326,10 +417,136 @@ def chr1_plain_ladder(loops, dev, called):
     log(f"chr1 through the plain ladder: the same {len(plain[0])} loops")
 
 
+def two_step_ice(dev):
+    from hichap_master_tpu_torch.core import pad_to_bucket
+    from hichap_master_tpu_torch.ops.balance import ice_balance_batch
+    from hichap_master_tpu_torch.ops.correct import two_step_correction_batch
+    from hichap_master_tpu_torch.testing.synthetic import chrom_bins, hap_batch
+
+    buckets = {}
+    for n in chrom_bins(40_000).values():
+        buckets.setdefault(pad_to_bucket(n, 512), []).append(n)
+    t_corr = t_ice = 0.0
+    worst, iters = 0.0, []
+    for N, sizes in sorted(buckets.items()):
+        m = hap_batch(sizes, N, seed=2 * N, device=dev,
+                      background=BACKGROUND_40KB)
+        p = hap_batch(sizes, N, seed=2 * N + 1, device=dev,
+                      background=BACKGROUND_40KB)
+        t = m + p
+        nb = torch.tensor(sizes, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nor_m, nor_p, _, _ = two_step_correction_batch(t, m, p, nb)
+        torch.cuda.synchronize()
+        t_corr += time.perf_counter() - t0
+        for raw, cor in ((m, nor_m), (p, nor_p)):
+            check(bool(torch.isfinite(cor).all()),
+                  f"two-step bucket {N}: non-finite values")
+            rs = raw.double().sum((-2, -1))
+            worst = max(worst, float(((cor.double().sum((-2, -1)) - rs)
+                                      / rs).abs().max()))
+        del nor_m, nor_p, m, p
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w, st = ice_balance_batch(t, nb)
+        torch.cuda.synchronize()
+        t_ice += time.perf_counter() - t0
+        check(bool(st["converged"].all()), f"ICE of T, bucket {N}: "
+              f"unconverged, iters {st['iters'].tolist()}")
+        iters += st["iters"].tolist()
+        del t, w
+    check(worst <= 1e-4, f"two-step sums off the raw sums by {worst:.2e}")
+    log(f"main: two-step correction 40 kb, 23 chromosomes x 2 haplotypes in "
+        f"{len(buckets)} buckets: finite, sums within {worst:.1e} of the raw "
+        f"sums, {t_corr:.3f} s")
+    log(f"main: dense ICE of T = M + P 40 kb, 23 chromosomes: all converged,"
+        f" iters {min(iters)}-{max(iters)}, {t_ice:.3f} s")
+
+
+def compartments(dev):
+    from hichap_master_tpu_torch.models.compartment import call_compartments
+    from hichap_master_tpu_torch.testing.synthetic import (ab_coo, ab_sign,
+                                                           chrom_bins)
+
+    res = 500_000
+    rng = np.random.default_rng(1)
+    inputs = {c: (*ab_coo(rng, n), n) for c, n in chrom_bins(res).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tracks = call_compartments(inputs, res, False, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    worst, checked = 1.0, 0
+    for c, pc in tracks.items():
+        ng = pc != 0
+        if ng.sum() < 20:
+            continue
+        agree = float((np.sign(pc[ng]) == ab_sign(len(pc))[ng]).mean())
+        check(agree >= 0.9, f"compartments chr{c}: sign agrees with the "
+              f"planted A/B on {agree:.1%} of non-gap bins")
+        worst, checked = min(worst, agree), checked + 1
+    check(checked > 0, "compartments: no chromosome checked")
+    log(f"main: compartments 500 kb, {len(tracks)} chromosomes: PC sign "
+        f"agrees with the planted A/B on >= {worst:.1%} of non-gap bins "
+        f"({checked} chromosomes checked), {wall:.3f} s")
+
+
+def tad_call(tads, dev):
+    from hichap_master_tpu_torch.models.tads import call_tads
+
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = call_tads(tads, 40_000, False, dev, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(stats["em_iters"] < 500, "TADs: EM ran to max_iters (500)")
+    with_domains = sum(len(r["domains"][0]) > 0 for r in out.values())
+    check(with_domains >= 20, f"TADs: domains on {with_domains} of "
+          f"{len(out)} chromosomes")
+    log(f"main: TADs 40 kb, {len(out)} chromosomes: EM {stats['em_iters']} "
+        f"iterations (loglik {stats['loglik']:.1f}), domains on "
+        f"{with_domains} chromosomes, "
+        f"{sum(len(r['domains'][0]) for r in out.values())} domains, "
+        f"{wall:.3f} s")
+    return out, stats["model"]
+
+
+def chr1_plain_viterbi(called, model, dev):
+    from hichap_master_tpu_torch.kernels.hmm_scan import viterbi_plain
+    from hichap_master_tpu_torch.models.tads import (boundaries_to_domains,
+                                                     boundary_call,
+                                                     boundary_filter)
+    from hichap_master_tpu_torch.ops.hmm import viterbi
+
+    r = called["1"]
+    segs = r["segments"]
+    keys = sorted(segs)
+    plain = viterbi(model, [segs[k] for k in keys], device=dev,
+                    decode=viterbi_plain)
+    kernel = viterbi(model, [segs[k] for k in keys], device=dev)
+    for (pp, _), (pk, _) in zip(plain, kernel):
+        check(np.array_equal(pp, pk), "chr1 Viterbi path differs between "
+              "kernel and plain")
+    bd = boundary_call(dict(zip(keys, plain)), len(r["di"]), 3, 40_000)
+    filtered = boundary_filter(bd, r["gap"], 40_000)
+    ds, de = boundaries_to_domains(bd, segs, r["di"], 40_000, 200_000,
+                                   4_000_000)
+    check(np.array_equal(bd["boundary"], r["boundaries"]["boundary"])
+          and np.array_equal(filtered, r["filtered"])
+          and np.array_equal(ds, r["domains"][0])
+          and np.array_equal(de, r["domains"][1]),
+          "chr1 boundaries or domains differ through the plain Viterbi")
+    log(f"chr1 through the plain Viterbi: the same paths, "
+        f"{len(bd['boundary'])} boundaries and {len(ds)} domains")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device visible")
     from hichap_master_tpu_torch.kernels import _build
+    from hichap_master_tpu_torch.kernels import hmm_scan
     from hichap_master_tpu_torch.kernels.escalation import escalation_batch
     from hichap_master_tpu_torch.kernels.ice_sweep import ice_sweeps
     from hichap_master_tpu_torch.kernels.sparse_marginal import \
@@ -355,9 +572,13 @@ def main() -> None:
     k2_compare(gw, dev, results)
     loops = loop_inputs()
     k3_compare(loops, dev, results)
+    tads = tad_inputs()
+    hmm_compare(tads, dev, results)
 
     counters = {"ice_sweep": ice_sweeps, "sparse_marginal": block_sym_matvec,
-                "escalation": escalation_batch}
+                "escalation": escalation_batch,
+                "hmm_forward_backward": hmm_scan.forward_backward,
+                "hmm_viterbi": hmm_scan.viterbi}
     for fn in counters.values():
         fn.launches = 0
     gw_ice(gw)
@@ -365,11 +586,16 @@ def main() -> None:
     torch.cuda.empty_cache()
     dense_ice(dev)
     called = loop_call(loops, dev)
+    two_step_ice(dev)
+    torch.cuda.empty_cache()
+    compartments(dev)
+    tad_called, model = tad_call(tads, dev)
     launches = {k: fn.launches for k, fn in counters.items()}
     log(f"launches on the main path: {launches}")
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was not launched on the main path")
     chr1_plain_ladder(loops, dev, called)
+    chr1_plain_viterbi(tad_called, model, dev)
 
     kernels = [dict(name=k, launches=launches[k], **results[k])
                for k in counters]

@@ -4,7 +4,8 @@ The functions take plain objects by their fields (anything ``np.asarray``
 accepts: numpy arrays, or JAX arrays, whose ``__array__`` copies them to the
 host), so this module needs no import of the JAX package: a
 ``hichap_master_tpu.ops.sparse.BlockMatrix``, a
-``hichap_master_tpu.core.ContactBatch`` or a weight vector from either
+``hichap_master_tpu.core.ContactBatch``, a
+``hichap_master_tpu.ops.hmm.GMMHMM`` or a weight vector from either
 package go straight onto the given device, and both packages compute on
 identical data.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.hmm import GMMHMM
 from .ops.sparse import BlockMatrix
 
 
@@ -43,3 +45,10 @@ def contact_batch(cb, device=None, dtype=torch.float32):
 def weights(w, device=None) -> torch.Tensor:
     """A weight vector (NaN at filtered bins) as a float32 tensor."""
     return tensor(w, device, torch.float32)
+
+
+def gmmhmm(model) -> GMMHMM:
+    """An object with ``.A/.pi/.means/.varis/.weights`` (the JAX package's
+    ``GMMHMM``) as the port's, fields float64 numpy copies."""
+    return GMMHMM(*(np.array(getattr(model, f), np.float64, copy=True)
+                    for f in ("A", "pi", "means", "varis", "weights")))

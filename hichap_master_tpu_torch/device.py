@@ -17,8 +17,3 @@ def set_precision() -> None:
     """Full float32 for every matmul and convolution (no TF32)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-
-def default_device() -> torch.device:
-    """The first CUDA device when one is visible, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")

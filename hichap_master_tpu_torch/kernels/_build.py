@@ -40,6 +40,8 @@ SIGNATURES = {
     "sparse_marginal": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "escalation_ladder": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _P],
+    "hmm_forward_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "hmm_viterbi": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -22,7 +22,6 @@ import numpy as np
 import torch
 
 from ..core import pad_to_bucket
-from ..device import default_device
 from ..kernels.escalation import escalation_batch
 from ..ops.loops_packed import (derive_pixels_batch, pack_margins,
                                 pack_raw_bal_batch)
@@ -340,15 +339,14 @@ def _call_group(prs: List[dict], chros, res: int, device, escalate,
     return results
 
 
-def pcaller_multi(inputs: dict, res: int, params, allelic: bool = False,
-                  device=None, stats: Optional[dict] = None) -> dict:
+def pcaller_multi(inputs: dict, res: int, params, allelic: bool = False, *,
+                  device, stats: Optional[dict] = None) -> dict:
     """HICCUPS calling for many chromosomes, one escalation launch per
     size group.
 
     inputs : {chrom: (rows, cols, vals, weights_or_None, n)} with
              upper-triangle intra COO in local bins
-    device : where the band maps and the ladder live (default: the CUDA
-             device when one is visible)
+    device : where the band maps and the ladder live
     stats  : optional dict; receives ``overflow_fallbacks``, the number of
              chromosomes whose device post overflowed its compaction
              buffer and ran on the host
@@ -358,7 +356,7 @@ def pcaller_multi(inputs: dict, res: int, params, allelic: bool = False,
     if allelic:
         raise NotImplementedError("allelic loop calling (the allelic pixel "
                                   "prefilter) is not ported yet")
-    device = torch.device(device) if device is not None else default_device()
+    device = torch.device(device)
     stats = {} if stats is None else stats
     stats.setdefault("overflow_fallbacks", 0)
     preps, groups = {}, {}
@@ -375,7 +373,7 @@ def pcaller_multi(inputs: dict, res: int, params, allelic: bool = False,
 
 
 def pcaller_chrom_coo(rows, cols, vals, weights, n: int, res: int, params,
-                      allelic: bool = False, device=None):
+                       allelic: bool = False, *, device):
     """HICCUPS backgrounds + Poisson/BH for one chromosome from COO pixels
     (``pcaller_multi`` on a single chromosome)."""
     return pcaller_multi({0: (rows, cols, vals, weights, n)}, res, params,

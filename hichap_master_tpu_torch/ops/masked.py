@@ -55,6 +55,12 @@ def masked_min(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
                        torch.full_like(values, float("inf"))).amin(-1)
 
 
+def sizes_on(n, like: torch.Tensor) -> torch.Tensor:
+    """True sizes (an int, a sequence or a tensor) as a tensor on
+    ``like``'s device."""
+    return torch.as_tensor(n, device=like.device)
+
+
 def valid_row_mask(n: torch.Tensor, size: int) -> torch.Tensor:
     """Boolean ``[..., size]`` mask of rows < n."""
     n = torch.as_tensor(n)

@@ -3,8 +3,9 @@
 Counterparts of the generators in ``scripts/perf_sparse_gw.py`` (hg19
 lengths, genome-wide tile coordinates and values) and
 ``scripts/perf_hg19.py`` (dense per-chromosome batches, loop-calling band
-COO).  The numpy generators take a seeded ``numpy.random.Generator``; the
-tensor generators draw on the target device from a seeded
+COO, and COO with planted TADs or A/B compartments).  The numpy
+generators take a seeded ``numpy.random.Generator``; the tensor generators
+draw on the target device from a seeded
 ``torch.Generator``, so no hg19-scale array crosses the host link.
 """
 
@@ -144,3 +145,44 @@ def band_coo(rng: np.random.Generator, n: int, band: int, loops: int = 40):
     cols = rows + es
     keep = cols < n
     return rows[keep], cols[keep], counts[rows, es][keep]
+
+
+def _band_poisson(rng: np.random.Generator, n: int, band, factor):
+    """Upper-triangle COO of Poisson counts with mean 80 / (d + 1)^0.9 at
+    distance d < band, times ``factor(rows, cols)``; row-major like a
+    cooler's pixel table."""
+    band = n if band is None else min(int(band), n)
+    x = np.arange(n)[:, None]
+    e = np.arange(band)[None, :]
+    lam = 80.0 / (e + 1.0) ** 0.9 * factor(x, np.minimum(x + e, n - 1))
+    lam = np.where(x + e < n, lam, 0.0)
+    counts = rng.poisson(lam).astype(np.float64)
+    rows, es = np.nonzero(counts)
+    return rows, rows + es, counts[rows, es]
+
+
+def tad_coo(rng: np.random.Generator, n: int, tad: int = 20, band=None):
+    """One chromosome's upper-triangle COO (rows, cols, vals) with planted
+    ``tad``-bin domains: Poisson counts with mean 80 / d^0.9 (d = |i - j|
+    + 1), x4 inside a domain (``scripts/perf_hg19.py``'s TAD cooler).
+    ``band`` keeps only d < band bins (None: the whole triangle)."""
+    return _band_poisson(rng, n, band,
+                         lambda i, j: np.where(i // tad == j // tad, 4.0, 1.0))
+
+
+def ab_sign(n: int, block: int = 10) -> np.ndarray:
+    """The planted compartment of each bin: +1 (A) or -1 (B), alternating
+    in ``block``-bin runs starting with A."""
+    return np.where((np.arange(n) // block) % 2 == 0, 1.0, -1.0)
+
+
+def ab_coo(rng: np.random.Generator, n: int, block: int = 10, band=None):
+    """One chromosome's upper-triangle COO (rows, cols, vals) with planted
+    A/B compartments ``s = ab_sign(n, block)``: Poisson counts with mean
+    80 / d^0.9 times (1 + 0.5 s_i s_j), and A-A pairs a further x1.2, so
+    the A side has the higher O/E and the orientation rule has a side to
+    find (with a symmetric checkerboard the A/B labels are a coin flip)."""
+    s = ab_sign(n, block)
+    return _band_poisson(
+        rng, n, band, lambda i, j: (1.0 + 0.5 * s[i] * s[j])
+        * np.where((s[i] > 0) & (s[j] > 0), 1.2, 1.0))

@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from hichap_master_tpu_torch.kernels import _build
+from hichap_master_tpu_torch.kernels import hmm_scan
 from hichap_master_tpu_torch.kernels.escalation import escalation_batch
 from hichap_master_tpu_torch.kernels.ice_sweep import IceState, ice_sweeps
 from hichap_master_tpu_torch.kernels.sparse_marginal import block_sym_matvec
@@ -19,7 +20,8 @@ def test_every_entry_point_has_a_source():
     for name in _build.SIGNATURES:
         assert f'extern "C" int {name}(' in srcs, name
     assert {p.name for p in _build.sources()} >= {
-        "ice_sweep.cu", "sparse_marginal.cu", "escalation.cu"}
+        "ice_sweep.cu", "sparse_marginal.cu", "escalation.cu",
+        "hmm_scan.cu"}
 
 
 def test_library_name_follows_the_sources(tmp_path, monkeypatch):
@@ -60,3 +62,15 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     p = torch.empty(1, 3, dtype=torch.int32, device=meta)
     with pytest.raises(RuntimeError, match="no escalation kernel"):
         escalation_batch(D, D, D, p, p, p.bool(), 1, 2, 1, 2, 0, 0)
+
+
+def test_hmm_wrappers_do_not_fall_back_off_the_cpu():
+    meta = torch.device("meta")
+    x = torch.empty(2, 8, 3, dtype=torch.float64, device=meta)
+    m = torch.empty(3, 3, dtype=torch.float64, device=meta)
+    v = torch.empty(3, dtype=torch.float64, device=meta)
+    L = torch.empty(2, dtype=torch.int64, device=meta)
+    with pytest.raises(RuntimeError, match="no HMM kernel"):
+        hmm_scan.forward_backward(x, m, v, L)
+    with pytest.raises(RuntimeError, match="no HMM kernel"):
+        hmm_scan.viterbi(x, m, v, L)

@@ -144,3 +144,14 @@ def test_single_chrom_and_allelic(coo, weights):
     with pytest.raises(NotImplementedError):
         PL.pcaller_multi(_inputs(coo, weights), RES, params, allelic=True,
                          device="cpu")
+
+
+def test_device_is_required(coo, weights):
+    """No default device: a call without one is refused, not run on the
+    CPU behind the caller's back."""
+    params = JL.peaks_parameters(RES)
+    with pytest.raises(TypeError):
+        PL.pcaller_multi(_inputs(coo, weights), RES, params)
+    r, cc, v = coo["3"]
+    with pytest.raises(TypeError):
+        PL.pcaller_chrom_coo(r, cc, v, weights["3"], SIZES["3"], RES, params)

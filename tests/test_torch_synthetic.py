@@ -69,3 +69,44 @@ def test_hap_batch_contract():
                                                   background=bg))
     far = S.hap_batch([64], 64, seed=1, background=0.5)[0].triu(40)
     assert float(far.sum()) > 0
+
+
+@pytest.mark.parametrize("band", [None, 12])
+def test_tad_coo_layout_and_planted_domains(band):
+    n, tad = 200, 20
+    rows, cols, vals = S.tad_coo(np.random.default_rng(4), n, tad, band)
+    again = S.tad_coo(np.random.default_rng(4), n, tad, band)
+    for a, b in zip((rows, cols, vals), again):
+        np.testing.assert_array_equal(a, b)
+    key = rows * n + cols
+    assert (cols >= rows).all() and (cols < n).all() and (vals > 0).all()
+    assert (np.diff(key) > 0).all()  # row-major and unique, like a cooler
+    assert (cols - rows).max() < (band or n)
+    # at distance 3, contacts inside a domain are ~4x those across one
+    d3 = cols - rows == 3
+    inside = rows // tad == cols // tad
+    M = np.zeros((n, n))
+    M[rows, cols] = vals
+    i = np.arange(n - 3)
+    same = i // tad == (i + 3) // tad
+    ratio = M[i[same], i[same] + 3].mean() / M[i[~same], i[~same] + 3].mean()
+    assert 3.0 < ratio < 5.0
+    assert d3.sum() > 0 and inside.any()
+
+
+def test_ab_coo_planted_compartments():
+    n = 300
+    rows, cols, vals = S.ab_coo(np.random.default_rng(5), n, block=10)
+    s = S.ab_sign(n, 10)
+    assert s[0] == 1 and s[10] == -1 and s[20] == 1
+    M = np.zeros((n, n))
+    M[rows, cols] = vals
+    i, j = np.triu_indices(n, 1)
+    near = j - i <= 40
+    scaled = M[i, j] * (j - i + 1.0) ** 0.9 / 80.0  # undo the decay
+    mean = {tag: scaled[near & m].mean() for tag, m in (
+        ("AA", (s[i] > 0) & (s[j] > 0)), ("BB", (s[i] < 0) & (s[j] < 0)),
+        ("AB", s[i] != s[j]))}
+    # planted weights 1.5 x 1.2, 1.5 and 0.5 of the plain decay
+    np.testing.assert_allclose([mean["AA"], mean["BB"], mean["AB"]],
+                               [1.8, 1.5, 0.5], rtol=0.05)
