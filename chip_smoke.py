@@ -41,7 +41,6 @@ every phase passed.
 import json
 import statistics
 import subprocess
-import sys
 import time
 
 import numpy as np
@@ -53,6 +52,15 @@ BACKGROUND_40KB = 0.05
 # diagonals of the synthetic 40 kb TAD input: DI reads 15 (600 kb window),
 # the gap rule 5 (200 kb); 300 bins (12 Mb) keeps the COO realistic
 TAD_BAND = 300
+# the diploid build: whole-genome and local resolutions, imputation vote
+DIPLOID_WHOLE = (500_000, 10_000)
+DIPLOID_LOCAL = (40_000,)
+DIPLOID_VOTE = dict(imputation_region=10_000_000, imputation_min=2,
+                    imputation_ratio=0.9)
+# uniform long-range share of the intra allelic pairs (see
+# synthetic.allelic_pairs: without it cis-only ICE at 40 kb needs > 200
+# iterations on every chromosome)
+CIS_FLOOR = 0.1
 
 
 def log(msg: str) -> None:
@@ -315,6 +323,102 @@ def hmm_compare(tads, dev, results):
         max_abs_err=float((vk - vp).abs().max()), ms=ms, plain_ms=plain_ms)
 
 
+# -------------------------------------------------------------- K6/K7
+def diploid_inputs(dev, lengths=None, names=None, counts=None):
+    """The diploid build's input: allelic pair classes drawn on the card
+    (GM12878-like mix of ``scripts/perf_e2e_hap.py``, 26.6 M pairs on the
+    23 hg19 chromosomes, seed 7, 10% of the intra pairs at a uniform
+    distance) and the base genome."""
+    from hichap_master_tpu_torch.core import Genome
+    from hichap_master_tpu_torch.testing.synthetic import (GM12878_MIX, HG19,
+                                                           HG19_NAMES,
+                                                           allelic_pairs)
+
+    lengths = HG19 if lengths is None else lengths
+    names = HG19_NAMES if names is None else names
+    genome = Genome(dict(zip(names, lengths)))
+    assert genome.labels == list(names)
+    classes = allelic_pairs(lengths, counts or GM12878_MIX, seed=7,
+                            device=dev, cis_floor=CIS_FLOOR)
+    return genome, classes
+
+
+def k67_compare(diploid, dev, results):
+    """K6 on pass 3's full query set of the 10 kb diploid build against
+    SparseU of its un-imputed matrix; K7 on the hybrid split of its 10 kb
+    traditional matrix with a random positive vector."""
+    from hichap_master_tpu_torch.kernels.impute_vote import (
+        impute_vote, impute_vote_plain)
+    from hichap_master_tpu_torch.kernels.segment_marginal import (
+        segment_marginal, segment_marginal_plain)
+    from hichap_master_tpu_torch.ops.sparse_hybrid import hybrid_from_coo
+    from hichap_master_tpu_torch.ops.sparse_impute import (SparseU,
+                                                           disk_row_intervals)
+    from hichap_master_tpu_torch.pipeline.matrix import (
+        build_haplotype_datasets, cooler_coo, vote_queries)
+
+    genome, classes = diploid
+    res = 10_000
+    data = build_haplotype_datasets(classes, genome, [res], [],
+                                    **DIPLOID_VOTE, device=dev)
+    S = genome.haplotype().total_bins(res)
+    su = SparseU(*data["UnImputated_Whole"][res].coo(), S)
+    L = DIPLOID_VOTE["imputation_region"] // res
+    disk = [torch.as_tensor(a, device=dev) for a in disk_row_intervals(L)]
+    args = (su.scols, su.cum, su.row_ptr,
+            *vote_queries(classes, genome, res, device=dev), *disk, S, L,
+            float(DIPLOID_VOTE["imputation_min"]),
+            float(DIPLOID_VOTE["imputation_ratio"]))
+    hk, tk = impute_vote(*args)
+    hp, tp = impute_vote_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(hk, hp), f"K6 hits differ at {int((hk != hp).sum())} "
+          "queries")
+    check(torch.equal(tk, tp), "K6 targets differ")
+    ms = median_ms(lambda: impute_vote(*args))
+    plain_ms = median_ms(lambda: impute_vote_plain(*args), 3)
+    Q = args[3].numel()
+    log(f"K6 impute_vote hg19 10 kb diploid, Q={Q} queries x 2 x "
+        f"{disk[0].numel()} disk rows, U nnz {su.nnz}: hits ({int(hk.sum())})"
+        f" and targets identical, {ms:.3f} ms kernel vs {plain_ms:.3f} ms "
+        "plain")
+    results["impute_vote"] = dict(
+        route="cuda", source="hichap_master_tpu_torch/csrc/impute_vote.cu",
+        replaces="hichap_master_tpu/ops/sparse_impute.py:198",
+        unit=f"ms per vote of pass 3's {Q} queries, hg19 10 kb diploid "
+             f"(L = {L})",
+        max_abs_err=float((tk - tp).abs().max()) if Q else 0.0, ms=ms,
+        plain_ms=plain_ms)
+
+    rows, cols, vals = cooler_coo(data["Tradition_Whole"][res], genome, res)
+    n = sum(genome.cooler_n_bins(c, res) for c in genome.labels)
+    del data, su
+    h = hybrid_from_coo(rows, cols, vals.round().long(), n,
+                        assume_unique=True)
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    b = torch.rand(n, generator=g, device=dev) + 0.5
+    sc = (h.sc_cols, h.sc_vals, h.bounds, b)
+    yk = segment_marginal(*sc)
+    yp = segment_marginal_plain(*sc)
+    torch.cuda.synchronize()
+    err = float(((yk - yp).abs() / yp.abs().clamp_min(1e-30)).max())
+    check(err <= 1e-6, f"K7 marginal differs: {err:.2e}")
+    ms = median_ms(lambda: segment_marginal(*sc))
+    plain_ms = median_ms(lambda: segment_marginal_plain(*sc))
+    P = h.sc_cols.numel()
+    log(f"K7 segment_marginal hg19 10 kb traditional, N={n} rows, P={P} "
+        f"scattered pixels ({h.sc_vals.dtype}), K={h.bm.K} tiles: max rel "
+        f"err {err:.3e} (tol 1e-6), {ms:.4f} ms kernel vs {plain_ms:.4f} ms "
+        "plain")
+    results["segment_marginal"] = dict(
+        route="cuda",
+        source="hichap_master_tpu_torch/csrc/segment_marginal.cu",
+        replaces="hichap_master_tpu/ops/sparse_hybrid.py:210",
+        unit=f"ms per scattered marginal, hg19 10 kb traditional, P = {P}",
+        max_abs_err=float((yk - yp).abs().max()), ms=ms, plain_ms=plain_ms)
+
+
 # ------------------------------------------------------------ main path
 def gw_ice(gw):
     from hichap_master_tpu_torch.kernels.sparse_marginal import \
@@ -542,6 +646,180 @@ def chr1_plain_viterbi(called, model, dev):
         f"{len(bd['boundary'])} boundaries and {len(ds)} domains")
 
 
+def _table_total(M) -> float:
+    """Sum of every cell of a count table: a dense tensor, a ``{label:
+    [n, n]}`` dict, an upper-triangle SparseGW (off-diagonal pixels count
+    twice) or a directed SparseDirectedGW."""
+    from hichap_master_tpu_torch.pipeline.matrix import SparseGW, _SparseAcc
+
+    if isinstance(M, dict):
+        return sum(_table_total(m) for m in M.values())
+    if isinstance(M, _SparseAcc):
+        r, c, v = M.coo()
+        if isinstance(M, SparseGW):
+            return float(2 * v.sum() - v[r == c].sum())
+        return float(v.sum())
+    return float(M.double().sum())
+
+
+def _pair_totals(classes, genome, dev):
+    """What the binning rules say the pairs give, per table and resolution:
+    symmetric tables count a pair twice off the diagonal and once on it;
+    single-side increments count once."""
+    from hichap_master_tpu_torch.pipeline.matrix import TAG_BOTH
+
+    nc = len(genome.labels)
+    hap = genome.haplotype()
+
+    def offs(g, res):
+        o = g.bin_offsets(res)
+        return torch.tensor([o[c][0] for c in g.labels], device=dev)
+
+    def sym(b1, b2):
+        return 2 * b1.numel() - int((b1 == b2).sum())
+
+    want = {}
+    for res in DIPLOID_WHOLE:
+        ob, oh = offs(genome, res), offs(hap, res)
+        t = u = single = 0
+        for k, (c1, p1, c2, p2, *tag) in classes.items():
+            c1, c2 = c1.long(), c2.long()
+            t += sym(p1 // res + ob[c1], p2 // res + ob[c2])
+            if k == "Bi_Allelic":
+                continue
+            h1 = 1 if k in ("P_P", "P_M") else 0
+            h2 = 1 if k in ("P_P", "M_P") else 0
+            sel = (tag[0] == TAG_BOTH) if tag else torch.ones_like(c1).bool()
+            u += sym(p1[sel] // res + oh[c1[sel] + h1 * nc],
+                     p2[sel] // res + oh[c2[sel] + h2 * nc])
+            if tag:
+                single += int(((tag[0] != TAG_BOTH) & (c1 == c2)).sum())
+        want[("Tradition", res)], want[("UnImputated", res)] = t, u
+        want[("single", res)] = single
+    for res in DIPLOID_LOCAL:
+        t = u = 0
+        for k, (c1, p1, c2, p2, *tag) in classes.items():
+            intra = c1 == c2
+            t += sym(p1[intra] // res, p2[intra] // res)
+            if tag:
+                sel = intra & (tag[0] == TAG_BOTH)
+                u += sym(p1[sel] // res, p2[sel] // res)
+        want[("Tradition", res)], want[("UnImputated", res)] = t, u
+    return want
+
+
+def diploid_stage(diploid, dev):
+    """The diploid matrix stage at full size through
+    ``haplotype_matrix_construction``: per-step walls, then the checks."""
+    from hichap_master_tpu_torch.pipeline.matrix import \
+        haplotype_matrix_construction
+
+    genome, classes = diploid
+    walls = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = haplotype_matrix_construction(
+        {"GM12878_R1_": classes}, genome, DIPLOID_WHOLE, DIPLOID_LOCAL,
+        **DIPLOID_VOTE, device=dev, walls=walls)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    r = out["GM12878_R1_"]
+    data, ice, st = r["data"], r["tradition"]["ice"], r["data"]["stats"]
+    n_pairs = sum(c[0].numel() for c in classes.values())
+    res_hi, res_lo = min(DIPLOID_WHOLE), max(DIPLOID_WHOLE)
+    loc = DIPLOID_LOCAL[0]
+    log(f"main: diploid matrix construction, {n_pairs} allelic pairs, whole "
+        f"{res_lo // 1000} kb + {res_hi // 1000} kb, local {loc // 1000} kb:"
+        f" {wall:.3f} s")
+    for name in ("pass1", "pass2", "vote_setup", "vote", "correction",
+                 f"weights_cis_{loc}", f"weights_gw_{res_lo}_dense",
+                 f"weights_gw_{res_hi}_hybrid"):
+        extra = ""
+        if name.startswith("weights"):
+            it = ice[int(name.split("_")[2])]["iters"]
+            extra = (f", ICE iterations {min(it)}-{max(it)}" if len(it) > 1
+                     else f", ICE {it[0]} iterations")
+        if name == "vote":
+            extra = ", " + ", ".join(
+                f"{res // 1000} kb: {st['vote_hits'][res]} of "
+                f"{st['vote_queries'][res]} queries hit"
+                for res in DIPLOID_WHOLE)
+        log(f"main:   {name}: {walls[name]:.3f} s{extra}")
+
+    want = _pair_totals(classes, genome, dev)
+    worst = 0
+    for kind in ("Tradition", "UnImputated"):
+        for res in DIPLOID_WHOLE + DIPLOID_LOCAL:
+            part = "Whole" if res in DIPLOID_WHOLE else "Local"
+            got = _table_total(data[f"{kind}_{part}"][res])
+            check(got == want[(kind, res)], f"{kind} {res}: table sums to "
+                  f"{got}, the pairs give {want[(kind, res)]}")
+    for res in DIPLOID_WHOLE:
+        check(st["single_side"][res] == want[("single", res)],
+              f"single-side {res}: {st['single_side'][res]} vs "
+              f"{want[('single', res)]}")
+        imp = _table_total(data["Imputated_Whole"][res])
+        exp = (want[("UnImputated", res)] + want[("single", res)]
+               + st["vote_hits"][res])
+        check(imp == exp, f"imputed {res}: total {imp}, un-imputed + "
+              f"single-side + vote hits = {exp}")
+    check(st["vote_hits"][res_hi] > 0, "the 10 kb vote hit nothing")
+    for c, m in data["Imputated_Local"][loc].items():
+        raw = float(m.double().sum())
+        cor = r["imputated"]["local"][loc][c]
+        check(bool(torch.isfinite(cor).all()), f"corrected {c}: not finite")
+        worst = max(worst, abs(float(cor.double().sum()) - raw) / raw)
+    for res in DIPLOID_WHOLE:
+        cor = r["imputated"]["whole"][res]
+        if isinstance(cor, tuple):
+            rr, cc, v = cor
+            tot = float(v.sum() + v[rr != cc].sum())
+        else:
+            tot = float(cor.double().sum())
+        raw = _table_total(data["Imputated_Whole"][res])
+        worst = max(worst, abs(tot - raw) / raw)
+    check(worst <= 1e-4, f"corrected sums off the raw sums by {worst:.2e}")
+    for res, s in ice.items():
+        check(s["converged"], f"ICE {res} did not converge: {s['iters']}")
+        w = r["tradition"]["weights"][res]
+        check(bool(torch.isfinite(w).any()), f"ICE {res}: no weights")
+    log(f"main:   checks: every table sums to what its rule gives the pairs,"
+        f" imputed = un-imputed + single-side + vote hits, corrected sums "
+        f"within {worst:.1e} of the raw sums, every ICE converged")
+    return r, genome
+
+
+def hybrid_plain(stage, dev):
+    """The 10 kb hybrid weights again through the plain K2 and K7."""
+    from hichap_master_tpu_torch.kernels.segment_marginal import \
+        segment_marginal_plain
+    from hichap_master_tpu_torch.kernels.sparse_marginal import \
+        block_sym_matvec_plain
+    from hichap_master_tpu_torch.ops.sparse_hybrid import (hybrid_from_coo,
+                                                           ice_balance_hybrid)
+    from hichap_master_tpu_torch.pipeline.matrix import cooler_coo
+
+    r, genome = stage
+    res = min(DIPLOID_WHOLE)
+    rows, cols, vals = cooler_coo(r["tradition"]["whole"][res], genome, res)
+    n = sum(genome.cooler_n_bins(c, res) for c in genome.labels)
+    h = hybrid_from_coo(rows, cols, vals.round().long(), n,
+                        assume_unique=True)
+    wp, sp = ice_balance_hybrid(h, tile_matvec=block_sym_matvec_plain,
+                                scattered=segment_marginal_plain)
+    wk = r["tradition"]["weights"][res]
+    fk, fp = torch.isfinite(wk), torch.isfinite(wp)
+    check(torch.equal(fk, fp), f"hybrid weights: NaN sets differ at "
+          f"{int((fk != fp).sum())} bins")
+    err = float(((wk[fk] - wp[fp]).abs() / wp[fp].abs()).max())
+    check(err <= 1e-4,
+          f"hybrid weights differ from plain K2 + K7 by {err:.2e}")
+    log(f"{res // 1000} kb hybrid weights through the plain K2 + K7: "
+        f"{int(sp['iters'])} iterations (kernels: "
+        f"{r['tradition']['ice'][res]['iters'][0]}), same NaN set, max rel "
+        f"diff {err:.2e} (tol 1e-4)")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device visible")
@@ -549,6 +827,9 @@ def main() -> None:
     from hichap_master_tpu_torch.kernels import hmm_scan
     from hichap_master_tpu_torch.kernels.escalation import escalation_batch
     from hichap_master_tpu_torch.kernels.ice_sweep import ice_sweeps
+    from hichap_master_tpu_torch.kernels.impute_vote import impute_vote
+    from hichap_master_tpu_torch.kernels.segment_marginal import \
+        segment_marginal
     from hichap_master_tpu_torch.kernels.sparse_marginal import \
         block_sym_matvec
 
@@ -574,13 +855,31 @@ def main() -> None:
     k3_compare(loops, dev, results)
     tads = tad_inputs()
     hmm_compare(tads, dev, results)
+    diploid = diploid_inputs(dev)
+    k67_compare(diploid, dev, results)
+    torch.cuda.empty_cache()
 
     counters = {"ice_sweep": ice_sweeps, "sparse_marginal": block_sym_matvec,
                 "escalation": escalation_batch,
                 "hmm_forward_backward": hmm_scan.forward_backward,
-                "hmm_viterbi": hmm_scan.viterbi}
-    for fn in counters.values():
-        fn.launches = 0
+                "hmm_viterbi": hmm_scan.viterbi,
+                "impute_vote": impute_vote,
+                "segment_marginal": segment_marginal}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read(path, needed):
+        got = {k: fn.launches for k, fn in counters.items()}
+        log(f"launches on the {path} path: {got}")
+        for k in needed:
+            check(got[k] > 0, f"kernel {k} was not launched on the {path} "
+                  "path")
+        return got
+
+    # the analysis suite: matrices in, weights and calls out
+    reset()
     gw_ice(gw)
     del gw
     torch.cuda.empty_cache()
@@ -590,15 +889,24 @@ def main() -> None:
     torch.cuda.empty_cache()
     compartments(dev)
     tad_called, model = tad_call(tads, dev)
-    launches = {k: fn.launches for k, fn in counters.items()}
-    log(f"launches on the main path: {launches}")
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on the main path")
+    analysis = read("analysis", ("ice_sweep", "sparse_marginal",
+                                 "escalation", "hmm_forward_backward",
+                                 "hmm_viterbi"))
+    # the diploid matrix stage: allelic pairs in, matrices and weights out
+    reset()
+    stage = diploid_stage(diploid, dev)
+    diploid_l = read("diploid", ("ice_sweep", "sparse_marginal",
+                                 "impute_vote", "segment_marginal"))
+    del diploid
+    torch.cuda.empty_cache()
     chr1_plain_ladder(loops, dev, called)
     chr1_plain_viterbi(tad_called, model, dev)
+    hybrid_plain(stage, dev)
 
-    kernels = [dict(name=k, launches=launches[k], **results[k])
-               for k in counters]
+    kernels = [dict(name=k, launches=analysis[k] + diploid_l[k],
+                    launches_by_path={"analysis": analysis[k],
+                                      "diploid": diploid_l[k]},
+                    **results[k]) for k in counters]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,21 @@
 """hichap_master_tpu_torch — the PyTorch/CUDA port of hichap_master_tpu.
 
-The slice ported here is the analysis main path: dense per-chromosome ICE,
-genome-wide block-sparse ICE and HICCUPS loop calling.  Plain tensor code is
-PyTorch; the three kernels the JAX package wrote in Pallas are hand-written
-CUDA C++ for Hopper (``csrc/``), built with ``nvcc`` at first use.  On a CPU
-tensor every kernel wrapper runs its plain PyTorch version instead, which is
-what the parity tests against the JAX package exercise.
+What is ported: the analysis suite (dense per-chromosome ICE, genome-wide
+block-sparse ICE, HICCUPS loop calling, the two-step correction,
+compartments and TADs) and the contact-matrix stage that feeds it
+(``pipeline.matrix``: binning of valid or allelic pairs, the haplotype
+imputation vote, the genome-wide and local corrections and the ICE weights,
+with the hybrid tile + scattered-COO balance past the dense cap).  Plain
+tensor code is PyTorch; every kernel is hand-written CUDA C++ for Hopper
+(``csrc/``), built with ``nvcc`` at first use: the three the JAX package
+wrote in Pallas (K1-K3) and four port-only ones (K4/K5 for the TAD HMM's
+recurrences, K6 the sparse imputation vote, K7 the scattered marginal).  On
+a CPU tensor every kernel wrapper runs its plain PyTorch version instead,
+which is what the parity tests against the JAX package exercise.
 
-The package never imports ``jax``, nor anything of the JAX package.
+Entry points take arrays in memory and an explicit ``device``: bed
+reading and cooler writing are not ported.  The package never imports
+``jax``, nor anything of the JAX package.
 """
 
 from .device import set_precision

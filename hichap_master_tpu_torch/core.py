@@ -1,8 +1,25 @@
-"""Shape helpers shared by the port (counterpart of
-``hichap_master_tpu/core/contacts.py``, copied so the port imports nothing
-of the JAX package)."""
+"""Genome bookkeeping and shape helpers shared by the port (counterparts of
+``hichap_master_tpu/core/genome.py`` and ``hichap_master_tpu/core/
+contacts.py``, copied so the port imports nothing of the JAX package).
+
+Conventions (the reference's, HiCHap/matrixBuilding.py:349-454):
+
+* chromosome labels are stored without the ``chr`` prefix;
+* a chroms filter like ``['#', 'X']`` selects every numeric chromosome plus
+  X (``'#'`` means "any purely numeric label"); an empty filter selects all;
+* matrices use ``n_bins = length // res + 1`` bins per chromosome, cooler
+  bin tables ``ceil(length / res)``; the trailing matrix bin is empty
+  whenever the two differ;
+* the diploid registry lists ``M<label>`` for every chromosome, then
+  ``P<label>``.
+"""
 
 from __future__ import annotations
+
+import os
+from typing import Dict, Iterable, List, Mapping, Sequence, Tuple
+
+DEFAULT_CHROMS = ("#", "X")
 
 
 def pad_to_bucket(n: int, bucket: int = 128) -> int:
@@ -26,3 +43,93 @@ def pad_to_shape(n: int, bucket: int = 128) -> int:
         p = -(-p * 3 // 2)            # ceil x1.5
         p = -(-p // bucket) * bucket  # keep the alignment
     return p
+
+
+def bucket_groups(labels: Sequence[str], n_bins: Mapping[str, int],
+                  bucket: int = 512, ladder: bool = False):
+    """Group chromosomes whose padded sizes coincide: by multiples of
+    ``bucket``, or by the ``pad_to_shape`` ladder with ``ladder=True``.
+    Returns ``[(group_labels, padded_size), ...]`` by increasing size."""
+    by_size: Dict[int, List[str]] = {}
+    for c in labels:
+        N = pad_to_shape(n_bins[c]) if ladder else pad_to_bucket(
+            n_bins[c], bucket)
+        by_size.setdefault(N, []).append(c)
+    return [(v, k) for k, v in sorted(by_size.items())]
+
+
+def strip_chr(label: str) -> str:
+    """Remove a leading ``chr`` prefix."""
+    return label[3:] if label.startswith("chr") else label
+
+
+def chrom_check(label: str, chroms: Sequence[str]) -> bool:
+    """Membership test with the ``'#'`` = "numeric" convention."""
+    c = strip_chr(label)
+    if not chroms:
+        return True
+    return (c.isdigit() and "#" in chroms) or (c in chroms)
+
+
+def sort_chromosomes(labels: Iterable[str]) -> List[str]:
+    """Numeric labels sorted numerically first, then the others lexically
+    (labels kept verbatim apart from the ``chr`` prefix)."""
+    nums: List[str] = []
+    strs: List[str] = []
+    for raw in labels:
+        c = strip_chr(raw)
+        (nums if c.isdigit() else strs).append(c)
+    return sorted(nums, key=int) + sorted(strs)
+
+
+class Genome:
+    """Ordered chromosome -> length registry with bin arithmetic."""
+
+    def __init__(self, sizes: Mapping[str, int],
+                 chroms: Sequence[str] = DEFAULT_CHROMS):
+        filtered = {strip_chr(c): int(l) for c, l in sizes.items()
+                    if chrom_check(c, chroms)}
+        self.labels: List[str] = sort_chromosomes(filtered.keys())
+        self.sizes: Dict[str, int] = {c: filtered[c] for c in self.labels}
+
+    @classmethod
+    def from_file(cls, genome_size_path: str | os.PathLike,
+                  chroms: Sequence[str] = DEFAULT_CHROMS) -> "Genome":
+        sizes: Dict[str, int] = {}
+        with open(genome_size_path) as f:
+            for line in f:
+                parts = line.split()
+                if len(parts) >= 2:
+                    sizes[parts[0]] = int(parts[1])
+        return cls(sizes, chroms)
+
+    def haplotype(self) -> "Genome":
+        """Diploid registry ``M1..Mn, P1..Pn``."""
+        g = Genome.__new__(Genome)
+        g.labels = ([f"M{c}" for c in self.labels]
+                    + [f"P{c}" for c in self.labels])
+        g.sizes = {f"{h}{c}": self.sizes[c] for h in "MP"
+                   for c in self.labels}
+        return g
+
+    def n_bins(self, label: str, res: int) -> int:
+        """Matrix bin count: ``length // res + 1``."""
+        return self.sizes[label] // res + 1
+
+    def cooler_n_bins(self, label: str, res: int) -> int:
+        """Cooler bin-table count: ``ceil(length / res)``."""
+        return -(-self.sizes[label] // res)
+
+    def bin_offsets(self, res: int) -> Dict[str, Tuple[int, int]]:
+        """Genome-wide (start, end) inclusive matrix bin range per
+        chromosome, in registry order."""
+        out: Dict[str, Tuple[int, int]] = {}
+        start = 0
+        for c in self.labels:
+            nb = self.n_bins(c, res)
+            out[c] = (start, start + nb - 1)
+            start += nb
+        return out
+
+    def total_bins(self, res: int) -> int:
+        return sum(self.n_bins(c, res) for c in self.labels)

@@ -42,6 +42,9 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _I, _P],
     "hmm_forward_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "hmm_viterbi": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "impute_vote": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                    _F, _F, _P, _P, _P],
+    "segment_marginal": [_P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 

@@ -192,15 +192,25 @@ def sparse_ice_balance(tiles: torch.Tensor, brow: torch.Tensor,
               or bool((brow > bcol).any())):
         raise ValueError("block coordinates must satisfy "
                          "0 <= brow <= bcol < R")
-    dev = tiles.device
     N = R * T
     tiles = zero_tile_diagonals(tiles, brow, bcol, ignore_diags)
-
-    valid = torch.arange(N, device=dev) < n
+    valid = torch.arange(N, device=tiles.device) < n
     ones = valid.to(torch.float32)
     marg0 = block_sym_matvec(tiles, brow, bcol, ones, R=R, T=T) * ones
     nnz = block_sym_matvec((tiles != 0).to(torch.float32), brow, bcol, ones,
                            R=R, T=T)
+    keep = ice_keep(valid, marg0, nnz, mad_max=mad_max, min_nnz=min_nnz,
+                    min_count=min_count)
+    tiles_it = tiles.to(torch.bfloat16) if fast else tiles
+    return ice_iterate(
+        lambda b: block_sym_matvec(tiles_it, brow, bcol, b, R=R, T=T),
+        keep, tol=tol, max_iters=max_iters)
+
+
+def ice_keep(valid: torch.Tensor, marg0: torch.Tensor, nnz: torch.Tensor, *,
+             mad_max: int, min_nnz: int, min_count: int) -> torch.Tensor:
+    """The bins ICE keeps: nonzero count, marginal and MAD-max filters
+    (cooler's defaults) over the first marginal ``marg0``."""
     keep = valid & (nnz >= min_nnz) & (marg0 >= min_count)
     if mad_max > 0:
         sel = keep & (marg0 > 0)
@@ -209,8 +219,15 @@ def sparse_ice_balance(tiles: torch.Tensor, brow: torch.Tensor,
         med = masked_median(logm, sel)
         dev_ = masked_median((logm - med).abs(), sel)
         keep = keep & (marg0 >= torch.exp(med - mad_max * dev_))
+    return keep
 
-    tiles_it = tiles.to(torch.bfloat16) if fast else tiles
+
+def ice_iterate(matvec, keep: torch.Tensor, *, tol: float, max_iters: int):
+    """ICE iterations ``marg = matvec(b) * b`` from ``b = keep`` until the
+    variance of the nonzero marginals is below ``tol`` or ``max_iters``,
+    reading the stop flag on the host every ``CHECK_EVERY`` iterations.
+    Returns (weights, stats) as ``sparse_ice_balance``."""
+    dev = keep.device
     b = keep.to(torch.float32)
     iters = torch.zeros((), dtype=torch.int32, device=dev)
     var = torch.full((), float("inf"), device=dev)
@@ -218,7 +235,7 @@ def sparse_ice_balance(tiles: torch.Tensor, brow: torch.Tensor,
     active = torch.tensor(max_iters > 0, device=dev)
     for start in range(0, max_iters, CHECK_EVERY):
         for _ in range(min(CHECK_EVERY, max_iters - start)):
-            marg = block_sym_matvec(tiles_it, brow, bcol, b, R=R, T=T) * b
+            marg = matvec(b) * b
             nz = marg != 0
             mean = masked_mean(marg, nz)
             v = masked_var(marg, nz)
@@ -237,6 +254,44 @@ def sparse_ice_balance(tiles: torch.Tensor, brow: torch.Tensor,
     stats = {"scale": scale, "var": var, "iters": iters,
              "converged": var < tol}
     return w, stats
+
+
+def genomewide_correction_coo(rows: torch.Tensor, cols: torch.Tensor,
+                              vals: torch.Tensor, alpha: torch.Tensor,
+                              n: int, vc_alpha: float = 2.0 / 3.0):
+    """Genome-wide two-step correction on directed COO (float64 on the
+    device of the input), the closed form of ``ops.correct.
+    genomewide_correction`` (HiCHap/matrixBuilding.py:857-901):
+
+        folded[i<=j] = v(i,j)/alpha[i] + v(j,i)/alpha[j]
+        f = rowsum(folded_sym) ** vc_alpha      (0 rows -> 1)
+        cor = folded / (f[i] * f[j]),  rescaled to the raw total
+
+    Each folded key has at most two terms, and a two-term float64 sum does
+    not depend on their order, so one device sort and an ``index_add_``
+    give bit-identical folded values with no ordering to control.
+    Returns sorted upper-triangle (rows, cols, vals)."""
+    rows, cols = rows.long(), cols.long()
+    vals = vals.to(torch.float64)
+    a = torch.ones(n, dtype=torch.float64, device=vals.device)
+    m = min(alpha.numel(), n)
+    a[:m] = alpha[:m].to(device=vals.device, dtype=torch.float64)
+    scaled = vals / a[rows]
+    keys, order = torch.sort(torch.minimum(rows, cols) * n
+                             + torch.maximum(rows, cols))
+    k, inv = torch.unique_consecutive(keys, return_inverse=True)
+    fv = torch.zeros(k.numel(), dtype=torch.float64, device=vals.device)
+    fv.index_add_(0, inv, scaled[order])
+    r_u, c_u = k // n, k % n
+    off = r_u != c_u
+    s1 = torch.zeros(n, dtype=torch.float64, device=vals.device)
+    s1.index_add_(0, r_u, fv)
+    s1.index_add_(0, c_u[off], fv[off])
+    f = torch.where(s1 == 0, torch.ones_like(s1), s1 ** vc_alpha)
+    cor = fv / (f[r_u] * f[c_u])
+    cor_total = cor.sum() + cor[off].sum()
+    rf = vals.sum() / cor_total.clamp_min(torch.finfo(torch.float64).tiny)
+    return r_u, c_u, rf * cor
 
 
 def ice_balance_blocks(bm: BlockMatrix, device=None, **kw):

@@ -1,0 +1,785 @@
+"""Contact-matrix construction, traditional and haplotype-resolved, on the
+device.
+
+Counterpart of ``hichap_master_tpu/pipeline/matrix.py`` minus the bed
+reading and the cooler writing: pairs come in as arrays, and the matrices,
+corrected matrices, gap lists and ICE weights come out as tensors (the
+weights in cooler bins, as ``cooler balance`` would store them).
+
+Where the JAX package keeps most of this stage on the host (TPU scatter
+serialises, so it bins with ``np.bincount`` and a native hash), the port
+accumulates on the device: dense targets by ``index_add_`` of integer
+keys, genome-wide targets past the dense cap (``dense_max_bins``, 65,536
+bins as in the JAX package) by one sort of int64 keys and
+``unique_consecutive``.  The counts are integers, so every sum is exact and
+independent of the order of the adds; the integer tables equal the JAX
+package's.
+
+The haplotype build keeps the JAX package's three passes and its fixes of
+the reference's P_P and R2 bugs (DIVERGENCES.md):
+
+1. all five allelic classes -> the traditional matrices;
+2. M_M/P_P/M_P/P_M -> the un-imputed haplotype matrices, plus the
+   single-side intra increments of M_M/P_P (R1 at [b1, b2], R2 at
+   [b2, b1]);
+3. the single-side inter M_M/P_P contacts vote between their same- and
+   cross-haplotype candidates against the finished un-imputed matrix
+   (dense disk gather under the cap, K6 past it).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Dict, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from ..core import Genome, bucket_groups, pad_to_shape
+from ..ops.balance import ice_balance, ice_balance_batch
+from ..ops.binning import (bin_genomewide_bins,
+                           bin_genomewide_single_triangle_bins, bin_intra,
+                           bin_intra_single_side)
+from ..ops.correct import (genomewide_alpha, genomewide_alpha_margins,
+                           genomewide_correction, two_step_correction_batch)
+from ..ops.imputation import disk_offsets, impute_inter_chunk
+from ..ops.sparse import genomewide_correction_coo
+from ..ops.sparse_hybrid import hybrid_from_coo, ice_balance_hybrid
+from ..ops.sparse_impute import (SparseU, disk_row_intervals,
+                                 sparse_impute_vote_rowptr)
+
+DENSE_GW_MAX_BINS = 65_536
+TAG_BOTH, TAG_R1, TAG_R2 = 0, 1, 2
+ALLELIC_CLASSES = ("Bi_Allelic", "M_M", "P_P", "M_P", "P_M")
+
+
+# ---------------------------------------------------------- accumulators
+class _SparseAcc:
+    """Sorted-unique int64 keys with float64 counts on the device.  Pending
+    keys merge in by one sort once ``compact_every`` have arrived (and on
+    every read)."""
+
+    def __init__(self, S: int, device, compact_every: int = 1 << 26):
+        self.S = S
+        self.device = torch.device(device)
+        self.keys = torch.zeros(0, dtype=torch.int64, device=self.device)
+        self.cnts = torch.zeros(0, dtype=torch.float64, device=self.device)
+        self._pend = []
+        self._pend_n = 0
+        self._compact_every = compact_every
+
+    def _push(self, keys: torch.Tensor, w: torch.Tensor | None = None):
+        if w is None:
+            w = torch.ones(keys.numel(), dtype=torch.float64,
+                           device=self.device)
+        self._pend.append((keys, w.to(torch.float64)))
+        self._pend_n += keys.numel()
+        if self._pend_n >= self._compact_every:
+            self._compact()
+
+    def _compact(self) -> None:
+        if not self._pend:
+            return
+        keys = torch.cat([self.keys] + [k for k, _ in self._pend])
+        w = torch.cat([self.cnts] + [v for _, v in self._pend])
+        keys, order = torch.sort(keys)
+        self.keys, inv = torch.unique_consecutive(keys, return_inverse=True)
+        self.cnts = torch.zeros(self.keys.numel(), dtype=torch.float64,
+                                device=self.device)
+        self.cnts.index_add_(0, inv, w[order])
+        self._pend, self._pend_n = [], 0
+
+    def _inb(self, a, b):
+        a = torch.as_tensor(a, device=self.device).long()
+        b = torch.as_tensor(b, device=self.device).long()
+        ok = (a >= 0) & (a < self.S) & (b >= 0) & (b < self.S)
+        return a[ok], b[ok], ok
+
+    def coo(self):
+        """(rows, cols, counts) sorted by (row, col); counts float64."""
+        self._compact()
+        return self.keys // self.S, self.keys % self.S, self.cnts
+
+    def sum(self) -> float:
+        self._compact()
+        return float(self.cnts.sum())
+
+    def __add__(self, other):
+        if not isinstance(other, type(self)):
+            if other == 0:  # sum() starts from 0
+                return self
+            return NotImplemented
+        assert self.S == other.S
+        out = type(self)(self.S, self.device)
+        for acc in (self, other):
+            acc._compact()
+            out._push(acc.keys, acc.cnts)
+        out._compact()
+        return out
+
+    __radd__ = __add__
+
+
+class SparseGW(_SparseAcc):
+    """Symmetric genome-wide counts as upper-triangle keys ``lo * S + hi``
+    (diagonal counted once; out-of-bounds bins dropped)."""
+
+    def add(self, b1, b2) -> None:
+        b1, b2, _ = self._inb(b1, b2)
+        self._push(torch.minimum(b1, b2) * self.S + torch.maximum(b1, b2))
+
+
+class SparseDirectedGW(_SparseAcc):
+    """Directed genome-wide counts (the asymmetric imputed matrix):
+    literal (row, col) increments, and a symmetric COO folded in with both
+    orientations."""
+
+    def add_directed(self, r, c, w=None) -> None:
+        r, c, ok = self._inb(r, c)
+        self._push(r * self.S + c, None if w is None
+                   else torch.as_tensor(w, device=self.device)[ok])
+
+    def add_symmetric(self, rows, cols, vals) -> None:
+        rows, cols = rows.long(), cols.long()
+        off = rows != cols
+        self._push(rows * self.S + cols, vals)
+        self._push(cols[off] * self.S + rows[off], vals[off])
+
+
+class _GWAcc:
+    """A genome-wide target: a dense ``[S, S]`` float32 tensor up to the
+    dense cap, a sparse accumulator past it.  ``add_sym`` is the symmetric
+    rule (diagonal once), ``add_directed`` the literal single-triangle
+    rule."""
+
+    def __init__(self, S: int, sparse: bool, device, directed: bool = False):
+        self.S = S
+        self.sparse = sparse
+        if sparse:
+            self.acc = (SparseDirectedGW if directed else SparseGW)(S, device)
+        else:
+            self.dense = torch.zeros(S, S, dtype=torch.float32, device=device)
+
+    def add_sym(self, b1, b2) -> None:
+        if self.sparse:
+            self.acc.add(b1, b2)
+        else:
+            bin_genomewide_bins(self.dense, b1, b2)
+
+    def add_directed(self, r, c) -> None:
+        if self.sparse:
+            self.acc.add_directed(r, c)
+        else:
+            bin_genomewide_single_triangle_bins(self.dense, r, c)
+
+    def finish(self):
+        """The dense tensor, or the sparse accumulator."""
+        return self.acc if self.sparse else self.dense
+
+
+class _IntraAcc:
+    """Per-chromosome intra matrices as ``[G, N, N]`` blocks, one per group
+    of chromosomes with the same padded size (``bucket_groups``, multiples
+    of 512), filled by ``bin_intra`` (or ``bin_intra_single_side``).
+    ``finish`` returns each chromosome's ``[n, n]`` view.  Bins past a
+    chromosome's padded size are dropped, as XLA drops out-of-bounds
+    scatter updates."""
+
+    def __init__(self, genome: Genome, res: int, device,
+                 single_side: bool = False):
+        self.res = res
+        self.single = single_side
+        self.nb = {c: genome.n_bins(c, res) for c in genome.labels}
+        groups = bucket_groups(genome.labels, self.nb)
+        label_idx = {c: i for i, c in enumerate(genome.labels)}
+        group = np.zeros(len(genome.labels), np.int64)
+        slot = np.zeros(len(genome.labels), np.int64)
+        self._views = []
+        for gi, (labels, _N) in enumerate(groups):
+            for k, c in enumerate(labels):
+                group[label_idx[c]], slot[label_idx[c]] = gi, k
+                self._views.append((c, gi, k))
+        self._group = torch.as_tensor(group, device=device)
+        self._slot = torch.as_tensor(slot, device=device)
+        self.blocks = [torch.zeros(len(labels), N, N, dtype=torch.float32,
+                                   device=device) for labels, N in groups]
+
+    def add(self, c1, p1, c2, p2, tags=None) -> None:
+        c1, c2 = c1.long(), c2.long()
+        intra = c1 == c2
+        for gi, blk in enumerate(self.blocks):
+            sel = intra & (self._group[c1] == gi)
+            s = self._slot[c1[sel]]
+            if self.single:
+                bin_intra_single_side(blk, s, p1[sel], s, p2[sel],
+                                      tags[sel] == TAG_R1, self.res)
+            else:
+                bin_intra(blk, s, p1[sel], s, p2[sel], self.res)
+
+    def _out(self, blocks) -> Dict[str, torch.Tensor]:
+        return {c: blocks[gi][k, :self.nb[c], :self.nb[c]]
+                for c, gi, k in self._views}
+
+    def finish(self) -> Dict[str, torch.Tensor]:
+        return self._out(self.blocks)
+
+    def finish_plus(self, other: "_IntraAcc") -> Dict[str, torch.Tensor]:
+        """Per-chromosome views of (self + other), one add per group."""
+        return self._out([a + b for a, b in zip(self.blocks, other.blocks)])
+
+
+# ----------------------------------------------------------------- helpers
+def _offsets(genome: Genome, res: int, device) -> torch.Tensor:
+    offs = genome.bin_offsets(res)
+    return torch.as_tensor([offs[c][0] for c in genome.labels],
+                           dtype=torch.int64, device=device)
+
+
+def _columns(part, device):
+    """Pair columns as int64 tensors (a tag column, when present, int8)."""
+    cols = [torch.as_tensor(a, device=device).long() for a in part[:4]]
+    if len(part) > 4:
+        cols.append(torch.as_tensor(part[4], device=device).to(torch.int8))
+    return tuple(cols)
+
+
+@contextlib.contextmanager
+def _step(walls, name: str, device):
+    """Wall seconds of a step into ``walls[name]`` (synchronising the
+    device before and after) when ``walls`` is a dict."""
+    if walls is None:
+        yield
+        return
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    yield
+    if cuda:
+        torch.cuda.synchronize(device)
+    walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+
+
+def _gw_sparse(genome: Genome, res: int, dense_max_bins: int) -> bool:
+    return genome.total_bins(res) > dense_max_bins
+
+
+# ------------------------------------------------------ traditional build
+def build_traditional(pairs, genome: Genome, whole_res: Sequence[int],
+                      local_res: Sequence[int], *, device,
+                      dense_max_bins: int = DENSE_GW_MAX_BINS):
+    """Traditional matrices of one replicate from valid pairs
+    ``(c1, p1, c2, p2)`` (chromosome indices into ``genome.labels``,
+    positions in bp).  Returns (whole {res: [S, S] tensor or SparseGW},
+    local {res: {chrom: [n, n]}})."""
+    c1, p1, c2, p2 = _columns(pairs, device)
+    whole = {}
+    for res in whole_res:
+        acc = _GWAcc(genome.total_bins(res),
+                     _gw_sparse(genome, res, dense_max_bins), device)
+        offs = _offsets(genome, res, device)
+        acc.add_sym(p1 // res + offs[c1], p2 // res + offs[c2])
+        whole[res] = acc.finish()
+    local = {}
+    for res in local_res:
+        acc = _IntraAcc(genome, res, device)
+        acc.add(c1, p1, c2, p2)
+        local[res] = acc.finish()
+    return whole, local
+
+
+# -------------------------------------------------------- haplotype build
+def build_haplotype_datasets(
+    classes: Mapping[str, tuple], genome: Genome, whole_res: Sequence[int],
+    local_res: Sequence[int], imputation_region: int = 10_000_000,
+    imputation_min: int = 2, imputation_ratio: float = 0.9, *, device,
+    dense_max_bins: int = DENSE_GW_MAX_BINS, walls: dict | None = None,
+):
+    """One replicate: every matrix of the haplotype pipeline.
+
+    ``classes`` maps each of ``ALLELIC_CLASSES`` to ``(c1, p1, c2, p2)``
+    arrays, with a tag column (``TAG_BOTH``/``TAG_R1``/``TAG_R2``) for M_M
+    and P_P.  Returns a dict with Tradition_Whole/Tradition_Local/
+    UnImputated_*/Imputated_* (genome-wide entries dense ``[S, S]`` float32
+    up to ``dense_max_bins`` bins, ``SparseGW``/``SparseDirectedGW`` past
+    it; local entries ``{label: [n, n]}``) and ``stats``: the single-side
+    increments, vote queries and vote hits per genome-wide resolution.
+    ``walls`` (a dict) receives the seconds of pass1, pass2, vote_setup and
+    vote."""
+    hap = genome.haplotype()
+    nc = len(genome.labels)
+    whole_res, local_res = list(whole_res or []), list(local_res or [])
+    cols = {k: _columns(classes[k], device) for k in ALLELIC_CLASSES}
+    offs = {res: _offsets(hap, res, device) for res in whole_res}
+    stats = {"single_side": {}, "vote_queries": {}, "vote_hits": {}}
+
+    with _step(walls, "pass1", device):
+        twhole = {res: _GWAcc(genome.total_bins(res),
+                              _gw_sparse(genome, res, dense_max_bins),
+                              device) for res in whole_res}
+        tlocal = {res: _IntraAcc(genome, res, device) for res in local_res}
+        base = {res: _offsets(genome, res, device) for res in whole_res}
+        for k in ALLELIC_CLASSES:
+            c1, p1, c2, p2 = cols[k][:4]
+            for res in whole_res:
+                twhole[res].add_sym(p1 // res + base[res][c1],
+                                    p2 // res + base[res][c2])
+            for res in local_res:
+                tlocal[res].add(c1, p1, c2, p2)
+        tradition_whole = {res: twhole[res].finish() for res in whole_res}
+        tradition_local = {res: tlocal[res].finish() for res in local_res}
+
+    with _step(walls, "pass2", device):
+        sparse = {res: _gw_sparse(hap, res, dense_max_bins)
+                  for res in whole_res}
+        S = {res: hap.total_bins(res) for res in whole_res}
+        uwhole = {res: _GWAcc(S[res], sparse[res], device)
+                  for res in whole_res}
+        swhole = {res: _GWAcc(S[res], sparse[res], device, directed=True)
+                  for res in whole_res}
+        ulocal = {res: {h: _IntraAcc(genome, res, device) for h in "MP"}
+                  for res in local_res}
+        slocal = {res: {h: _IntraAcc(genome, res, device, single_side=True)
+                        for h in "MP"} for res in local_res}
+        for k, h1, h2 in (("M_M", 0, 0), ("P_P", 1, 1), ("M_P", 0, 1),
+                          ("P_M", 1, 0)):
+            side = "M" if h1 == 0 else "P"
+            c1, p1, c2, p2 = cols[k][:4]
+            tagged = k in ("M_M", "P_P")
+            both = (cols[k][4] == TAG_BOTH) if tagged else None
+            bc1, bp1, bc2, bp2 = ((t[both] for t in (c1, p1, c2, p2))
+                                  if tagged else (c1, p1, c2, p2))
+            for res in whole_res:
+                o = offs[res]
+                uwhole[res].add_sym(bp1 // res + o[bc1 + h1 * nc],
+                                    bp2 // res + o[bc2 + h2 * nc])
+            if not tagged:
+                continue
+            for res in local_res:
+                ulocal[res][side].add(bc1, bp1, bc2, bp2)
+            single = ~both
+            tag = cols[k][4][single]
+            s1, q1, s2, q2 = (t[single] for t in (c1, p1, c2, p2))
+            intra = s1 == s2
+            r1 = tag[intra] == TAG_R1
+            for res in whole_res:
+                o = offs[res]
+                b1 = q1[intra] // res + o[s1[intra] + h1 * nc]
+                b2 = q2[intra] // res + o[s2[intra] + h1 * nc]
+                swhole[res].add_directed(torch.where(r1, b1, b2),
+                                         torch.where(r1, b2, b1))
+            for res in local_res:
+                slocal[res][side].add(s1[intra], q1[intra], s2[intra],
+                                      q2[intra], tags=tag[intra])
+        unimp_whole = {res: uwhole[res].finish() for res in whole_res}
+        unimp_local, imp_local = {}, {}
+        for res in local_res:
+            unimp_local[res] = {h + c: m for h in "MP"
+                                for c, m in ulocal[res][h].finish().items()}
+            imp_local[res] = {
+                h + c: m for h in "MP"
+                for c, m in ulocal[res][h].finish_plus(
+                    slocal[res][h]).items()}
+        for res in whole_res:
+            stats["single_side"][res] = float(swhole[res].finish().sum())
+
+    with _step(walls, "vote_setup", device):
+        state = {}
+        for res in whole_res:
+            U = unimp_whole[res]
+            L = imputation_region // res
+            di, dj = (disk_offsets(L) if L >= 1
+                      else (np.zeros(0, np.int32),) * 2)
+            st = {"L": None}
+            if sparse[res]:
+                st["base_coo"] = U.coo()
+                st["acc"] = swhole[res].acc
+                if di.size and st["base_coo"][0].numel():
+                    st["su"] = SparseU(*st["base_coo"], S[res])
+                    st["disk"] = tuple(torch.as_tensor(a, device=device)
+                                       for a in disk_row_intervals(L))
+                    st["L"] = L
+            else:
+                st["imp"] = U + swhole[res].finish()
+                if di.size:
+                    st["U"] = U
+                    st["disk"] = (torch.as_tensor(di, device=device),
+                                  torch.as_tensor(dj, device=device))
+                    st["L"] = L
+            state[res] = st
+        queries = {res: vote_queries(cols, genome, res, device=device)
+                   for res in whole_res if state[res]["L"] is not None}
+
+    with _step(walls, "vote", device):
+        imp_whole = {}
+        for res in whole_res:
+            st = state[res]
+            if st["L"] is not None:
+                rk, cs, cc = queries[res]
+                stats["vote_queries"][res] = int(rk.numel())
+                if sparse[res]:
+                    hit, tgt = sparse_impute_vote_rowptr(
+                        st["su"], rk, cs, cc, *st["disk"], st["L"],
+                        float(imputation_min), float(imputation_ratio))
+                    st["acc"].add_directed(rk[hit], tgt[hit])
+                    stats["vote_hits"][res] = int(hit.sum())
+                else:
+                    _, stats["vote_hits"][res] = impute_inter_chunk(
+                        st["imp"], st["U"], rk, cs, cc, *st["disk"],
+                        st["L"], float(imputation_min),
+                        float(imputation_ratio))
+            if sparse[res]:
+                st["acc"].add_symmetric(*st["base_coo"])
+                imp_whole[res] = st["acc"]
+            else:
+                imp_whole[res] = st["imp"]
+
+    return {
+        "Tradition_Whole": tradition_whole,
+        "Tradition_Local": tradition_local,
+        "UnImputated_Whole": unimp_whole,
+        "UnImputated_Local": unimp_local,
+        "Imputated_Whole": imp_whole,
+        "Imputated_Local": imp_local,
+        "stats": stats,
+    }
+
+
+def vote_queries(classes: Mapping[str, tuple], genome: Genome, res: int, *,
+                 device):
+    """Pass 3's queries at ``res``: (row_known, col_same, col_cross)
+    diploid bins of the single-side inter M_M/P_P contacts.  The known
+    mate's bin is the row; the candidates sit on the unknown mate's own
+    chromosome, in the same and in the other haplotype."""
+    nc = len(genome.labels)
+    o = _offsets(genome.haplotype(), res, device)
+    out = []
+    for k, base in (("M_M", 0), ("P_P", nc)):
+        other = nc if base == 0 else -nc
+        c1, p1, c2, p2, tag = _columns(classes[k], device)
+        inter = (tag != TAG_BOTH) & (c1 != c2)
+        ic1, ip1, ic2, ip2 = (t[inter] for t in (c1, p1, c2, p2))
+        r1 = tag[inter] == TAG_R1
+        known = torch.where(r1, ip1 // res + o[ic1 + base],
+                            ip2 // res + o[ic2 + base])
+        unk_c = torch.where(r1, ic2, ic1)
+        unk_b = torch.where(r1, ip2, ip1) // res
+        out.append((known, unk_b + o[unk_c + base],
+                    unk_b + o[unk_c + base + other]))
+    return tuple(torch.cat(t) for t in zip(*out))
+
+
+# ------------------------------------------------------------- correction
+def _intra_margins(rows, cols, vals, bounds: torch.Tensor, S: int,
+                   symmetric: bool):
+    """Per-bin row sums (and nonzero counts when ``symmetric``) over the
+    intra-chromosome blocks of a genome-wide COO (upper-triangle when
+    ``symmetric``, directed otherwise); ``bounds`` holds each chromosome's
+    last bin."""
+    intra = (torch.searchsorted(bounds, rows)
+             == torch.searchsorted(bounds, cols))
+    r, c, v = rows[intra], cols[intra], vals[intra].to(torch.float64)
+    rs = torch.zeros(S, dtype=torch.float64, device=v.device)
+    rs.index_add_(0, r, v)
+    if not symmetric:
+        return rs
+    nz = torch.zeros_like(rs).index_add_(0, r, (v != 0).to(torch.float64))
+    off = r != c
+    rs.index_add_(0, c[off], v[off])
+    nz.index_add_(0, c[off], (v[off] != 0).to(torch.float64))
+    return rs, nz
+
+
+def _pad_rows(vs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Vectors padded with zeros into one float32 ``[C, max]`` batch."""
+    N = max(v.numel() for v in vs)
+    out = torch.zeros(len(vs), N, dtype=torch.float32, device=vs[0].device)
+    for i, v in enumerate(vs):
+        out[i, :v.numel()] = v
+    return out
+
+
+def correct_haplotype_datasets(data, genome: Genome,
+                               whole_res: Sequence[int],
+                               local_res: Sequence[int]):
+    """Two-step corrections -> (balanced_whole, balanced_local, gaps).
+
+    Genome-wide: per-chromosome alpha from the traditional and imputed
+    intra blocks, then one correction of the whole imputed matrix (dense
+    ``[S, S]`` float32, or upper-triangle float64 COO past the cap,
+    ``ops.sparse.genomewide_correction_coo``).  Local: the two-step
+    correction of each chromosome's maternal/paternal pair, batched by the
+    ``pad_to_shape`` ladder.  Gaps are numpy arrays of bin indices."""
+    hap = genome.haplotype()
+    balanced_whole = {}
+    for res in whole_res:
+        T = data["Tradition_Whole"][res]
+        H = data["Imputated_Whole"][res]
+        t_offs = genome.bin_offsets(res)
+        h_offs = hap.bin_offsets(res)
+        spans = [(t_offs[c], h_offs["M" + c], h_offs["P" + c])
+                 for c in genome.labels]
+        if isinstance(H, SparseDirectedGW):
+            dev = H.device
+            t_bounds = torch.as_tensor([t_offs[c][1] for c in genome.labels],
+                                       device=dev)
+            h_bounds = torch.as_tensor([h_offs[c][1] for c in hap.labels],
+                                       device=dev)
+            if isinstance(T, SparseGW):
+                trs, tnz = _intra_margins(*T.coo(), t_bounds, T.S, True)
+                t_rows = [(trs[s:e + 1], tnz[s:e + 1])
+                          for (s, e), _, _ in spans]
+            else:  # the mixed regime: traditional under the cap
+                t_rows = [(T[s:e + 1, s:e + 1].sum(1),
+                           (T[s:e + 1, s:e + 1] != 0).sum(1))
+                          for (s, e), _, _ in spans]
+            hrs = _intra_margins(*H.coo(), h_bounds, H.S, False)
+            ns = [e - s + 1 for (s, e), _, _ in spans]
+            a = genomewide_alpha_margins(
+                _pad_rows([t for t, _ in t_rows]),
+                _pad_rows([z for _, z in t_rows]),
+                _pad_rows([hrs[m[0]:m[1] + 1] for _, m, _ in spans]),
+                _pad_rows([hrs[p[0]:p[1] + 1] for _, _, p in spans]),
+                torch.as_tensor(ns, device=dev))
+            alpha = torch.cat([a[i, :n] for i, n in enumerate(ns)])
+            balanced_whole[res] = genomewide_correction_coo(
+                *H.coo(), alpha=torch.cat([alpha, alpha]), n=H.S)
+            continue
+        alphas = []
+        for (s, e), (ms, me), (ps, pe) in spans:
+            n = e - s + 1
+            N = pad_to_shape(n)
+            blocks = torch.zeros(3, N, N, dtype=torch.float32,
+                                 device=H.device)
+            blocks[0, :n, :n] = T[s:e + 1, s:e + 1]
+            blocks[1, :n, :n] = H[ms:me + 1, ms:me + 1]
+            blocks[2, :n, :n] = H[ps:pe + 1, ps:pe + 1]
+            alphas.append(genomewide_alpha(*blocks, n)[:n])
+        alpha = torch.cat(alphas)
+        balanced_whole[res] = genomewide_correction(
+            H, torch.cat([alpha, alpha]).to(torch.float32))
+
+    balanced_local, gaps = {}, {}
+    for res in local_res:
+        tra = data["Tradition_Local"][res]
+        happ = data["Imputated_Local"][res]
+        nb = {c: genome.n_bins(c, res) for c in genome.labels}
+        out, gap_lib = {}, {}
+        for group, N in bucket_groups(genome.labels, nb, ladder=True):
+            batch = torch.zeros(3, len(group), N, N, dtype=torch.float32,
+                                device=tra[group[0]].device)
+            for i, c in enumerate(group):
+                n = nb[c]
+                for j, m in enumerate((tra[c], happ["M" + c], happ["P" + c])):
+                    batch[j, i, :n, :n] = m
+            nm, npm, gm, gp = two_step_correction_batch(
+                *batch, torch.as_tensor([nb[c] for c in group],
+                                        device=batch.device))
+            gm, gp = gm.cpu().numpy(), gp.cpu().numpy()
+            for i, c in enumerate(group):
+                n = nb[c]
+                out["M" + c] = nm[i, :n, :n]
+                out["P" + c] = npm[i, :n, :n]
+                gap_lib["M" + c] = np.flatnonzero(gm[i, :n])
+                gap_lib["P" + c] = np.flatnonzero(gp[i, :n])
+        balanced_local[res] = {h + c: out[h + c] for h in "MP"
+                               for c in genome.labels}
+        gaps[str(res)] = {h + c: gap_lib[h + c] for h in "MP"
+                          for c in genome.labels}
+    return balanced_whole, balanced_local, gaps
+
+
+# ---------------------------------------------------------------- weights
+def _cooler_index(genome: Genome, res: int, device) -> torch.Tensor:
+    """The matrix bins that a cooler keeps, in order: each chromosome's
+    first ``ceil(length / res)`` of its ``length // res + 1``."""
+    offs = genome.bin_offsets(res)
+    return torch.cat([torch.arange(offs[c][0],
+                                   offs[c][0] + genome.cooler_n_bins(c, res),
+                                   device=device) for c in genome.labels])
+
+
+def cooler_coo(M, genome: Genome, res: int):
+    """Upper-triangle COO of a genome-wide matrix (dense ``[S, S]`` or
+    ``SparseGW``) in cooler bin ids, zeros dropped: the pixel table a
+    cooler would hold."""
+    if isinstance(M, _SparseAcc):
+        rows, cols, vals = M.coo()
+        dev = rows.device
+    else:
+        dev = M.device
+        rows, cols = torch.triu_indices(M.shape[0], M.shape[0], device=dev)
+        vals = M[rows, cols]
+    idx = _cooler_index(genome, res, dev)
+    lut = torch.full((genome.total_bins(res),), -1, dtype=torch.int64,
+                     device=dev)
+    lut[idx] = torch.arange(idx.numel(), device=dev)
+    b1, b2 = lut[rows], lut[cols]
+    keep = (b1 >= 0) & (b2 >= 0) & (vals != 0)
+    return b1[keep], b2[keep], vals[keep]
+
+
+def matrix_weights(M, genome: Genome, res: int, cis_only: bool, *,
+                   dense_max_bins: int = DENSE_GW_MAX_BINS):
+    """ICE weights as ``cooler balance`` stores them (ignore-diags 1,
+    cis-only for intra resolutions), over the cooler's bins of a count
+    matrix: ``{label: [n, n]}`` for ``cis_only``, else genome-wide
+    (dense ``[S, S]`` or ``SparseGW``).  Cis-only balances each
+    ``pad_to_shape`` group of chromosomes in one K1 batch; genome-wide is
+    dense K1 up to ``dense_max_bins`` bins and the hybrid K2 + K7 ICE past
+    it.  Returns (weights, stats) with ``stats['iters']`` a list."""
+    if cis_only:
+        nb = {c: genome.cooler_n_bins(c, res) for c in genome.labels}
+        per_label, iters, conv = {}, [], []
+        for group, N in bucket_groups(genome.labels, nb, ladder=True):
+            dev = M[group[0]].device
+            batch = torch.zeros(len(group), N, N, dtype=torch.float32,
+                                device=dev)
+            for i, c in enumerate(group):
+                batch[i, :nb[c], :nb[c]] = M[c][:nb[c], :nb[c]]
+            w, st = ice_balance_batch(
+                batch, torch.as_tensor([nb[c] for c in group], device=dev))
+            for i, c in enumerate(group):
+                per_label[c] = w[i, :nb[c]]
+            iters += st["iters"].tolist()
+            conv += st["converged"].tolist()
+        return (torch.cat([per_label[c] for c in genome.labels]),
+                {"iters": iters, "converged": all(conv)})
+    if genome.total_bins(res) > dense_max_bins:
+        b1, b2, v = cooler_coo(M, genome, res)
+        h = hybrid_from_coo(b1, b2, v.round().to(torch.int64),
+                            sum(genome.cooler_n_bins(c, res)
+                                for c in genome.labels), assume_unique=True)
+        w, st = ice_balance_hybrid(h)
+    else:
+        idx = _cooler_index(genome, res, M.device)
+        S = idx.numel()
+        P = pad_to_shape(S)
+        Mc = torch.zeros(P, P, dtype=torch.float32, device=M.device)
+        Mc[:S, :S] = M[idx][:, idx]
+        w, st = ice_balance(Mc, S)
+        w = w[:S]
+    return w, {"iters": [int(st["iters"])],
+               "converged": bool(st["converged"])}
+
+
+# ------------------------------------------------------------ entry points
+def _tradition_weights(whole, local, genome, whole_res, local_res,
+                       dense_max_bins, walls, device):
+    weights, ice = {}, {}
+    for res in whole_res:
+        kind = ("hybrid" if genome.total_bins(res) > dense_max_bins
+                else "dense")
+        with _step(walls, f"weights_gw_{res}_{kind}", device):
+            weights[res], ice[res] = matrix_weights(
+                whole[res], genome, res, False,
+                dense_max_bins=dense_max_bins)
+    for res in local_res:
+        with _step(walls, f"weights_cis_{res}", device):
+            weights[res], ice[res] = matrix_weights(
+                local[res], genome, res, True)
+    return weights, ice
+
+
+def _hap_outputs(data, genome, whole_res, local_res, dense_max_bins, walls,
+                 device):
+    with _step(walls, "correction", device):
+        bw, bl, gaps = correct_haplotype_datasets(data, genome, whole_res,
+                                                  local_res)
+    weights, ice = _tradition_weights(
+        data["Tradition_Whole"], data["Tradition_Local"], genome, whole_res,
+        local_res, dense_max_bins, walls, device)
+    return {
+        "tradition": {"whole": data["Tradition_Whole"],
+                      "local": data["Tradition_Local"],
+                      "weights": weights, "ice": ice},
+        "unimputated": {"whole": data["UnImputated_Whole"],
+                        "local": data["UnImputated_Local"]},
+        "imputated": {"whole": bw, "local": bl},
+        "gaps": gaps,
+        "data": data,
+    }
+
+
+def haplotype_matrix_construction(
+    replicates: Mapping[str, Mapping[str, tuple]], genome: Genome,
+    whole_res: Sequence[int], local_res: Sequence[int],
+    imputation_region: int = 10_000_000, imputation_min: int = 2,
+    imputation_ratio: float = 0.9, *, device,
+    dense_max_bins: int = DENSE_GW_MAX_BINS, walls: dict | None = None,
+) -> Dict[str, dict]:
+    """The haplotype matrix stage of every replicate, and of their sum
+    (``Merged_``) when there is more than one.
+
+    ``replicates`` maps a prefix (e.g. ``GM12878_R1_``) to its allelic
+    classes (see ``build_haplotype_datasets``).  Returns, per prefix, what
+    the JAX package writes to ``<prefix>Traditional_Multi.cool``,
+    ``<prefix>UnImputated_Haplotype_Multi.cool``,
+    ``<prefix>Imputated_Haplotype_Multi.cool`` and
+    ``<prefix>Imputated_Gap.npz``: ``tradition`` (whole, local, ICE
+    ``weights`` in cooler bins and their ``ice`` stats), ``unimputated``
+    (whole, local), ``imputated`` (the corrected whole and local
+    matrices), ``gaps``, and ``data`` (the build's output, including the
+    imputed counts before correction).  ``walls`` (a dict) receives the
+    seconds of each step, summed over replicates."""
+    whole_res, local_res = list(whole_res or []), list(local_res or [])
+    out, total = {}, None
+    for prefix, classes in replicates.items():
+        data = build_haplotype_datasets(
+            classes, genome, whole_res, local_res, imputation_region,
+            imputation_min, imputation_ratio, device=device,
+            dense_max_bins=dense_max_bins, walls=walls)
+        out[prefix] = _hap_outputs(data, genome, whole_res, local_res,
+                                   dense_max_bins, walls, device)
+        total = data if total is None else _sum_datasets(total, data)
+    if len(replicates) > 1:
+        out["Merged_"] = _hap_outputs(total, genome, whole_res, local_res,
+                                      dense_max_bins, walls, device)
+    return out
+
+
+def _sum_datasets(a, b):
+    out = {"stats": {}}
+    for k in ("Tradition_Whole", "UnImputated_Whole", "Imputated_Whole"):
+        out[k] = {res: a[k][res] + b[k][res] for res in a[k]}
+    for k in ("Tradition_Local", "UnImputated_Local", "Imputated_Local"):
+        out[k] = {res: {c: a[k][res][c] + b[k][res][c] for c in a[k][res]}
+                  for res in a[k]}
+    return out
+
+
+def traditional_matrix_construction(
+    replicates: Mapping[str, tuple], genome: Genome,
+    whole_res: Sequence[int], local_res: Sequence[int], *, device,
+    dense_max_bins: int = DENSE_GW_MAX_BINS,
+) -> Dict[str, dict]:
+    """Traditional matrices of every replicate (``<prefix>Multi``) and of
+    their sum (``Merged_Multi``), from valid pairs ``(c1, p1, c2, p2)``
+    per prefix.  Each entry holds ``whole``, ``local``, the ICE
+    ``weights`` in cooler bins and their ``ice`` stats (one replicate: its
+    weights are the merged ones, as its matrices are)."""
+    whole_res, local_res = list(whole_res or []), list(local_res or [])
+    out = {}
+    for prefix, pairs in replicates.items():
+        whole, local = build_traditional(
+            pairs, genome, whole_res, local_res, device=device,
+            dense_max_bins=dense_max_bins)
+        out[prefix + "Multi"] = {"whole": whole, "local": local}
+    reps = list(out.values())
+    if len(reps) == 1:
+        merged = dict(reps[0])
+    else:
+        merged = {
+            "whole": {res: sum(r["whole"][res] for r in reps)
+                      for res in whole_res},
+            "local": {res: {c: sum(r["local"][res][c] for r in reps)
+                            for c in genome.labels} for res in local_res}}
+    out["Merged_Multi"] = merged
+    for entry in (reps if len(reps) > 1 else []) + [merged]:
+        entry["weights"], entry["ice"] = _tradition_weights(
+            entry["whole"], entry["local"], genome, whole_res, local_res,
+            dense_max_bins, None, device)
+    if len(reps) == 1:
+        reps[0].update(weights=merged["weights"], ice=merged["ice"])
+    return out

@@ -131,6 +131,67 @@ def hap_batch(sizes, n_pad: int, seed: int = 0, device=None,
     return out
 
 
+# GM12878-like allelic class mix of scripts/perf_e2e_hap.py (bi-allelic
+# pairs dominate; ~23% are phased)
+GM12878_MIX = {"Bi_Allelic": 20_000_000, "M_M": 3_000_000,
+               "P_P": 3_000_000, "M_P": 300_000, "P_M": 300_000}
+
+
+def allelic_pairs(lengths, counts, seed: int = 0, device=None,
+                  cis_floor: float = 0.0) -> dict:
+    """Allelic pair classes drawn on ``device`` (``scripts/perf_e2e_hap.py``
+    ``_gen_pairs`` and ``generate_beds``): both mates' chromosomes weighted
+    by length, 75% intra pairs at a Cauchy-tailed distance (``|Cauchy| *
+    200 kb``, clipped to the chromosome's end), the rest
+    uniform over the genome; M_M and P_P carry tags, 40% both-side
+    (``TAG_BOTH`` = 0), 30% R1 (1) and 30% R2 (2).
+
+    ``lengths``: chromosome lengths in registry order; ``counts``: pairs
+    per class.  Returns ``{class: (c1 int32, p1 int64, c2 int32, p2 int64
+    [, tag int8])}``.
+
+    cis_floor : share of the intra pairs whose second mate is drawn uniform
+    over the chromosome.  0 reproduces the script, whose only long-range
+    cis mass is the inter draws that land on the same chromosome (0.25 x
+    its length share: ~2.6% of chr1's pairs, ~0.4% of chr21's), with a
+    Cauchy (s^-2) tail otherwise: cis-only ICE at 40 kb then needs 222
+    iterations on chr1 and more on the small chromosomes (tol 1e-5; cooler's
+    limit is 200).  With 0.1 it takes ~65 on every chromosome tried."""
+    device = torch.device(device) if device is not None else None
+    g = torch.Generator(device=device if device is not None else "cpu")
+    g.manual_seed(seed)
+    sizes = torch.as_tensor(lengths, dtype=torch.float64, device=device)
+    cumw = torch.cumsum(sizes, 0) / sizes.sum()
+    last = sizes.numel() - 1
+
+    def uniform(n):
+        return torch.rand(n, generator=g, dtype=torch.float64, device=device)
+
+    def chrom(n):
+        return torch.searchsorted(cumw, uniform(n), right=True).clamp_max(last)
+
+    out = {}
+    for cls, n in counts.items():
+        c1 = chrom(n)
+        intra = uniform(n) < 0.75
+        c2 = torch.where(intra, c1, chrom(n))
+        p1 = (uniform(n) * sizes[c1]).long()
+        d = torch.tan(torch.pi * (uniform(n) - 0.5)).abs() * 200_000
+        d = d.clamp_max(4e18).long()
+        size1 = sizes[c1].long()
+        p2 = torch.where(intra, torch.minimum(p1 + d, size1 - 1),
+                         (uniform(n) * sizes[c2]).long())
+        if cis_floor > 0:
+            far = intra & (uniform(n) < cis_floor)
+            p2 = torch.where(far, (uniform(n) * sizes[c1]).long(), p2)
+        cols = (c1.to(torch.int32), p1, c2.to(torch.int32), p2)
+        if cls in ("M_M", "P_P"):
+            u = uniform(n)
+            cols += ((u >= 0.4).to(torch.int8) + (u >= 0.7).to(torch.int8),)
+        out[cls] = cols
+    return out
+
+
 def band_coo(rng: np.random.Generator, n: int, band: int, loops: int = 40):
     """Upper-band COO (rows, cols, vals) of one chromosome: Poisson counts
     with mean 80 / (d + 1)^0.9 for d < band, plus ``loops`` enriched pixels."""

@@ -21,7 +21,7 @@ def test_every_entry_point_has_a_source():
         assert f'extern "C" int {name}(' in srcs, name
     assert {p.name for p in _build.sources()} >= {
         "ice_sweep.cu", "sparse_marginal.cu", "escalation.cu",
-        "hmm_scan.cu"}
+        "hmm_scan.cu", "impute_vote.cu", "segment_marginal.cu"}
 
 
 def test_library_name_follows_the_sources(tmp_path, monkeypatch):

@@ -110,3 +110,59 @@ def test_ab_coo_planted_compartments():
     # planted weights 1.5 x 1.2, 1.5 and 0.5 of the plain decay
     np.testing.assert_allclose([mean["AA"], mean["BB"], mean["AB"]],
                                [1.8, 1.5, 0.5], rtol=0.05)
+
+
+def test_allelic_pairs_follow_the_hap_script():
+    """The allelic generator: the class mix of scripts/perf_e2e_hap.py,
+    positions inside their chromosomes, ~75% intra pairs, tags
+    40/30/30, seeded."""
+    import perf_e2e_hap
+
+    assert S.GM12878_MIX == {
+        "Bi_Allelic": perf_e2e_hap.N_BI, "M_M": perf_e2e_hap.N_MM,
+        "P_P": perf_e2e_hap.N_PP, "M_P": perf_e2e_hap.N_MP,
+        "P_M": perf_e2e_hap.N_PM}
+    lengths = [5_000_000, 3_000_000, 2_000_000]
+    counts = {"Bi_Allelic": 20_000, "M_M": 9_000, "P_P": 9_000,
+              "M_P": 500, "P_M": 500}
+    a = S.allelic_pairs(lengths, counts, seed=3)
+    b = S.allelic_pairs(lengths, counts, seed=3)
+    size = torch.tensor(lengths)
+    for cls, n in counts.items():
+        cols = a[cls]
+        assert len(cols) == (5 if cls in ("M_M", "P_P") else 4)
+        for x, y in zip(cols, b[cls]):
+            assert torch.equal(x, y)
+        c1, p1, c2, p2 = cols[:4]
+        assert c1.shape == (n,) and c1.dtype == torch.int32
+        assert p1.dtype == torch.int64
+        for c, p in ((c1, p1), (c2, p2)):
+            assert bool((p >= 0).all()) and bool((p < size[c.long()]).all())
+        # 75% drawn intra, plus inter draws that land on the same chromosome
+        w = np.asarray(lengths) / sum(lengths)
+        intra = float((c1 == c2).double().mean())
+        assert abs(intra - (0.75 + 0.25 * (w ** 2).sum())) < 0.05
+        # chromosomes by length: the 5 Mb one takes half of the mates
+        assert abs(float((c1 == 0).double().mean()) - 0.5) < 0.05
+        if len(cols) == 5:
+            share = torch.bincount(cols[4].long(), minlength=3) / n
+            np.testing.assert_allclose(share.numpy(), [0.4, 0.3, 0.3],
+                                       atol=0.03)
+    assert not torch.equal(S.allelic_pairs(lengths, counts, seed=4)["M_M"][1],
+                           a["M_M"][1])
+
+
+def test_allelic_cis_floor_adds_long_range_intra_pairs():
+    lengths = [50_000_000, 30_000_000]
+    counts = {"Bi_Allelic": 40_000}
+    far = []
+    for floor in (0.0, 0.2):
+        c1, p1, c2, p2 = S.allelic_pairs(lengths, counts, seed=1,
+                                         cis_floor=floor)["Bi_Allelic"]
+        intra = c1 == c2
+        far.append(float(((p2 - p1).abs()[intra] > 10_000_000)
+                         .double().mean()))
+    # a uniform pair on a 30-50 Mb chromosome lies > 10 Mb apart ~45-64%
+    # of the time: the floor moves ~0.2 x 0.85 (drawn intra) x ~0.55 of
+    # the intra pairs there
+    assert far[0] < 0.15 and 0.06 < far[1] - far[0] < 0.13
