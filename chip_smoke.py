@@ -11,12 +11,19 @@ Phases, each printed on its own line, any failure raising:
    kernel build time;
 2. every hand-written kernel against its plain PyTorch version on the same
    tensors at main-path shapes, with the largest difference and both times
-   (median of 5 warm runs, synchronized around each):
-   K1 dense ICE iterations on chr1 at 40 kb (f32 and bf16), K2 the
-   block-sparse marginal on the hg19 10 kb tile set (f32 and bf16), K3 the
-   escalation ladder on chr1 at 10 kb, K4 the HMM forward-backward and K5
-   the HMM Viterbi on the 23 DI segments of the 40 kb TAD input (T = 8,192,
-   3 states, float64);
+   (median of 5 warm runs, synchronized around each; "device" times are
+   CUDA events around 20 back-to-back calls), and its bound (the larger of
+   its bytes over the card's memory rate and its operations over the
+   peak rate for their type):
+   K1 dense ICE iterations on chr1 at 40 kb (f32 and bf16), and its matvec
+   alone beside torch.bmm; K2 the block-sparse marginal on the hg19 10 kb
+   tile set (f32 and bf16); K3 on chr1 at 10 kb: the prefix kernels bit for
+   bit against anti_diagonal_prefix, then the whole escalation call
+   (identical outputs) and the ladder kernel alone; K4 the HMM
+   forward-backward and K5 the HMM Viterbi on the 23 DI segments of the
+   40 kb TAD input (T = 8,192, 3 states, float64), K4 also on its edge
+   cases; K6 the imputation vote and K7 the scattered marginal of the
+   10 kb diploid build;
 3. the main path at full size, after zeroing the kernels' launch counters,
    each stage's wall on its own line:
    genome-wide block-sparse ICE at 10 kb (tiles with a far-field floor,
@@ -30,9 +37,11 @@ Phases, each printed on its own line, any failure raising:
    ``testing.synthetic.tad_coo``), all on the 23 chromosomes; then the chr1
    loop call again through the plain ladder, which must give the same loop
    set, and chr1's TAD segments again through the plain Viterbi, which
-   must give the same paths, boundaries and domains;
-4. the launch counters of phase 3, each > 0, and one JSON line with the
-   per-kernel results.
+   must give the same paths, boundaries and domains; then the diploid
+   matrix stage (26.6 M allelic pairs) with its own counters, and its
+   10 kb hybrid weights again through the plain K2 and K7;
+4. the launch counters of each path, each kernel of the path > 0, and one
+   JSON line with the per-kernel results.
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
 every phase passed.
@@ -47,6 +56,11 @@ import numpy as np
 import torch
 
 REPS = 5
+# the card's peaks for the bounds (H100 SXM, NVIDIA's data sheet): device
+# memory, float32 outside the tensor cores, float64 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+F64_FLOPS = 34e12
 # long-range contact floor of the 40 kb matrices (see synthetic.hap_batch)
 BACKGROUND_40KB = 0.05
 # diagonals of the synthetic 40 kb TAD input: DI reads 15 (600 kb window),
@@ -78,6 +92,34 @@ def median_ms(fn, reps: int = REPS) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def event_ms(fn, n: int = 20) -> float:
+    """Device time per call: CUDA events around ``n`` back-to-back calls
+    (after one warm call)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, flops: float = 0.0, peak: float = None):
+    """The least time (ms) the card could take for work that moves
+    ``n_bytes`` and does ``flops`` at ``peak`` operations/s, and which of
+    the two sets it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / (peak or F32_FLOPS) * 1e3
+    return (dict(bound_ms=t_bytes, bound_by="bytes") if t_bytes >= t_ops
+            else dict(bound_ms=t_ops, bound_by="operations"))
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -125,12 +167,47 @@ def k1_compare(dev, results):
         log(f"K1 ice_sweep {tag or 'f32_'}[1,{N},{N}]: max rel err {err:.3e}"
             f" (tol {tol:g}), {ms:.4f} ms/iter kernel vs {plain_ms:.4f}"
             " ms/iter plain")
+        # one iteration streams the matrix and reads and writes the biases
+        b_ = bound(nbytes(Mi) + 2 * nbytes(keep.float()),
+                   2.0 * Mi.numel())
         out.update({f"{tag}max_abs_err": abs_err, f"{tag}ms": ms,
-                    f"{tag}plain_ms": plain_ms})
+                    f"{tag}plain_ms": plain_ms,
+                    **{f"{tag}{k}": v for k, v in b_.items()}})
+    # the matvec alone (one launch of ice_matvec) beside torch.bmm, the one
+    # PyTorch call that computes it (the port never calls it)
+    from hichap_master_tpu_torch.kernels import _build
+    lib = _build.load()
+    Mc, bc = M0.contiguous(), keep.float().contiguous()
+    act = torch.ones(1, dtype=torch.int32, device=dev)
+    marg = torch.empty_like(bc)
+    stream = _build.stream_ptr(dev)
+
+    def matvec():
+        _build.check(lib.ice_matvec(Mc.data_ptr(), bc.data_ptr(),
+                                    act.data_ptr(), marg.data_ptr(), 1, N, 0,
+                                    stream), "ice_matvec")
+
+    def library():
+        torch.bmm(Mc, bc[..., None])
+
+    times = {"matvec": [], "bmm": []}
+    for name, fn in (("matvec", matvec), ("bmm", library), ("bmm", library),
+                     ("matvec", matvec)):
+        times[name].append(event_ms(fn))
+    matvec_ms, library_ms = (min(times[k]) for k in ("matvec", "bmm"))
+    want = torch.bmm(Mc, bc[..., None])[..., 0] * bc
+    matvec()
+    torch.cuda.synchronize()
+    check(rel_err(marg, want) <= 1e-5, "K1 matvec differs from torch.bmm")
+    log(f"K1 matvec alone [1,{N},{N}] f32: {matvec_ms:.4f} ms (events, "
+        f"best of 2) vs torch.bmm {library_ms:.4f} ms; bound "
+        f"{out['bound_ms']:.4f} ms per iteration ({out['bound_by']})")
     results["ice_sweep"] = dict(
         route="cuda", source="hichap_master_tpu_torch/csrc/ice_sweep.cu",
         replaces="hichap_master_tpu/kernels/pallas_ice.py:39",
-        unit=f"ms per ICE iteration, chr1 40 kb [1, {N}, {N}]", **out)
+        unit=f"ms per ICE iteration, chr1 40 kb [1, {N}, {N}]; library_ms "
+             "is torch.bmm of the matvec alone",
+        matvec_ms=matvec_ms, library_ms=library_ms, **out)
 
 
 # ------------------------------------------------------------------ K2
@@ -181,13 +258,18 @@ def k2_compare(gw, dev, results):
         log(f"K2 sparse_marginal {tag or 'f32_'}K={tiles.shape[0]} T={T}: "
             f"max rel err {err:.3e} (tol 1e-5), {ms:.4f} ms kernel vs "
             f"{plain_ms:.4f} ms plain")
+        # off-diagonal tiles are applied twice (the tile and its transpose)
+        n_diag = int((brow == bcol).sum())
+        b_ = bound(nbytes(t, brow, bcol, b, yk),
+                   2.0 * T * T * (2 * t.shape[0] - n_diag))
         out.update({f"{tag}max_abs_err": float((yk - yp).abs().max()),
-                    f"{tag}ms": ms, f"{tag}plain_ms": plain_ms})
+                    f"{tag}ms": ms, f"{tag}plain_ms": plain_ms,
+                    **{f"{tag}{k}": v for k, v in b_.items()}})
     results["sparse_marginal"] = dict(
         route="cuda", source="hichap_master_tpu_torch/csrc/sparse_marginal.cu",
         replaces="hichap_master_tpu/kernels/pallas_sparse_ice.py:54",
         unit=f"ms per marginal, hg19 10 kb, K = {tiles.shape[0]} tiles",
-        **out)
+        library_ms=None, **out)
 
 
 # ------------------------------------------------------------------ K3
@@ -209,39 +291,75 @@ def loop_inputs():
 
 
 def k3_compare(loops, dev, results):
-    from hichap_master_tpu_torch.kernels.escalation import (escalation_batch,
-                                                            escalation_plain)
+    from hichap_master_tpu_torch.kernels.escalation import (
+        escalation_batch, escalation_plain, ladder, prefix_maps,
+        prefix_maps_plain)
     from hichap_master_tpu_torch.models.loops import (_packed_inputs_batch,
                                                       _pcaller_prep)
+    from hichap_master_tpu_torch.ops.loops_packed import pixel_cells
 
     inputs, params, res = loops
     pr = _pcaller_prep(*inputs["1"][:4], inputs["1"][4], res, params)
     packed = _packed_inputs_batch([pr], dev)
     args = packed + (pr["ww"], pr["maxww"], pr["pw"], pr["num"], pr["e_lo"],
                      pr["x_pad"])
+    maps = packed[:3]
+    E, Xp = maps[0].shape[1:]
+
+    # the prefix kernels against anti_diagonal_prefix: bit for bit
+    Wk, Wp = prefix_maps(*maps), prefix_maps_plain(*maps)
+    torch.cuda.synchronize()
+    check(torch.equal(Wk, Wp), "K3 prefix maps differ from "
+          "anti_diagonal_prefix at "
+          f"{int((Wk != Wp).sum())} cells")
+    pre_ms = median_ms(lambda: prefix_maps(*maps))
+    pre_dev_ms = event_ms(lambda: prefix_maps(*maps))
+    pre_plain_ms = median_ms(lambda: prefix_maps_plain(*maps))
+    log(f"K3 prefix maps chr1 10 kb [3,1,{E},{Xp}]: identical to "
+        f"anti_diagonal_prefix (torch.equal), {pre_ms:.3f} ms kernels "
+        f"({pre_dev_ms:.3f} ms device) vs {pre_plain_ms:.3f} ms plain")
+    results["escalation_prefix"] = dict(
+        route="cuda", source="hichap_master_tpu_torch/csrc/escalation.cu",
+        replaces="hichap_master_tpu/ops/loops_packed.py:165",
+        unit=f"ms per call (column prefix + diagonal pass), chr1 10 kb "
+             f"[3, 1, {E}, {Xp}]",
+        max_abs_err=float((Wk - Wp).abs().max()), ms=pre_ms,
+        device_ms=pre_dev_ms, plain_ms=pre_plain_ms, library_ms=None,
+        **bound(nbytes(*maps, Wk), 2.0 * Wk.numel()))
+    del Wp
+
+    # the whole call against the plain ladder: every output identical
     rk = escalation_batch(*args)
     rp = escalation_plain(*args)
     torch.cuda.synchronize()
-    check(torch.equal(rk[0], rp[0]), "K3 resolved sets differ")
+    for name, a, b in zip(("resolved", "bS_K", "bE_K", "bS_Y", "bE_Y"), rk,
+                          rp):
+        check(torch.equal(a, b), f"K3 {name} differs from the plain ladder")
     res_mask = rp[0]
     check(bool(res_mask.any()), "K3 resolved nothing")
-    err = max(float((a[res_mask] - b[res_mask]).abs().max())
-              for a, b in zip(rk[1:], rp[1:]))
-    for a, b in zip(rk[1:], rp[1:]):
-        torch.testing.assert_close(a[res_mask], b[res_mask], rtol=1e-5,
-                                   atol=1e-4)
+    cell, pixmask = pixel_cells(*packed[3:], pr["e_lo"], pr["x_pad"], E, Xp)
+    ladder_ms = event_ms(lambda: ladder(Wk, pixmask, pr["ww"], pr["maxww"],
+                                        pr["pw"]))
     ms = median_ms(lambda: escalation_batch(*args))
+    dev_ms = event_ms(lambda: escalation_batch(*args))
     plain_ms = median_ms(lambda: escalation_plain(*args))
-    E, Xp = packed[0].shape[1:]
-    log(f"K3 escalation chr1 10 kb [1,{E},{Xp}], {int(res_mask.sum())} "
-        f"resolved pixels: max abs err {err:.3e} (resolved sets equal), "
-        f"{ms:.3f} ms kernel vs {plain_ms:.3f} ms plain")
+    n_cand = int(pixmask.sum())
+    log(f"K3 escalation chr1 10 kb [1,{E},{Xp}], {n_cand} candidate cells, "
+        f"{int(res_mask.sum())} resolved pixels: resolved sets and "
+        f"backgrounds identical to the plain ladder, {ms:.3f} ms per call "
+        f"({dev_ms:.3f} ms device; the ladder kernel alone {ladder_ms:.3f} "
+        f"ms) vs {plain_ms:.3f} ms plain")
     results["escalation"] = dict(
         route="cuda", source="hichap_master_tpu_torch/csrc/escalation.cu",
         replaces="hichap_master_tpu/kernels/pallas_escalation.py:90",
-        unit=f"ms per ladder call (prefix maps included), chr1 10 kb "
-             f"[1, {E}, {Xp}]",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        unit=f"ms per escalation call (prefix maps, ladder and pixel "
+             f"gather), chr1 10 kb [1, {E}, {Xp}]",
+        max_abs_err=max(float((a - b).abs().max())
+                        for a, b in zip(rk[1:], rp[1:])),
+        ms=ms, device_ms=dev_ms, ladder_ms=ladder_ms, plain_ms=plain_ms,
+        library_ms=None,
+        # the maps and the pixels in, the per-pixel results out
+        **bound(nbytes(*maps, *packed[3:], *rk)))
 
 
 # ------------------------------------------------------------------ K4/K5
@@ -286,24 +404,40 @@ def hmm_compare(tads, dev, results):
         plain_ms = median_ms(lambda: plain(*args), 3 if first > 1.0 else REPS)
         return ms, plain_ms
 
-    gk, xk, lk = hmm_scan.forward_backward(b, A, pi, L)
-    gp, xp, lp = hmm_scan.forward_backward_plain(b, A, pi, L)
-    torch.cuda.synchronize()
-    errs = (rel_err(gk, gp), rel_err(xk, xp), rel_err(lk.sum(), lp.sum()))
+    def fb_errors(b, A, pi, L):
+        gk, xk, lk = hmm_scan.forward_backward(b, A, pi, L)
+        gp, xp, lp = hmm_scan.forward_backward_plain(b, A, pi, L)
+        torch.cuda.synchronize()
+        return ((rel_err(gk, gp), rel_err(xk, xp), rel_err(lk, lp)),
+                max(float((gk - gp).abs().max()),
+                    float((xk - xp).abs().max())))
+
+    errs, abs_err = fb_errors(b, A, pi, L)
     check(max(errs) <= 1e-10, f"K4 differs from plain: gamma {errs[0]:.2e}, "
           f"xi {errs[1]:.2e}, log-likelihood {errs[2]:.2e}")
     ms, plain_ms = timed(hmm_scan.forward_backward,
                          hmm_scan.forward_backward_plain, (b, A, pi, L))
+    dev_ms = event_ms(lambda: hmm_scan.forward_backward(b, A, pi, L))
     log(f"K4 hmm_forward_backward {shape}: max rel err gamma {errs[0]:.3e} "
         f"xi {errs[1]:.3e} loglik {errs[2]:.3e} (tol 1e-10), {ms:.3f} ms "
-        f"kernel vs {plain_ms:.3f} ms plain")
+        f"per call ({dev_ms:.4f} ms device) vs {plain_ms:.3f} ms plain")
+    for name, case in fb_edge_cases(dev):
+        e, _ = fb_errors(*case)
+        check(max(e) <= 1e-10, f"K4 {name}: differs from plain: gamma "
+              f"{e[0]:.2e}, xi {e[1]:.2e}, log-likelihood {e[2]:.2e}")
+        log(f"K4 edge case {name}: max rel err gamma {e[0]:.3e} xi "
+            f"{e[1]:.3e} loglik {e[2]:.3e} (tol 1e-10)")
+    steps = int(L.sum())
     results["hmm_forward_backward"] = dict(
         route="cuda", source="hichap_master_tpu_torch/csrc/hmm_scan.cu",
         replaces="hichap_master_tpu/ops/hmm.py:87",
         unit=f"ms per E-step recurrence, {B} DI segments, hg19 40 kb",
-        max_abs_err=max(float((gk - gp).abs().max()),
-                        float((xk - xp).abs().max())),
-        ms=ms, plain_ms=plain_ms)
+        max_abs_err=abs_err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+        library_ms=None,
+        # emissions in and posteriors out at the steps t < L; per step a
+        # forward (S^2 + 2S flops) and a backward with xi (4 S^2 + 3S)
+        **bound(2 * steps * S * 8 + nbytes(A, pi, L),
+                steps * (5.0 * S * S + 5 * S), F64_FLOPS))
 
     pk, vk = hmm_scan.viterbi(logb, logA, logpi, L)
     pp, vp = hmm_scan.viterbi_plain(logb, logA, logpi, L)
@@ -320,7 +454,34 @@ def hmm_compare(tads, dev, results):
         route="cuda", source="hichap_master_tpu_torch/csrc/hmm_scan.cu",
         replaces="hichap_master_tpu/ops/hmm.py:251",
         unit=f"ms per decode, {B} DI segments, hg19 40 kb",
-        max_abs_err=float((vk - vp).abs().max()), ms=ms, plain_ms=plain_ms)
+        max_abs_err=float((vk - vp).abs().max()), ms=ms, plain_ms=plain_ms,
+        library_ms=None,
+        # log emissions in at t < L, the whole path and the scores out
+        **bound(steps * S * 8 + nbytes(logA, logpi, L, pk, vk),
+                steps * 2.0 * S * S, F64_FLOPS))
+
+
+def fb_edge_cases(dev):
+    """K4's edge cases, seed 3: one step, lengths that are no multiple of
+    the chunk, a sequence longer than one staged tile (T = 16,384), the
+    6-state prior's structural zeros, emissions down to 1e-300."""
+    from hichap_master_tpu_torch.models.tads import init_parameters
+
+    rng = np.random.default_rng(3)
+
+    def case(S, T, lengths, tiny):
+        b = rng.random((len(lengths), T, S)) + 0.01
+        if tiny:
+            b[rng.random(b.shape) < 0.4] = 1e-300
+        b[..., 0][rng.random(b.shape[:2]) < 0.5] = 1.0
+        m = init_parameters(S)
+        return tuple(torch.as_tensor(a, device=dev) for a in
+                     (b, m.A, m.pi, np.asarray(lengths, np.int64)))
+
+    return [("3 states, L = 1, 50, 9,999, 16,000, emissions to 1e-300",
+             case(3, 16384, [1, 50, 9999, 16000], True)),
+            ("6 states (structural zeros), L = 6,222, 1, 777",
+             case(6, 8192, [6222, 1, 777], False))]
 
 
 # -------------------------------------------------------------- K6/K7
@@ -388,7 +549,10 @@ def k67_compare(diploid, dev, results):
         unit=f"ms per vote of pass 3's {Q} queries, hg19 10 kb diploid "
              f"(L = {L})",
         max_abs_err=float((tk - tp).abs().max()) if Q else 0.0, ms=ms,
-        plain_ms=plain_ms)
+        plain_ms=plain_ms, library_ms=None,
+        # every input once (U whole, though the searches touch far less
+        # of it) and the outputs
+        **bound(nbytes(*(a for a in args if torch.is_tensor(a)), hk, tk)))
 
     rows, cols, vals = cooler_coo(data["Tradition_Whole"][res], genome, res)
     n = sum(genome.cooler_n_bins(c, res) for c in genome.labels)
@@ -416,7 +580,8 @@ def k67_compare(diploid, dev, results):
         source="hichap_master_tpu_torch/csrc/segment_marginal.cu",
         replaces="hichap_master_tpu/ops/sparse_hybrid.py:210",
         unit=f"ms per scattered marginal, hg19 10 kb traditional, P = {P}",
-        max_abs_err=float((yk - yp).abs().max()), ms=ms, plain_ms=plain_ms)
+        max_abs_err=float((yk - yp).abs().max()), ms=ms, plain_ms=plain_ms,
+        library_ms=None, **bound(nbytes(*sc, yk), 2.0 * P, F64_FLOPS))
 
 
 # ------------------------------------------------------------ main path
@@ -610,7 +775,7 @@ def tad_call(tads, dev):
     check(with_domains >= 20, f"TADs: domains on {with_domains} of "
           f"{len(out)} chromosomes")
     log(f"main: TADs 40 kb, {len(out)} chromosomes: EM {stats['em_iters']} "
-        f"iterations (loglik {stats['loglik']:.1f}), domains on "
+        f"iterations (loglik {stats['loglik']!r}), domains on "
         f"{with_domains} chromosomes, "
         f"{sum(len(r['domains'][0]) for r in out.values())} domains, "
         f"{wall:.3f} s")
@@ -825,7 +990,8 @@ def main() -> None:
         raise SystemExit("chip_smoke.py: no CUDA device visible")
     from hichap_master_tpu_torch.kernels import _build
     from hichap_master_tpu_torch.kernels import hmm_scan
-    from hichap_master_tpu_torch.kernels.escalation import escalation_batch
+    from hichap_master_tpu_torch.kernels.escalation import (ladder,
+                                                            prefix_maps)
     from hichap_master_tpu_torch.kernels.ice_sweep import ice_sweeps
     from hichap_master_tpu_torch.kernels.impute_vote import impute_vote
     from hichap_master_tpu_torch.kernels.segment_marginal import \
@@ -860,7 +1026,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     counters = {"ice_sweep": ice_sweeps, "sparse_marginal": block_sym_matvec,
-                "escalation": escalation_batch,
+                "escalation_prefix": prefix_maps, "escalation": ladder,
                 "hmm_forward_backward": hmm_scan.forward_backward,
                 "hmm_viterbi": hmm_scan.viterbi,
                 "impute_vote": impute_vote,
@@ -890,8 +1056,8 @@ def main() -> None:
     compartments(dev)
     tad_called, model = tad_call(tads, dev)
     analysis = read("analysis", ("ice_sweep", "sparse_marginal",
-                                 "escalation", "hmm_forward_backward",
-                                 "hmm_viterbi"))
+                                 "escalation_prefix", "escalation",
+                                 "hmm_forward_backward", "hmm_viterbi"))
     # the diploid matrix stage: allelic pairs in, matrices and weights out
     reset()
     stage = diploid_stage(diploid, dev)

@@ -19,14 +19,14 @@ from .ops.hmm import GMMHMM
 from .ops.sparse import BlockMatrix
 
 
-def tensor(a, device=None, dtype=None) -> torch.Tensor:
+def tensor(a, device, dtype=None) -> torch.Tensor:
     """Any array-like as a tensor on ``device`` (a copy, never a view of
     the source's memory)."""
     return torch.from_numpy(np.array(a, copy=True)).to(device=device,
                                                        dtype=dtype)
 
 
-def block_matrix(bm, device=None, dtype=torch.float32) -> BlockMatrix:
+def block_matrix(bm, device, dtype=torch.float32) -> BlockMatrix:
     """An object with ``.tiles/.brow/.bcol/.n/.T/.R`` as the port's
     BlockMatrix with tensor fields (tiles in ``dtype``, coordinates int32)."""
     return BlockMatrix(tiles=tensor(bm.tiles, device, dtype),
@@ -35,14 +35,14 @@ def block_matrix(bm, device=None, dtype=torch.float32) -> BlockMatrix:
                        n=int(bm.n), T=int(bm.T), R=int(bm.R))
 
 
-def contact_batch(cb, device=None, dtype=torch.float32):
+def contact_batch(cb, device, dtype=torch.float32):
     """An object with ``.data [C, N, N]`` and ``.n_bins [C]`` (a
     ``ContactBatch``) as (data, n_bins) tensors."""
     return (tensor(cb.data, device, dtype),
             tensor(cb.n_bins, device, torch.int32))
 
 
-def weights(w, device=None) -> torch.Tensor:
+def weights(w, device) -> torch.Tensor:
     """A weight vector (NaN at filtered bins) as a float32 tensor."""
     return tensor(w, device, torch.float32)
 

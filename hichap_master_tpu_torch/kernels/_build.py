@@ -7,8 +7,10 @@ seconds with ``nvcc`` alone: no PyTorch headers, no extension machinery.
 
 The library is built at first use into ``_build/`` next to the package
 (listed in ``.gitignore``), named by a hash of the sources and flags, so an
-edited source rebuilds and an unchanged one loads the cached ``.so``.  A
-failed build raises with the compiler's output.
+edited source rebuilds and an unchanged one loads the cached ``.so``.  Each
+source compiles in its own ``nvcc`` process, all started together, and the
+objects are linked into one library.  A failed build raises with the
+compiler's output.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,9 +40,11 @@ SIGNATURES = {
     "ice_matvec": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ice_update": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "sparse_marginal": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "escalation_ladder": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "escalation_prefix": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "escalation_ladder": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _P],
-    "hmm_forward_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "hmm_forward_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _P],
     "hmm_viterbi": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "impute_vote": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
                     _F, _F, _P, _P, _P],
@@ -72,19 +76,40 @@ def nvcc_path() -> str:
 
 
 def build(path: Path, extra_flags: tuple = ()) -> str:
-    """Compile every ``csrc/*.cu`` into one shared library at ``path``.
-    Returns the compiler's output (``extra_flags=("-Xptxas", "-v")`` makes
-    it report registers and spills per kernel)."""
+    """Compile every ``csrc/*.cu`` (one ``nvcc`` each, in parallel) and link
+    them into one shared library at ``path``.  Returns the compilers'
+    output (``extra_flags=("-Xptxas", "-v")`` makes it report registers and
+    spills per kernel)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), *cu]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {r.returncode}):\n"
-                           f"{' '.join(cmd)}\n{r.stdout}\n{r.stderr}")
+    nvcc = nvcc_path()
+    jobs = []
+    for src in (p for p in sources() if p.suffix == ".cu"):
+        obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", str(obj),
+               str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = []
+    try:
+        for cmd, _, proc in jobs:
+            out = proc.communicate()[0]
+            log.append(out)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {r.returncode}):\n"
+                               f"{' '.join(cmd)}\n{r.stdout}\n{r.stderr}")
+    finally:
+        for _, obj, proc in jobs:
+            proc.wait()
+            obj.unlink(missing_ok=True)
     os.replace(tmp, path)
-    return r.stdout + r.stderr
+    return "".join(log) + r.stdout + r.stderr
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,8 +6,9 @@ and ``_viterbi_padded`` (max-product with back-pointers) in
 are padded to ``[B, T]`` with true lengths ``L [B]``; steps t >= L[b] are
 masked exactly as the JAX package masks them.  Everything is float64.
 
-CUDA source: ``csrc/hmm_scan.cu`` (one thread per sequence, the recurrence
-in registers; see the note at its top).  The plain versions beside the
+CUDA source: ``csrc/hmm_scan.cu`` (see the note at its top): K4 is a
+chunked parallel scan with one block per sequence, K5 one thread per
+sequence with the recurrence in registers.  The plain versions beside the
 wrappers are the JAX scans written as PyTorch loops over time steps: they
 run on CPU tensors and in ``chip_smoke.py``'s parity check.
 """
@@ -102,15 +103,17 @@ def forward_backward(b: torch.Tensor, A: torch.Tensor, pi: torch.Tensor,
     B, T, S = b.shape
     b, A, pi = b.contiguous(), A.contiguous(), pi.contiguous()
     L32 = L.to(torch.int32).contiguous()
-    gamma = torch.zeros_like(b)
-    cbuf = torch.empty(B, T, dtype=b.dtype, device=b.device)
+    gamma = torch.empty_like(b)
+    # the kernel's scratch: alpha_t and c_t in 2 T + 512 slots per sequence
+    slots = 2 * T + 512
+    work = torch.empty(B, slots * (S + 1), dtype=b.dtype, device=b.device)
     xi = torch.empty(B, S, S, dtype=b.dtype, device=b.device)
     logc = torch.empty(B, dtype=b.dtype, device=b.device)
     lib = _build.load()
     _build.check(lib.hmm_forward_backward(
         b.data_ptr(), A.data_ptr(), pi.data_ptr(), L32.data_ptr(),
-        gamma.data_ptr(), cbuf.data_ptr(), xi.data_ptr(), logc.data_ptr(),
-        B, T, S, _build.stream_ptr(b.device)), "hmm_forward_backward")
+        gamma.data_ptr(), work.data_ptr(), xi.data_ptr(), logc.data_ptr(),
+        B, T, S, slots, _build.stream_ptr(b.device)), "hmm_forward_backward")
     forward_backward.launches += 1
     return gamma, xi, logc
 

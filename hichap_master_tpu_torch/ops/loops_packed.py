@@ -198,7 +198,9 @@ def pixel_cells(e_pix, x_pix, valid, e_lo: int, x_pad: int, E: int,
     xr = torch.where(valid, x_pix.long() + x_pad, zero)
     cell = er * Xp + xr
     mask = torch.zeros(C, E * Xp, dtype=torch.uint8, device=e_pix.device)
-    mask.scatter_reduce_(1, cell, valid.to(torch.uint8), reduce="amax")
+    # every writer of a cell writes the same value (invalid pixels write 0
+    # at cell 0, which no valid pixel reaches: er >= e_lo > 0)
+    mask.scatter_(1, cell, valid.to(torch.uint8))
     return cell, mask.reshape(C, E, Xp)
 
 

@@ -294,8 +294,9 @@ def genomewide_correction_coo(rows: torch.Tensor, cols: torch.Tensor,
     return r_u, c_u, rf * cor
 
 
-def ice_balance_blocks(bm: BlockMatrix, device=None, **kw):
-    """``sparse_ice_balance`` on a BlockMatrix; returns (weights[:n], stats)."""
+def ice_balance_blocks(bm: BlockMatrix, device, **kw):
+    """``sparse_ice_balance`` on a BlockMatrix moved to ``device`` (no
+    default); returns (weights[:n], stats)."""
     from ..convert import block_matrix
 
     t = block_matrix(bm, device)

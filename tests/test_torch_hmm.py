@@ -6,7 +6,12 @@ Float64 on both sides (the JAX package's tests run this module in x64).
 E-step statistics: rtol 1e-10 (the recurrences run in the same order; the
 sums over time in another).  EM: the same iteration count and parameters
 within 1e-8.  Viterbi: identical paths, log-probabilities to rtol 1e-10.
+K4's chunked scan (a test-side model of csrc/hmm_scan.cu) against the plain
+recurrence: 1e-12 relative (only the chunk starts' rounding and the
+association of the sums differ).
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -153,3 +158,209 @@ def test_wrappers_reject_bad_inputs():
         hmm_scan.viterbi(b, A, pi, torch.tensor([8, 0]))
     with pytest.raises(ValueError):
         hmm_scan.viterbi(b, A, pi, torch.tensor([8]))
+
+
+# ------------------------------------------------ K4's chunked parallel scan
+def _renorm(X, ex):
+    """The kernel's renormalisation, row by row: the power of two that
+    brings a row's largest entry into [0.5, 1) moves into that row's
+    exponent (each row of a product composed from the right is a vector
+    recursion of its own, so rows never need each other's scale)."""
+    X, ex = X.copy(), ex.copy()
+    for i, row in enumerate(X):
+        m = np.abs(row).max()
+        if m > 0 and np.isfinite(m):
+            e = int(np.frexp(m)[1])
+            X[i], ex[i] = np.ldexp(row, -e), ex[i] + e
+    return X, ex
+
+
+def _weights(v, ex):
+    """``v * 2**ex`` rescaled by one power of two so that its largest term
+    is in [0.5, 1) (terms too small to matter underflow to 0)."""
+    nz = v != 0
+    if not nz.any():
+        return np.zeros_like(v)
+    top = (np.frexp(v[nz])[1] + ex[nz]).max()
+    return np.ldexp(v, ex - top)
+
+
+def _mul(x, y):
+    """(diag(2^ex) X)(diag(2^ey) Y) with row exponents, row by row: row i
+    of X weights the rows of Y by X[i, k] 2^(ey[k]), shifted by the
+    largest weight's exponent, which joins ex[i]."""
+    (X, ex), (Y, ey) = x, y
+    Z, ez = np.zeros_like(X), ex.copy()
+    for i in range(len(X)):
+        nz = X[i] != 0
+        if nz.any():
+            top = (np.frexp(X[i][nz])[1] + ey[nz]).max()
+            Z[i] = np.ldexp(X[i], ey - top) @ Y
+            ez[i] += top
+    return _renorm(Z, ez)
+
+
+def _exclusive_scan(ops, op, S):
+    """Exclusive scan over the chunk operators as the kernel's block scan
+    runs it: Hillis-Steele within warps of 32 by ``op(earlier, later)``,
+    the same over the warp totals, each warp's prefix then on the left."""
+    x, n = list(ops), len(ops)
+    warps = [range(g, min(g + 32, n)) for g in range(0, n, 32)]
+    for idx in warps:
+        d = 1
+        while d < len(idx):
+            x = [op(x[i - d], x[i]) if i in idx and i - d >= idx[0] else x[i]
+                 for i in range(n)]
+            d *= 2
+    tot = [x[idx[-1]] for idx in warps]
+    d = 1
+    while d < len(tot):
+        tot = [op(tot[w - d], t) if w >= d else t for w, t in enumerate(tot)]
+        d *= 2
+    out = []
+    for w, idx in enumerate(warps):
+        for i in idx:
+            if i == idx[0]:
+                out.append(tot[w - 1] if w else (np.eye(S), np.zeros(S, int)))
+            else:
+                out.append(op(tot[w - 1], x[i - 1]) if w else x[i - 1])
+    return out
+
+
+def _chunk_scan_model(b, A, pi, n, P, cap=None):
+    """What csrc/hmm_scan.cu's forward-backward computes for one sequence
+    of ``n`` steps on ``P`` threads, each owning a chunk of
+    ``min(cap, ceil(n / P))`` steps, tile after tile: chunk operators
+    composed with power-of-two renormalisation of each row, an exclusive
+    prefix scan for the chunk starts (normalised to sum 1), the sequential
+    replay writing alpha and c, then the backward pass with the operators
+    A diag(b_t) / c_t, a suffix scan carrying the row exponents, and the
+    replay that writes gamma and each thread's xi and log c."""
+    T, S = b.shape
+    gam, c = np.zeros((T, S)), np.ones(T)
+    Lc = min(cap or n, -(-n // P))
+    TS = P * Lc
+    tiles = range(-(-n // TS))
+    al = np.zeros((T, S))
+    raw = pi * b[0]
+    c[0] = raw.sum() if raw.sum() > 0 else 1.0
+    al[0] = carry = raw / c[0]
+    # each thread's product of its c as mantissa and exponent
+    prod, pexp, xi = np.ones(P), np.zeros(P, int), np.zeros((P, S, S))
+    prod[0] = c[0]
+
+    def chunks(t0):
+        for k in range(P):
+            s = t0 + k * Lc
+            yield k, s, min(s + Lc, n, t0 + TS)
+
+    def ops(t0, scale):
+        out = []
+        for _, s, e in chunks(t0):
+            x = (np.eye(S), np.zeros(S, int))
+            for t in range(max(s, 1), e):
+                x = _renorm((x[0] @ A) * b[t] * (1.0 / scale[t]), x[1])
+            out.append(x)
+        return out
+
+    for tau in tiles:
+        t0 = tau * TS
+        pre = _exclusive_scan(ops(t0, np.ones(T)), _mul, S)
+        nxt = carry
+        for k, s, e in chunks(t0):
+            if k == 0:
+                a = carry
+            else:
+                u = _weights(carry, pre[k][1]) @ pre[k][0]
+                a = u / u.sum() if u.sum() > 0 else u
+            for t in range(max(s, 1), e):
+                r = (a @ A) * b[t]
+                c[t] = r.sum() if r.sum() > 0 else 1.0
+                a = al[t] = r / c[t]
+                mant, ex = np.frexp(prod[k] * c[t])
+                prod[k], pexp[k] = mant, pexp[k] + ex
+            if s < e == min(t0 + TS, n):
+                nxt = a
+        carry = nxt
+
+    carry = np.ones(S)
+    for tau in reversed(tiles):
+        t0 = tau * TS
+        post = list(reversed(_exclusive_scan(
+            list(reversed(ops(t0, c))), lambda x, y: _mul(y, x), S)))
+        nxt = carry
+        for k, s, e in chunks(t0):
+            if s >= e:
+                continue
+            beta = (carry if e == min(t0 + TS, n)
+                    else np.ldexp(post[k][0] @ carry, post[k][1]))
+            gm = al[e - 1] * beta
+            gam[e - 1] = gm / max(gm.sum(), 1e-300)
+            for t in range(e - 2, max(s - 1, 0) - 1, -1):
+                v = b[t + 1] * beta
+                nb = (A @ v) * (1.0 / c[t + 1])
+                xi[k] += al[t][:, None] * A * v[None, :] * (1.0 / c[t + 1])
+                if t >= s:
+                    gm = al[t] * nb
+                    gam[t] = gm * (1.0 / max(gm.sum(), 1e-300))
+                beta = nb
+            if k == 0:
+                nxt = beta
+        carry = nxt
+    return gam, xi.sum(0), (np.log(prod) + pexp * math.log(2.0)).sum()
+
+
+def _scan_case(case):
+    """(b [T, S], A, pi, L) for one edge case of the chunked scan."""
+    if case == "tiny_emissions":
+        # emissions down to 1e-300: the rows of a product of chunk
+        # operators drift apart by more than a double's range (with one
+        # exponent per operator, chunk counts 8, 64 and L fail here)
+        rng = np.random.default_rng(11)
+        T, L = 512, 500
+        b = rng.random((T, 3)) + 0.01
+        b[rng.random((T, 3)) < 0.4] = 1e-300
+        b[:, 0][rng.random(T) < 0.5] = 1.0
+        model = init_parameters(3)
+        return b, model.A, model.pi, L
+    rng = np.random.default_rng(11)
+    L = {"one_step": 1, "ragged": 50, "structural_zeros": 47}[case]
+    model = init_parameters(6 if case == "structural_zeros" else 3)
+    X, Lp = P._pad_sequences(_di_like(rng, [L]))
+    logb, _ = P._log_mix(torch.from_numpy(X), *_params(model)[2:])
+    b = torch.exp(logb - logb.amax(-1, keepdim=True))[0].numpy()
+    return b, model.A, model.pi, int(Lp[0])
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300))
+
+
+@pytest.mark.parametrize("case", ["one_step", "ragged", "structural_zeros",
+                                  "tiny_emissions"])
+@pytest.mark.parametrize("chunks", [1, 3, 8, 64, "L"])
+def test_k4_chunk_scan_model_matches_plain(case, chunks):
+    b, A, pi, L = _scan_case(case)
+    P_ = L if chunks == "L" else chunks
+    gp, xp, lp = hmm_scan.forward_backward_plain(
+        torch.from_numpy(b[None]), torch.from_numpy(A), torch.from_numpy(pi),
+        torch.tensor([L]))
+    gm, xm, lm = _chunk_scan_model(b, A, pi, L, P_)
+    assert _rel(gm, gp[0].numpy()) <= 1e-12
+    assert _rel(xm, xp[0].numpy()) <= 1e-12
+    assert abs(lm - float(lp[0])) <= 1e-12 * abs(float(lp[0]))
+    assert float(np.abs(gm[L:]).sum()) == 0.0
+
+
+@pytest.mark.parametrize("chunks", [3, 8])
+def test_k4_chunk_scan_model_tiles(chunks):
+    """A sequence longer than one staged tile: the carry passes from tile
+    to tile in both directions."""
+    b, A, pi, L = _scan_case("ragged")
+    gp, xp, lp = hmm_scan.forward_backward_plain(
+        torch.from_numpy(b[None]), torch.from_numpy(A), torch.from_numpy(pi),
+        torch.tensor([L]))
+    gm, xm, lm = _chunk_scan_model(b, A, pi, L, chunks, cap=2)
+    assert _rel(gm, gp[0].numpy()) <= 1e-12
+    assert _rel(xm, xp[0].numpy()) <= 1e-12
+    assert abs(lm - float(lp[0])) <= 1e-12 * abs(float(lp[0]))

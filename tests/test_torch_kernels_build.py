@@ -7,7 +7,8 @@ import torch
 
 from hichap_master_tpu_torch.kernels import _build
 from hichap_master_tpu_torch.kernels import hmm_scan
-from hichap_master_tpu_torch.kernels.escalation import escalation_batch
+from hichap_master_tpu_torch.kernels.escalation import (escalation_batch,
+                                                        ladder, prefix_maps)
 from hichap_master_tpu_torch.kernels.ice_sweep import IceState, ice_sweeps
 from hichap_master_tpu_torch.kernels.sparse_marginal import block_sym_matvec
 
@@ -74,3 +75,14 @@ def test_hmm_wrappers_do_not_fall_back_off_the_cpu():
         hmm_scan.forward_backward(x, m, v, L)
     with pytest.raises(RuntimeError, match="no HMM kernel"):
         hmm_scan.viterbi(x, m, v, L)
+
+
+def test_k3_parts_do_not_fall_back_off_the_cpu():
+    meta = torch.device("meta")
+    D = torch.empty(1, 4, 8, device=meta)
+    with pytest.raises(RuntimeError, match="no escalation kernel"):
+        prefix_maps(D, D, D)
+    W = torch.empty(3, 1, 4, 8, device=meta)
+    mask = torch.empty(1, 4, 8, dtype=torch.uint8, device=meta)
+    with pytest.raises(RuntimeError, match="no ladder kernel"):
+        ladder(W, mask, 1, 2, 1)

@@ -175,33 +175,10 @@ def test_k3_plain_batch_matches_jax_maps_batch_bitwise():
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-def _kernel_contract(W, pixmask, ww, maxww, pw):
-    """What csrc/escalation.cu writes, from the plain map functions: per
-    cell the first level whose lower-left raw count is >= 16 (127 if
-    none), the four backgrounds at that level, and the per-chromosome
-    histogram of levels over candidate cells."""
-    C = W.shape[1]
-    L = maxww - ww + 1
-    t = torch.full(pixmask.shape, K3.UNRESOLVED, dtype=torch.int32)
-    a = [torch.zeros(pixmask.shape) for _ in range(4)]
-    hist = torch.zeros(C, L, dtype=torch.int32)
-    for li in range(L):
-        w = ww + li
-        newly = (pixmask.bool() & (t == K3.UNRESOLVED)
-                 & (P.lowerleft_map(W[0], w, pw) >= 16))
-        t[newly] = li
-        for k, v in enumerate((P.donut_map(W[1], w, pw),
-                               P.donut_map(W[2], w, pw),
-                               P.lowerleft_map(W[1], w, pw),
-                               P.lowerleft_map(W[2], w, pw))):
-            a[k][newly] = v[newly]
-        hist[:, li] = newly.sum((1, 2))
-    return t, a, hist
-
-
 def test_k3_kernel_contract_resolves_like_plain():
-    """The wrapper's post-launch step (stop level from the histogram, gather
-    at pixels) turns the kernel's per-cell outputs into the plain ladder's
+    """The wrapper's post-launch step (stop level from the histogram and
+    the candidate count, gather at pixels) turns the ladder's per-cell
+    outputs (its plain version on the CPU) into the plain ladder's
     per-pixel result."""
     rng = np.random.default_rng(3)
     cases = [_case(rng, n=300, B=40, ww=3, maxww=8, pw=1, npix=500,
@@ -213,12 +190,80 @@ def test_k3_kernel_contract_resolves_like_plain():
     C, E, Xp = D.shape[1:]
     cell, pixmask = P.pixel_cells(e_pix, x_pix, valid, kw["e_lo"],
                                   kw["x_pad"], E, Xp)
-    t, a, hist = _kernel_contract(P.anti_diagonal_prefix(D), pixmask,
-                                  kw["ww"], kw["maxww"], kw["pw"])
-    got = K3.resolve_pixels(t, a, hist, pixmask, cell, valid)
+    W = K3.prefix_maps(*D)
+    t, a, hist, total = K3.ladder(W, pixmask, kw["ww"], kw["maxww"],
+                                  kw["pw"])
+    assert t.dtype == torch.uint8
+    assert total.tolist() == pixmask.sum((1, 2)).tolist()
+    assert hist.sum(1).tolist() == (t != K3.UNRESOLVED).sum((1, 2)).tolist()
+    got = K3.resolve_pixels(t, a, hist, total, cell, valid)
     want = K3.escalation_plain(*D, e_pix, x_pix, valid, *kw.values())
-    _assert_ladder_equal(got[0], got[1:], want[0], want[1:], rtol=0, atol=0)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
     assert got[0].any() and not got[0].all()
+
+
+def _blocked_prefix_model(v):
+    """In place over axis 0 (n <= 256 rows): sequential when n <= 16, else
+    sequential within blocks of 16, the block totals prefixed sequentially
+    and the exclusive totals added back (block 0 gets + 0)."""
+    n = len(v)
+    if n <= 16:
+        for i in range(1, n):
+            v[i] = v[i - 1] + v[i]
+        return
+    blocks = [(lo, min(lo + 16, n)) for lo in range(0, n, 16)]
+    tot = []
+    for lo, hi in blocks:
+        for i in range(lo + 1, hi):
+            v[i] = v[i - 1] + v[i]
+        tot.append(v[hi - 1].copy())
+    for j in range(1, len(tot)):
+        tot[j] = tot[j - 1] + tot[j]
+    for j, (lo, hi) in enumerate(blocks):
+        v[lo:hi] = v[lo:hi] + (tot[j - 1] if j else np.float32(0))
+
+
+def _prefix_kernels_model(D):
+    """What csrc/escalation.cu's prefix kernels compute, in their order:
+    (a) per column, the totals of 16-row blocks, their blocked prefix, then
+    each block's running sum plus the total before it (one sequential
+    running sum when E <= 16); (b) per anti-diagonal d = e + x, a running
+    sum from its first cell, stored in place."""
+    E, X = D.shape
+    R = np.empty_like(D)
+    blocks = [(lo, min(lo + 16, E)) for lo in range(0, E, 16)]
+    tot = np.empty((len(blocks), X), np.float32)
+    for j, (lo, hi) in enumerate(blocks):
+        s = D[lo].copy()
+        for e in range(lo + 1, hi):
+            s = s + D[e]
+        tot[j] = s
+    if E > 16:
+        _blocked_prefix_model(tot)
+    for j, (lo, hi) in enumerate(blocks):
+        s = D[lo].copy()
+        R[lo] = s + tot[j - 1] if j else (s + np.float32(0) if E > 16 else s)
+        for e in range(lo + 1, hi):
+            s = s + D[e]
+            R[e] = s + tot[j - 1] if j else (s + np.float32(0) if E > 16
+                                             else s)
+    for d in range(E + X - 1):
+        e0, e1 = max(0, d - (X - 1)), min(E - 1, d)
+        s = R[e0, d - e0]
+        for e in range(e0 + 1, e1 + 1):
+            s = R[e, d - e] + s
+            R[e, d - e] = s
+    return R
+
+
+@pytest.mark.parametrize("E", [1, 15, 16, 17, 256, 305])
+def test_prefix_kernels_model_is_anti_diagonal_prefix_bitwise(E):
+    rng = np.random.default_rng(E)
+    D = (rng.random((E, 29)) * 3).astype(np.float32)
+    D[rng.random(D.shape) < 0.3] = 0.0
+    np.testing.assert_array_equal(_prefix_kernels_model(D),
+                                  P.anti_diagonal_prefix(_t(D)).numpy())
 
 
 def test_stop_levels():

@@ -32,7 +32,7 @@ def _coo(rng, n, nnz):
 
 
 def _mv_args(bm, b):
-    t = convert.block_matrix(bm)
+    t = convert.block_matrix(bm, "cpu")
     return t.tiles, t.brow, t.bcol, torch.from_numpy(b)
 
 
@@ -126,7 +126,7 @@ def test_sparse_ice_matches_jax(n):
     bm = _band_blocks(n, n)
     w_j, s_j = J.ice_balance_blocks(bm, tol=1e-5, max_iters=200,
                                     reduce="onehot")
-    w_p, s_p = P.ice_balance_blocks(bm, tol=1e-5, max_iters=200)
+    w_p, s_p = P.ice_balance_blocks(bm, "cpu", tol=1e-5, max_iters=200)
     assert_close_nan(w_p, np.asarray(w_j), rtol=1e-5)
     assert int(s_p["iters"]) == int(s_j["iters"])
     assert bool(s_p["converged"])
@@ -136,19 +136,20 @@ def test_sparse_ice_fast_and_cap_match_jax():
     bm = _band_blocks(7, 400)
     w_j, s_j = J.ice_balance_blocks(bm, tol=1e-5, max_iters=200, fast=True,
                                     reduce="onehot")
-    w_p, s_p = P.ice_balance_blocks(bm, tol=1e-5, max_iters=200, fast=True)
+    w_p, s_p = P.ice_balance_blocks(bm, "cpu", tol=1e-5, max_iters=200,
+                                    fast=True)
     assert_close_nan(w_p, np.asarray(w_j), rtol=1e-4)
     assert int(s_p["iters"]) == int(s_j["iters"])
     w_j, s_j = J.ice_balance_blocks(bm, tol=0.0, max_iters=6,
                                     reduce="onehot")
-    w_p, s_p = P.ice_balance_blocks(bm, tol=0.0, max_iters=6)
+    w_p, s_p = P.ice_balance_blocks(bm, "cpu", tol=0.0, max_iters=6)
     assert int(s_p["iters"]) == int(s_j["iters"]) == 6
     assert_close_nan(w_p, np.asarray(w_j), rtol=1e-5)
 
 
 def test_sparse_ice_rejects_bad_coordinates():
     bm = P.blocks_from_dense(np.eye(200, dtype=np.float32) + 1, T)
-    t = convert.block_matrix(bm)
+    t = convert.block_matrix(bm, "cpu")
     with pytest.raises(ValueError):
         P.sparse_ice_balance(t.tiles, t.bcol + bm.R, t.brow, t.n, R=t.R,
                              T=T)
@@ -162,7 +163,17 @@ def test_convert_from_jax_objects():
     assert t.tiles.dtype == torch.float32 and t.brow.dtype == torch.int32
     np.testing.assert_array_equal(t.tiles.numpy(), bm.tiles)
     cb = ContactBatch.from_dict({"a": np.ones((3, 3)), "b": np.ones((5, 5))})
-    data, n_bins = convert.contact_batch(cb)
+    data, n_bins = convert.contact_batch(cb, "cpu")
     assert tuple(data.shape) == cb.data.shape and n_bins.tolist() == [3, 5]
-    w = convert.weights(np.array([1.0, np.nan]))
+    w = convert.weights(np.array([1.0, np.nan]), "cpu")
     assert w.dtype == torch.float32 and torch.isnan(w[1])
+
+
+def test_entry_points_require_a_device():
+    """Like every entry point of the port, the BlockMatrix helpers take
+    the device with no default."""
+    bm = _band_blocks(5, 260)
+    with pytest.raises(TypeError):
+        P.ice_balance_blocks(bm)
+    with pytest.raises(TypeError):
+        convert.block_matrix(bm)
