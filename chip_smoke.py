@@ -15,9 +15,12 @@ Phases, each printed on its own line, any failure raising:
    CUDA events around 20 back-to-back calls), and its bound (the larger of
    its bytes over the card's memory rate and its operations over the
    peak rate for their type):
-   K1 dense ICE iterations on chr1 at 40 kb (f32 and bf16), and its matvec
-   alone beside torch.bmm; K2 the block-sparse marginal on the hg19 10 kb
-   tile set (f32 and bf16); K3 on chr1 at 10 kb: the prefix kernels bit for
+   K1 dense ICE iterations on chr1 at 40 kb (f32 and bf16; ms per
+   iteration inside one launch), its matvec phase alone beside torch.bmm,
+   and the 3,584 bucket's four chromosomes as one uneven batch in one
+   launch (per-matrix counts equal the plain version's); K2 the
+   block-sparse marginal on the hg19 10 kb tile set (f32 and bf16); K3 on
+   chr1 at 10 kb: the prefix kernels bit for
    bit against anti_diagonal_prefix, then the whole escalation call
    (identical outputs) and the ladder kernel alone; K4 the HMM
    forward-backward and K5 the HMM Viterbi on the 23 DI segments of the
@@ -150,31 +153,40 @@ def k1_compare(dev, results):
     for tag, Mi in (("", M0), ("bf16_", M0.to(torch.bfloat16))):
         runs = {}
         for name, fn in (("kernel", ice_sweeps), ("plain", ice_sweeps_plain)):
-            def run(fn=fn):
-                st = IceState.start(keep.float(), iters)
-                fn(Mi, st, iters=iters, tol=0.0, max_iters=iters)
+            def run(n=iters, fn=fn):
+                st = IceState.start(keep.float(), n)
+                fn(Mi, st, iters=n, tol=0.0, max_iters=n)
                 return st
-            st = run()
-            torch.cuda.synchronize()
-            runs[name] = (st, median_ms(run) / iters)
-        (sk, ms), (sp, plain_ms) = runs["kernel"], runs["plain"]
+            runs[name] = run
+        sk, sp = runs["kernel"](), runs["plain"]()
+        torch.cuda.synchronize()
         err = rel_err(sk.b, sp.b)
         tol = 1e-4 if not tag else 1e-3
         check(sk.iters.tolist() == sp.iters.tolist() == [iters],
               "K1 iteration counts")
         check(err <= tol, f"K1 {tag or 'f32 '}weights differ: {err:.2e}")
         abs_err = float((sk.b - sp.b).abs().max())
+        # ms per iteration inside one launch: a call of 100 iterations
+        # less a call of 20, over 80 (CUDA events, one call each after a
+        # warm one), so what a call costs once is left out
+        short, long = (event_ms(lambda n=n: runs["kernel"](n), n=3)
+                       for n in (20, 100))
+        ms = (long - short) / 80
+        plain_ms = median_ms(runs["plain"]) / iters
         log(f"K1 ice_sweep {tag or 'f32_'}[1,{N},{N}]: max rel err {err:.3e}"
-            f" (tol {tol:g}), {ms:.4f} ms/iter kernel vs {plain_ms:.4f}"
-            " ms/iter plain")
+            f" (tol {tol:g}), {ms:.4f} ms/iter kernel (one launch of 100 "
+            f"iterations less one of 20; a call costs {short - 20 * ms:.3f} "
+            f"ms once) vs {plain_ms:.4f} ms/iter plain")
         # one iteration streams the matrix and reads and writes the biases
         b_ = bound(nbytes(Mi) + 2 * nbytes(keep.float()),
                    2.0 * Mi.numel())
         out.update({f"{tag}max_abs_err": abs_err, f"{tag}ms": ms,
                     f"{tag}plain_ms": plain_ms,
                     **{f"{tag}{k}": v for k, v in b_.items()}})
-    # the matvec alone (one launch of ice_matvec) beside torch.bmm, the one
-    # PyTorch call that computes it (the port never calls it)
+    # the yardstick: the whole fused iteration (above) beside torch.bmm of
+    # the matvec alone, the one PyTorch call that computes a part of it (the
+    # port never calls it), and K1's matvec phase alone (ice_matvec: the same
+    # row loop in an ordinary launch, which nothing on the main path calls)
     from hichap_master_tpu_torch.kernels import _build
     lib = _build.load()
     Mc, bc = M0.contiguous(), keep.float().contiguous()
@@ -199,15 +211,65 @@ def k1_compare(dev, results):
     matvec()
     torch.cuda.synchronize()
     check(rel_err(marg, want) <= 1e-5, "K1 matvec differs from torch.bmm")
-    log(f"K1 matvec alone [1,{N},{N}] f32: {matvec_ms:.4f} ms (events, "
-        f"best of 2) vs torch.bmm {library_ms:.4f} ms; bound "
-        f"{out['bound_ms']:.4f} ms per iteration ({out['bound_by']})")
+    log(f"K1 yardstick [1,{N},{N}] f32: whole fused iteration "
+        f"{out['ms']:.4f} ms; matvec phase alone {matvec_ms:.4f} ms (events,"
+        f" best of 2) vs torch.bmm of the matvec alone {library_ms:.4f} ms; "
+        f"bound {out['bound_ms']:.4f} ms per iteration ({out['bound_by']})")
+    del M0, Mc, want
+    uneven = k1_uneven_batch(dev)
     results["ice_sweep"] = dict(
         route="cuda", source="hichap_master_tpu_torch/csrc/ice_sweep.cu",
         replaces="hichap_master_tpu/kernels/pallas_ice.py:39",
-        unit=f"ms per ICE iteration, chr1 40 kb [1, {N}, {N}]; library_ms "
-             "is torch.bmm of the matvec alone",
-        matvec_ms=matvec_ms, library_ms=library_ms, **out)
+        unit=f"ms per ICE iteration inside one launch, chr1 40 kb [1, {N}, "
+             f"{N}]; library_ms is torch.bmm of the matvec alone",
+        matvec_ms=matvec_ms, library_ms=library_ms, uneven_batch=uneven,
+        **out)
+
+
+def k1_uneven_batch(dev):
+    """The four chromosomes of the 3,584 bucket (a main-path batch) to
+    convergence in one call of K1: per-matrix iteration counts equal the
+    plain version's, and one launch that ends before max_iters shows the
+    stop on the device."""
+    from hichap_master_tpu_torch.core import pad_to_bucket
+    from hichap_master_tpu_torch.kernels.ice_sweep import (
+        IceState, ice_sweeps, ice_sweeps_plain)
+    from hichap_master_tpu_torch.ops.balance import ice_filters
+    from hichap_master_tpu_torch.testing.synthetic import chrom_bins, hap_batch
+
+    N, max_iters = 3584, 200
+    sizes = [n for n in chrom_bins(40_000).values()
+             if pad_to_bucket(n, 512) == N]
+    M0, keep = ice_filters(hap_batch(sizes, N, seed=N, device=dev,
+                                     background=BACKGROUND_40KB),
+                           torch.tensor(sizes, device=dev))
+    runs = {}
+    for name, fn in (("kernel", ice_sweeps), ("plain", ice_sweeps_plain)):
+        before = ice_sweeps.launches
+        st = IceState.start(keep.float(), max_iters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(M0, st, iters=max_iters, tol=1e-5, max_iters=max_iters)
+        torch.cuda.synchronize()
+        runs[name] = (st, (time.perf_counter() - t0) * 1e3,
+                      ice_sweeps.launches - before)
+    (sk, ms, launches), (sp, plain_ms, _) = runs["kernel"], runs["plain"]
+    its = sk.iters.tolist()
+    check(its == sp.iters.tolist(), f"K1 uneven batch: iteration counts "
+          f"{its} vs plain {sp.iters.tolist()}")
+    check(launches == 1 and max(its) < max_iters and not sk.active.any(),
+          f"K1 uneven batch: {launches} launches, iterations {its}")
+    err = rel_err(sk.b, sp.b)
+    check(err <= 1e-4, f"K1 uneven batch: weights differ by {err:.2e}")
+    log(f"K1 uneven batch [{len(sizes)},{N},{N}] tol 1e-5: iterations {its} "
+        f"= plain's, {launches} launch stopped on the device after "
+        f"{max(its)} of {max_iters}, max rel err {err:.3e} (tol 1e-4), "
+        f"{ms:.3f} ms "
+        f"({ms / max(its):.4f} ms per iteration of the slowest) vs "
+        f"{plain_ms:.3f} ms plain; bound "
+        f"{bound(nbytes(M0))['bound_ms']:.4f} ms per iteration of all four")
+    return dict(shape=[len(sizes), N, N], iters=its, launches=launches,
+                ms=ms, plain_ms=plain_ms, max_rel_err=err)
 
 
 # ------------------------------------------------------------------ K2
@@ -628,7 +690,7 @@ def dense_ice(dev):
     buckets = {}
     for c, n in chrom_bins(40_000).items():
         buckets.setdefault(pad_to_bucket(n, 512), []).append(n)
-    total, iters, worst = 0.0, [], 0.0
+    total, iters, worst, swept = 0.0, [], 0.0, 0
     for N, sizes in sorted(buckets.items()):
         M = hap_batch(sizes, N, seed=N, device=dev,
                       background=BACKGROUND_40KB)
@@ -641,6 +703,7 @@ def dense_ice(dev):
         check(bool(st["converged"].all()), f"40 kb bucket {N} unconverged: "
               f"iters {st['iters'].tolist()} var {st['var'].tolist()}")
         iters += st["iters"].tolist()
+        swept += int(st["iters"].max())
         # balanced marginals are ~1 at every kept bin (plain matmul)
         M0, _ = ice_filters(M, nb)
         w0 = torch.nan_to_num(w)
@@ -650,7 +713,8 @@ def dense_ice(dev):
     check(worst < 1e-3, f"40 kb balanced marginals off 1 by {worst:.2e}")
     log(f"main: dense ICE 40 kb, 23 chromosomes in {len(buckets)} buckets: "
         f"all converged (tol 1e-5, max_iters 200), iters "
-        f"{min(iters)}-{max(iters)}, {total:.3f} s, balanced marginals "
+        f"{min(iters)}-{max(iters)} ({swept} K1 iterations over the "
+        f"buckets), {total:.3f} s, balanced marginals "
         f"within {worst:.1e} of 1")
 
 
@@ -696,7 +760,7 @@ def two_step_ice(dev):
     for n in chrom_bins(40_000).values():
         buckets.setdefault(pad_to_bucket(n, 512), []).append(n)
     t_corr = t_ice = 0.0
-    worst, iters = 0.0, []
+    worst, iters, swept = 0.0, [], 0
     for N, sizes in sorted(buckets.items()):
         m = hap_batch(sizes, N, seed=2 * N, device=dev,
                       background=BACKGROUND_40KB)
@@ -724,13 +788,15 @@ def two_step_ice(dev):
         check(bool(st["converged"].all()), f"ICE of T, bucket {N}: "
               f"unconverged, iters {st['iters'].tolist()}")
         iters += st["iters"].tolist()
+        swept += int(st["iters"].max())
         del t, w
     check(worst <= 1e-4, f"two-step sums off the raw sums by {worst:.2e}")
     log(f"main: two-step correction 40 kb, 23 chromosomes x 2 haplotypes in "
         f"{len(buckets)} buckets: finite, sums within {worst:.1e} of the raw "
         f"sums, {t_corr:.3f} s")
     log(f"main: dense ICE of T = M + P 40 kb, 23 chromosomes: all converged,"
-        f" iters {min(iters)}-{max(iters)}, {t_ice:.3f} s")
+        f" iters {min(iters)}-{max(iters)} ({swept} K1 iterations over the "
+        f"buckets), {t_ice:.3f} s")
 
 
 def compartments(dev):

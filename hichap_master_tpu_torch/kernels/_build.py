@@ -35,10 +35,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points -> argument types (pointers and the stream as c_void_p;
-# every function returns the launch's cudaError_t as int)
+# every function returns the launch's cudaError_t as int, except
+# ice_sweep_max_batch, which returns a batch size)
 SIGNATURES = {
+    "ice_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    "ice_sweep_max_batch": [_I, _I],
     "ice_matvec": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "ice_update": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "sparse_marginal": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "escalation_prefix": [_P, _P, _P, _P, _I, _I, _I, _P],
     "escalation_ladder": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

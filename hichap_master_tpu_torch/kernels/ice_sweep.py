@@ -8,8 +8,9 @@ carries its own ``active`` flag and counter on the device, so per-matrix
 iteration counts equal ``ops.balance.ice_balance``'s exactly (the
 ``vmap(while_loop)`` semantics of ``ice_balance_batch``).
 
-CUDA source: ``csrc/ice_sweep.cu`` (bandwidth-bound matvec, one warp per
-row, plus a one-block-per-matrix update; see the note at its top).
+CUDA source: ``csrc/ice_sweep.cu``: one persistent cooperative launch runs
+a whole block of iterations (biases in shared memory, one grid-wide barrier
+per iteration, the stop decided on the device); see the note at its top.
 """
 
 from __future__ import annotations
@@ -54,11 +55,14 @@ class IceState:
 
 def ice_sweeps_plain(M0: torch.Tensor, st: IceState, *, iters: int,
                      tol: float, max_iters: int) -> None:
-    """Plain PyTorch version of K1: ``iters`` masked ICE iterations."""
+    """Plain PyTorch version of K1: up to ``iters`` masked ICE iterations,
+    stopping like the kernel once no matrix is active."""
     from ..ops.masked import masked_mean, masked_var
 
     Mf = M0.float() if M0.dtype == torch.bfloat16 else M0
     for _ in range(iters):
+        if not bool(st.active.any()):
+            break
         b = st.b
         x = b.bfloat16().float() if M0.dtype == torch.bfloat16 else b
         marg = torch.bmm(Mf, x.unsqueeze(-1)).squeeze(-1) * b
@@ -83,8 +87,12 @@ def ice_sweeps(M0: torch.Tensor, st: IceState, *, iters: int, tol: float,
 
     M0 : [C, N, N] float32 or bfloat16, ignored diagonals and dead rows
          already zeroed.  ``st`` is updated in place; nothing is read back
-         to the host.  CPU tensors take the plain version; CUDA tensors
-         launch the kernels (two per iteration) or raise.
+         to the host.  CPU tensors take the plain version; CUDA tensors go
+         through the kernel or raise: one cooperative launch for the whole
+         block of iterations, which ends early on the device when every
+         matrix has stopped.  A batch whose biases do not fit one block's
+         shared memory runs as several launches over slices of the batch
+         (the matrices are independent).
     """
     C, N = st.b.shape
     if M0.dim() != 3 or tuple(M0.shape) != (C, N, N):
@@ -102,28 +110,36 @@ def ice_sweeps(M0: torch.Tensor, st: IceState, *, iters: int, tol: float,
         if t.device != M0.device or not t.is_contiguous():
             raise ValueError(f"state.{name} must be contiguous on "
                              f"{M0.device}")
-    if not M0.is_contiguous() or M0.data_ptr() % 16 or st.b.data_ptr() % 16:
-        raise ValueError("M0 and state.b must be contiguous and 16-byte "
-                         "aligned")
+    if not M0.is_contiguous():
+        raise ValueError("M0 must be contiguous")
     if (st.b.dtype != torch.float32 or st.var.dtype != torch.float32
             or st.scale.dtype != torch.float32
             or st.iters.dtype != torch.int32
             or st.active.dtype != torch.int32):
         raise TypeError("IceState dtypes must be float32/int32")
+    if C == 0 or iters <= 0:
+        return
     lib = _build.load()
-    stream = _build.stream_ptr(M0.device)
-    marg = torch.empty_like(st.b)
     bf16 = int(M0.dtype == torch.bfloat16)
-    for _ in range(iters):
-        _build.check(lib.ice_matvec(M0.data_ptr(), st.b.data_ptr(),
-                                    st.active.data_ptr(), marg.data_ptr(),
-                                    C, N, bf16, stream), "ice_matvec")
-        _build.check(lib.ice_update(marg.data_ptr(), st.b.data_ptr(),
-                                    st.active.data_ptr(),
-                                    st.iters.data_ptr(), st.var.data_ptr(),
-                                    st.scale.data_ptr(), C, N, float(tol),
-                                    int(max_iters), stream), "ice_update")
-        ice_sweeps.launches += 1
+    with torch.cuda.device(M0.device):
+        step = lib.ice_sweep_max_batch(N, bf16)
+        if step < 0:
+            _build.check(-step, "ice_sweep_max_batch")
+        if step == 0:
+            raise ValueError(f"N = {N}: the biases of one matrix do not fit "
+                             "a block's shared memory")
+        stream = _build.stream_ptr(M0.device)
+        marg = torch.empty((2, min(step, C), N), dtype=torch.float32,
+                           device=M0.device)
+        for c0 in range(0, C, step):
+            c1 = min(c0 + step, C)
+            _build.check(lib.ice_sweep(
+                M0[c0:c1].data_ptr(), st.b[c0:c1].data_ptr(), marg.data_ptr(),
+                st.active[c0:c1].data_ptr(), st.iters[c0:c1].data_ptr(),
+                st.var[c0:c1].data_ptr(), st.scale[c0:c1].data_ptr(),
+                c1 - c0, N, bf16, float(tol), int(max_iters), int(iters),
+                stream), "ice_sweep")
+            ice_sweeps.launches += 1
 
 
 ice_sweeps.launches = 0

@@ -9,8 +9,10 @@ is below ``tol`` (1e-5) or ``max_iters``, then rescale by
 ``1/sqrt(mean marginal)`` and set filtered bins to NaN.
 
 The iterations run through K1 (``kernels/ice_sweep.py``): the CUDA kernel on
-a CUDA tensor, its plain PyTorch version on a CPU tensor.  The filters run
-once, in plain PyTorch, as they run outside the Pallas kernel.
+a CUDA tensor, its plain PyTorch version on a CPU tensor.  K1 stops on the
+device when every matrix has converged, so one call covers all
+``max_iters`` iterations and the host reads no flag.  The filters run once,
+in plain PyTorch, as they run outside the Pallas kernel.
 """
 
 from __future__ import annotations
@@ -19,8 +21,6 @@ import torch
 
 from ..kernels.ice_sweep import IceState, ice_sweeps
 from .masked import masked_median, valid_row_mask
-
-CHECK_EVERY = 8  # iterations between host reads of the active flags
 
 
 def _zero_diags(M: torch.Tensor, ignore_diags: int) -> torch.Tensor:
@@ -63,7 +63,7 @@ def ice_balance_batch(M: torch.Tensor, n: torch.Tensor, *,
                       ignore_diags: int = 1, mad_max: int = 5,
                       min_nnz: int = 10, min_count: int = 0,
                       tol: float = 1e-5, max_iters: int = 200,
-                      fast: bool = False):
+                      fast: bool = False, block_iters: int | None = None):
     """Balance a batch of padded symmetric matrices ``M [C, N, N]`` with
     true sizes ``n [C]``.  Returns (weights [C, N], stats) with NaN weights
     at filtered or padded bins; stats holds per-matrix 'scale', 'var',
@@ -72,6 +72,10 @@ def ice_balance_batch(M: torch.Tensor, n: torch.Tensor, *,
     fast : iterate on a bfloat16 copy of the matrix (half the bytes per
     iteration; weights deviate ~1e-3 relative), as the JAX package's
     ``fast`` mode.
+    block_iters : iterations per call of K1, with a host read of the
+    ``active`` flags between calls; None (the default) asks for all
+    ``max_iters`` in one call and reads nothing.  The result does not
+    depend on it.
     """
     M_it, keep = ice_filters(M, n, ignore_diags=ignore_diags,
                              mad_max=mad_max, min_nnz=min_nnz,
@@ -79,11 +83,14 @@ def ice_balance_batch(M: torch.Tensor, n: torch.Tensor, *,
     if fast:
         M_it = M_it.to(torch.bfloat16)
     st = IceState.start(keep.to(torch.float32), max_iters)
-    for start in range(0, max_iters, CHECK_EVERY):
-        ice_sweeps(M_it, st, iters=min(CHECK_EVERY, max_iters - start),
-                   tol=tol, max_iters=max_iters)
-        if not bool(st.active.any()):
+    block = max_iters if block_iters is None else block_iters
+    if block < 1 and max_iters > 0:
+        raise ValueError(f"block_iters must be positive, got {block_iters}")
+    for start in range(0, max_iters, max(block, 1)):
+        if start and not bool(st.active.any()):
             break
+        ice_sweeps(M_it, st, iters=min(block, max_iters - start), tol=tol,
+                   max_iters=max_iters)
 
     b, scale = st.b, st.scale
     w = b / torch.sqrt(torch.where(scale > 0, scale,
