@@ -24,9 +24,12 @@ Phases, each printed on its own line, any failure raising:
    bit against anti_diagonal_prefix, then the whole escalation call
    (identical outputs) and the ladder kernel alone; K4 the HMM
    forward-backward and K5 the HMM Viterbi on the 23 DI segments of the
-   40 kb TAD input (T = 8,192, 3 states, float64), K4 also on its edge
-   cases; K6 the imputation vote and K7 the scattered marginal of the
-   10 kb diploid build;
+   40 kb TAD input (T = 8,192, 3 states, float64), each also on its edge
+   cases (K5: paths identical and scores bit for bit, exact ties included,
+   with its maps in shared memory and in the scratch); K6 the imputation
+   vote and K7 the scattered marginal of the 10 kb diploid build (uint16
+   and float32 values, two runs bit for bit, its edge cases, and
+   torch.index_select of the same gather as the floor of its L2 traffic);
 3. the main path at full size, after zeroing the kernels' launch counters,
    each stage's wall on its own line:
    genome-wide block-sparse ICE at 10 kb (tiles with a far-field floor,
@@ -501,23 +504,35 @@ def hmm_compare(tads, dev, results):
         **bound(2 * steps * S * 8 + nbytes(A, pi, L),
                 steps * (5.0 * S * S + 5 * S), F64_FLOPS))
 
-    pk, vk = hmm_scan.viterbi(logb, logA, logpi, L)
-    pp, vp = hmm_scan.viterbi_plain(logb, logA, logpi, L)
-    torch.cuda.synchronize()
-    check(torch.equal(pk, pp), "K5 paths differ from plain")
-    err = rel_err(vk, vp)
-    check(err <= 1e-10, f"K5 log-probabilities differ: {err:.2e}")
+    def viterbi_check(name, logb, logA, logpi, L):
+        """Paths identical and scores bit for bit equal to the plain
+        version's."""
+        pp, vp = hmm_scan.viterbi_plain(logb, logA, logpi, L)
+        pk, vk = hmm_scan.viterbi(logb, logA, logpi, L)
+        torch.cuda.synchronize()
+        check(torch.equal(pk, pp), f"K5 {name}: paths differ from plain at "
+              f"{int((pk != pp).sum())} steps")
+        check(torch.equal(vk, vp), f"K5 {name}: log-probabilities differ "
+              f"from plain by {rel_err(vk, vp):.2e}")
+        return pk, vk, vp
+
+    pk, vk, vp = viterbi_check("main shape", logb, logA, logpi, L)
     ms, plain_ms = timed(hmm_scan.viterbi, hmm_scan.viterbi_plain,
                          (logb, logA, logpi, L))
-    log(f"K5 hmm_viterbi {shape}: identical paths, logprob max rel err "
-        f"{err:.3e} (tol 1e-10), {ms:.3f} ms kernel vs {plain_ms:.3f} ms "
-        "plain")
+    dev_ms = event_ms(lambda: hmm_scan.viterbi(logb, logA, logpi, L))
+    log(f"K5 hmm_viterbi {shape}: paths identical and logprob bit for bit "
+        f"equal to plain (torch.equal), {ms:.3f} ms per call ({dev_ms:.4f} "
+        f"ms device) vs {plain_ms:.3f} ms plain")
+    for name, case in viterbi_edge_cases(dev):
+        pe, _, _ = viterbi_check(name, *case)
+        log(f"K5 edge case {name}: paths identical, logprob bit for bit; "
+            f"states used {sorted(set(pe.unique().tolist()))}")
     results["hmm_viterbi"] = dict(
         route="cuda", source="hichap_master_tpu_torch/csrc/hmm_scan.cu",
         replaces="hichap_master_tpu/ops/hmm.py:251",
         unit=f"ms per decode, {B} DI segments, hg19 40 kb",
-        max_abs_err=float((vk - vp).abs().max()), ms=ms, plain_ms=plain_ms,
-        library_ms=None,
+        max_abs_err=float((vk - vp).abs().max()), ms=ms, device_ms=dev_ms,
+        plain_ms=plain_ms, library_ms=None,
         # log emissions in at t < L, the whole path and the scores out
         **bound(steps * S * 8 + nbytes(logA, logpi, L, pk, vk),
                 steps * 2.0 * S * S, F64_FLOPS))
@@ -546,6 +561,30 @@ def fb_edge_cases(dev):
              case(6, 8192, [6222, 1, 777], False))]
 
 
+def viterbi_edge_cases(dev):
+    """K5's edge cases: K4's as log emissions (one step, ragged lengths, a
+    sequence of 64 staged tiles at T = 16,384, the 6-state prior's -inf
+    transitions), and exact ties, seed 5: three states with a uniform logA
+    and logpi whose states 0 and 1 emit alike (state 1 must never win), and
+    constant emission rows (every score ties: all paths are state 0)."""
+    with np.errstate(divide="ignore"):
+        cases = [(name, (torch.log(b), torch.log(A), torch.log(pi), L))
+                 for name, (b, A, pi, L) in fb_edge_cases(dev)]
+    rng = np.random.default_rng(5)
+    lengths = np.asarray([1, 2, 700, 4096, 3333], np.int64)
+    logb = np.log(rng.random((len(lengths), 4096, 3)) + 0.01)
+    logb[..., 1] = logb[..., 0]
+    flat = np.repeat(logb[..., :1], 3, axis=-1)
+    uniform = (np.full((3, 3), np.log(1 / 3)), np.full(3, np.log(1 / 3)),
+               lengths)
+    for name, lb in (("exact ties between states 0 and 1", logb),
+                     ("constant emission rows, every score ties", flat)):
+        cases.append((f"{name}, uniform logA, L = 1, 2, 700, 4,096, 3,333",
+                      tuple(torch.as_tensor(a, device=dev)
+                            for a in (lb, *uniform))))
+    return cases
+
+
 # -------------------------------------------------------------- K6/K7
 def diploid_inputs(dev, lengths=None, names=None, counts=None):
     """The diploid build's input: allelic pair classes drawn on the card
@@ -572,8 +611,6 @@ def k67_compare(diploid, dev, results):
     traditional matrix with a random positive vector."""
     from hichap_master_tpu_torch.kernels.impute_vote import (
         impute_vote, impute_vote_plain)
-    from hichap_master_tpu_torch.kernels.segment_marginal import (
-        segment_marginal, segment_marginal_plain)
     from hichap_master_tpu_torch.ops.sparse_hybrid import hybrid_from_coo
     from hichap_master_tpu_torch.ops.sparse_impute import (SparseU,
                                                            disk_row_intervals)
@@ -619,31 +656,121 @@ def k67_compare(diploid, dev, results):
     rows, cols, vals = cooler_coo(data["Tradition_Whole"][res], genome, res)
     n = sum(genome.cooler_n_bins(c, res) for c in genome.labels)
     del data, su
-    h = hybrid_from_coo(rows, cols, vals.round().long(), n,
-                        assume_unique=True)
+    k7_compare(hybrid_from_coo(rows, cols, vals.round().long(), n,
+                               assume_unique=True), dev, results)
+
+
+def k7_errors(cols, vals, bounds, b):
+    """Largest relative difference of K7 from its plain version (rows with
+    no pixel must be exactly 0 in both), and the kernel's output."""
+    from hichap_master_tpu_torch.kernels.segment_marginal import (
+        segment_marginal, segment_marginal_plain)
+
+    yk = segment_marginal(cols, vals, bounds, b)
+    yp = segment_marginal_plain(cols, vals, bounds, b)
+    torch.cuda.synchronize()
+    check(yk.shape == yp.shape, "K7 output shape")
+    if not yk.numel():
+        return 0.0, yk, yp
+    empty = bounds[1:] == bounds[:-1]
+    check(bool((yk[empty] == 0).all()), "K7: a row with no pixel is not 0")
+    return (float(((yk - yp).abs() / yp.abs().clamp_min(1e-30)).max()), yk,
+            yp)
+
+
+def k7_edge_cases(dev):
+    """K7's edge cases, seed 13 (a block takes a tile of 2,048 pixels): no
+    pixel at all, one row holding every pixel of 49 tiles, a row spanning
+    15 tiles between runs of thousands of empty rows, bounds padded past
+    the last row, a last tile that is not full, and views that are not
+    aligned for the vector loads."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    n_b = 50_000
+
+    def case(lens, dtype, shift=0):
+        lens = torch.as_tensor(lens, device=dev)
+        bounds = torch.cat([lens.new_zeros(1), lens.cumsum(0)]).int()
+        P = int(bounds[-1])
+        cols = torch.randint(0, n_b, (P + shift,), generator=g, device=dev,
+                             dtype=torch.int32)[shift:]
+        vals = torch.randint(1, 60_000, (P + shift,), generator=g,
+                             device=dev).to(dtype)[shift:]
+        b = torch.rand(n_b, generator=g, device=dev) + 0.5
+        return cols, vals, bounds, b
+
+    z = lambda k: [0] * k
+    ragged = torch.randint(0, 130, (4_000,), generator=g, device=dev).tolist()
+    return [
+        ("no pixels, 1,000 rows", case(z(1000), torch.uint16)),
+        ("one row holds all 100,000 pixels",
+         case(z(2) + [100_000] + z(3), torch.uint16)),
+        ("a 30,000-pixel row between runs of 5,000-20,000 empty rows",
+         case(z(5000) + [3] + z(20_000) + [30_000] + z(10_000) + ragged[:500]
+              + z(7000), torch.float32)),
+        ("bounds padded past the last row, last tile not full",
+         case(ragged + z(96), torch.uint16)),
+        ("views not aligned for the vector loads",
+         case(ragged, torch.uint16, shift=1)),
+        ("float32 views not aligned", case(ragged, torch.float32, shift=3)),
+    ]
+
+
+def k7_compare(h, dev, results):
+    """K7 on the hybrid split of the 10 kb traditional matrix with a random
+    positive vector: uint16 and float32 values against the plain version
+    (tolerance 1e-6 relative: the same float64 products summed in another
+    order, one rounding to float32), two runs bit for bit, the edge cases,
+    and the gather alone as the floor the L2 traffic sets."""
+    from hichap_master_tpu_torch.kernels.segment_marginal import (
+        segment_marginal, segment_marginal_plain)
+
+    n, P = h.n, h.sc_cols.numel()
     g = torch.Generator(device=dev)
     g.manual_seed(11)
     b = torch.rand(n, generator=g, device=dev) + 0.5
-    sc = (h.sc_cols, h.sc_vals, h.bounds, b)
-    yk = segment_marginal(*sc)
-    yp = segment_marginal_plain(*sc)
-    torch.cuda.synchronize()
-    err = float(((yk - yp).abs() / yp.abs().clamp_min(1e-30)).max())
-    check(err <= 1e-6, f"K7 marginal differs: {err:.2e}")
-    ms = median_ms(lambda: segment_marginal(*sc))
-    plain_ms = median_ms(lambda: segment_marginal_plain(*sc))
-    P = h.sc_cols.numel()
-    log(f"K7 segment_marginal hg19 10 kb traditional, N={n} rows, P={P} "
-        f"scattered pixels ({h.sc_vals.dtype}), K={h.bm.K} tiles: max rel "
-        f"err {err:.3e} (tol 1e-6), {ms:.4f} ms kernel vs {plain_ms:.4f} ms "
-        "plain")
+    out = {}
+    for tag, vals in (("", h.sc_vals), ("f32_", h.sc_vals.to(torch.float32))):
+        sc = (h.sc_cols, vals, h.bounds, b)
+        err, yk, yp = k7_errors(*sc)
+        check(err <= 1e-6, f"K7 {tag}marginal differs: {err:.2e}")
+        check(torch.equal(yk, segment_marginal(*sc)),
+              "K7: two runs of the same input differ")
+        ms = median_ms(lambda: segment_marginal(*sc))
+        dev_ms = event_ms(lambda: segment_marginal(*sc))
+        plain_ms = median_ms(lambda: segment_marginal_plain(*sc))
+        log(f"K7 segment_marginal hg19 10 kb traditional, N={n} rows, P={P} "
+            f"scattered pixels ({vals.dtype}), K={h.bm.K} tiles: max rel "
+            f"err {err:.3e} (tol 1e-6), two runs bit for bit, {ms:.4f} ms "
+            f"per call ({dev_ms:.4f} ms device) vs {plain_ms:.4f} ms plain")
+        out.update({f"{tag}max_abs_err": float((yk - yp).abs().max()),
+                    f"{tag}ms": ms, f"{tag}device_ms": dev_ms,
+                    f"{tag}plain_ms": plain_ms,
+                    **{f"{tag}{k}": v for k, v in
+                       bound(nbytes(*sc, yk), 2.0 * P, F64_FLOPS).items()}})
+    # the bounds padded to the tile grid, as ice_balance_hybrid passes them
+    pad = torch.cat([h.bounds, h.bounds[-1:].expand(128 - n % 128)])
+    err, yk, _ = k7_errors(h.sc_cols, h.sc_vals, pad.contiguous(), b)
+    check(err <= 1e-6 and bool((yk[n:] == 0).all()),
+          f"K7 with padded bounds differs: {err:.2e}")
+    for name, case in k7_edge_cases(dev):
+        err, _, _ = k7_errors(*case)
+        check(err <= 1e-6, f"K7 {name}: differs from plain by {err:.2e}")
+        log(f"K7 edge case {name}: max rel err {err:.3e} (tol 1e-6)")
+    # not a library_ms: the gather computes a part of K7's function
+    gather_ms = event_ms(lambda: torch.index_select(b, 0, h.sc_cols))
+    log(f"K7 yardstick: torch.index_select(b, 0, cols) alone, the gather of "
+        f"P={P} floats from {n} (a 32-byte sector per pixel through L2, and "
+        f"a float written per pixel): {gather_ms:.4f} ms device; K7 "
+        f"{out['device_ms']:.4f} ms device, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']})")
     results["segment_marginal"] = dict(
         route="cuda",
         source="hichap_master_tpu_torch/csrc/segment_marginal.cu",
         replaces="hichap_master_tpu/ops/sparse_hybrid.py:210",
-        unit=f"ms per scattered marginal, hg19 10 kb traditional, P = {P}",
-        max_abs_err=float((yk - yp).abs().max()), ms=ms, plain_ms=plain_ms,
-        library_ms=None, **bound(nbytes(*sc, yk), 2.0 * P, F64_FLOPS))
+        unit=f"ms per scattered marginal, hg19 10 kb traditional, P = {P} "
+             "(uint16 counts; f32_ keys: the same pixels as float32)",
+        gather_ms=gather_ms, library_ms=None, **out)
 
 
 # ------------------------------------------------------------ main path

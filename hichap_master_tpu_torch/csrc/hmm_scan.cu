@@ -45,9 +45,22 @@
 // reciprocal multiplies of the backward pass and the log2(P) rounding steps
 // of the chunk starts differ from the sequential order (~1e-15 relative).
 //
-// K5 (Viterbi) keeps one thread per sequence with the recurrence in
-// registers and each step's emission row loaded one step ahead: it runs
-// once per TAD call.
+// K5 (Viterbi) is one block per sequence too, but keeps the plain
+// version's arithmetic order, so that paths and scores equal it bit for
+// bit (a max-plus chunked scan would start its chunks from values that
+// differ by rounding, and an exact tie could then break another way than
+// jnp.argmax does).  The forward recurrence is one dependent chain in one
+// thread, which reads its emission rows from shared memory, where the other
+// warps stage them tile after tile with cp.async, double-buffered; each
+// step's back-pointers are one packed map, which the loader warps move
+// tile by tile to a scratch in device memory, so that a sequence of any
+// length takes the same path (keeping the maps of a sequence that fits in
+// shared memory was no faster on an H100).  The backtrace is
+// exact and parallel: per-thread composition of the maps of a chunk, a
+// block-wide suffix scan of map composition, and a replay of each chunk.
+// What bounds it is the chain: L steps of six dependent float64 operations
+// each (add, compare, select, compare, select, add for three states; ~55 ns
+// a step on an H100), far above what its bytes take.
 //
 // Masking is the JAX package's: steps t >= L[b] do not exist for the
 // recurrence (alpha carried with c = 1, beta = 1, gamma and xi zero), so
@@ -66,7 +79,8 @@
 
 namespace {
 
-constexpr int kViterbiThreads = 32;  // one sequence per thread
+constexpr int kViterbiThreads = 256;  // one block per sequence
+constexpr int kViterbiTile = 256;     // emission rows per staged tile
 constexpr int kMaxSmem = 232448;     // dynamic shared memory of one block
 constexpr unsigned kFull = 0xffffffffu;
 constexpr double kLn2 = 0.6931471805599453;
@@ -648,84 +662,211 @@ fb_scan_kernel(const double* __restrict__ b, const double* __restrict__ A_g,
   if (k == 0) logc_out[seq] = v;
 }
 
-// Viterbi for one sequence per thread: forward max-product with int8
-// back-pointers bp [B, T, S], then the backtrace in the same launch.
+// ---- K5: Viterbi, one block per sequence.
+
+__device__ __forceinline__ void cp_async8(void* dst_shared, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst_shared);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A step's back-pointers are a map from the S states at t to the S states
+// at t - 1, packed three bits per entry: entry j is bits [3j, 3j + 3).
+template <int S>
+__device__ __forceinline__ unsigned identity_map() {
+  unsigned m = 0;
+#pragma unroll
+  for (int j = 0; j < S; ++j) m |= (unsigned)j << (3 * j);
+  return m;
+}
+
+__device__ __forceinline__ int apply_map(unsigned f, int x) {
+  return (int)((f >> (3 * x)) & 7u);
+}
+
+// x -> f[g[x]]: integers, so exactly associative
+template <int S>
+__device__ __forceinline__ unsigned compose(unsigned f, unsigned g) {
+  unsigned r = 0;
+#pragma unroll
+  for (int j = 0; j < S; ++j)
+    r |= (unsigned)apply_map(f, apply_map(g, j)) << (3 * j);
+  return r;
+}
+
+// Forward max-product with back-pointers, then the backtrace, in one
+// launch.
 //   path [B, T] out: the state path; t >= L[b] carries the end state
 //   logprob [B] out: the best path's log-probability
+//   bp [B, T] scratch for the back-pointer maps
+// Dynamic shared memory: two tiles of `tile` emission rows, the scan
+// scratch [P / 32], the end state, and two tiles of maps.
+//
+// Forward: the warps past the first stage the emission rows of the next
+// tile (cp.async, coalesced) while thread 0 runs the recurrence over the
+// current one out of shared memory, in the plain version's order per entry
+// (cand = delta[i] + lA[i][j], strict > from i = 0 upward, then + logb), so
+// paths and scores equal it bit for bit; each step leaves its map in
+// shared memory, and the loader warps move each finished tile of maps to
+// the scratch.
+// Backtrace: state[t - 1] = map_t[state[t]].  Each of the P threads
+// composes the maps of its chunk of steps, a block-wide exclusive suffix
+// scan of map composition gives every chunk its end state from the
+// sequence's end state, and each thread replays its chunk, writing
+// state[t - 1] over map_t; the path then leaves in coalesced stores.
 template <int S>
-__global__ void __launch_bounds__(kViterbiThreads)
+__global__ void __launch_bounds__(kViterbiThreads, 1)
 viterbi_kernel(const double* __restrict__ logb,
                const double* __restrict__ logA_g,
                const double* __restrict__ logpi, const int* __restrict__ L,
-               int8_t* __restrict__ bp, int* __restrict__ path,
-               double* __restrict__ logprob, int B, int T) {
-  const int seq = blockIdx.x * blockDim.x + threadIdx.x;
-  if (seq >= B) return;
-  double lA[S][S];
-#pragma unroll
-  for (int i = 0; i < S; ++i)
-#pragma unroll
-    for (int j = 0; j < S; ++j) lA[i][j] = logA_g[i * S + j];
+               unsigned* __restrict__ bp, int* __restrict__ path,
+               double* __restrict__ logprob, int T, int tile) {
+  constexpr int P = kViterbiThreads, NW = P / 32;
+  extern __shared__ double smem[];
+  double* stage = smem;
+  unsigned* wt = reinterpret_cast<unsigned*>(smem + 2 * (size_t)tile * S);
+  unsigned* end_state = wt + NW;
+  unsigned* smaps = end_state + 2;
+
+  const int seq = blockIdx.x, k = threadIdx.x;
+  const int lane = k & 31, w = k >> 5;
   const int n = min(L[seq], T);
-  const double* lb = logb + (size_t)seq * T * S;
-  int8_t* bps = bp + (size_t)seq * T * S;
   int* p = path + (size_t)seq * T;
-  if (n <= 0) {
-    for (int t = 0; t < T; ++t) p[t] = 0;
-    logprob[seq] = -INFINITY;
+  if (n <= 0) {  // block-uniform
+    for (int t = k; t < T; t += P) p[t] = 0;
+    if (k == 0) logprob[seq] = -INFINITY;
     return;
   }
+  unsigned* maps = bp + (size_t)seq * T;
+  const double* lb = logb + (size_t)seq * T * S;
+  const int ntiles = (n + tile - 1) / tile;
 
-  double delta[S], ln[S];
+  // the loader warps copy tile i's rows into its half of the stage
+  auto load_tile = [&](int i) {
+    const int t0 = i * tile, cnt = (min(t0 + tile, n) - t0) * S;
+    double* dst = stage + (size_t)(i & 1) * tile * S;
+    const double* src = lb + (size_t)t0 * S;
+    for (int o = k - 32; o < cnt; o += P - 32) cp_async8(dst + o, src + o);
+    cp_async_wait_all();
+  };
+
+  double delta[S], lA[S][S];
+  if (k == 0) {
 #pragma unroll
-  for (int j = 0; j < S; ++j) delta[j] = logpi[j] + lb[j];
-  if (n > 1) {
+    for (int a = 0; a < S; ++a)
 #pragma unroll
-    for (int j = 0; j < S; ++j) ln[j] = lb[S + j];
+      for (int j = 0; j < S; ++j) lA[a][j] = logA_g[a * S + j];
   }
-  for (int t = 1; t < n; ++t) {
-    double lt[S];
-#pragma unroll
-    for (int j = 0; j < S; ++j) lt[j] = ln[j];
-    if (t + 1 < n) {
-#pragma unroll
-      for (int j = 0; j < S; ++j) ln[j] = lb[(size_t)(t + 1) * S + j];
-    }
-    double nd[S];
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      double best = delta[0] + lA[0][j];
-      int arg = 0;
-#pragma unroll
-      for (int i = 1; i < S; ++i) {
-        const double cand = delta[i] + lA[i][j];
-        if (cand > best) {
-          best = cand;
-          arg = i;
-        }
+  if (k >= 32) load_tile(0);
+  __syncthreads();
+  for (int i = 0; i < ntiles; ++i) {
+    const int t0 = i * tile, t1 = min(t0 + tile, n);
+    if (k >= 32) {
+      if (i > 0) {  // the tile of maps just finished
+        const unsigned* src = smaps + ((i - 1) & 1) * tile;
+        for (int o = k - 32; o < tile; o += P - 32)
+          maps[t0 - tile + o] = src[o];
       }
-      nd[j] = best + lt[j];
-      bps[(size_t)t * S + j] = (int8_t)arg;
+      if (i + 1 < ntiles) load_tile(i + 1);
+    } else if (k == 0) {
+      const double* sb = stage + (size_t)(i & 1) * tile * S;
+      unsigned* wm = smaps + (i & 1) * tile;
+      int t = t0;
+      if (i == 0) {
+#pragma unroll
+        for (int j = 0; j < S; ++j) delta[j] = logpi[j] + sb[j];
+        wm[0] = identity_map<S>();
+        t = 1;
+      }
+      double ln[S];  // each step's emission row is read one step ahead
+      if (t < t1) {
+#pragma unroll
+        for (int j = 0; j < S; ++j) ln[j] = sb[(t - t0) * S + j];
+      }
+      for (; t < t1; ++t) {
+        double lt[S];
+#pragma unroll
+        for (int j = 0; j < S; ++j) lt[j] = ln[j];
+        if (t + 1 < t1) {
+#pragma unroll
+          for (int j = 0; j < S; ++j) ln[j] = sb[(t + 1 - t0) * S + j];
+        }
+        double nd[S];
+        unsigned m = 0;
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+          double best = delta[0] + lA[0][j];
+          unsigned arg = 0;
+#pragma unroll
+          for (int a = 1; a < S; ++a) {
+            const double cand = delta[a] + lA[a][j];
+            if (cand > best) {
+              best = cand;
+              arg = a;
+            }
+          }
+          nd[j] = best + lt[j];
+          m |= arg << (3 * j);
+        }
+        wm[t - t0] = m;
+#pragma unroll
+        for (int j = 0; j < S; ++j) delta[j] = nd[j];
+      }
+      if (i == ntiles - 1) {
+        // first maximum; no delta[s]: a run-time index would move delta
+        // out of the registers for the whole recurrence
+        unsigned s = 0;
+        double lp = delta[0];
+#pragma unroll
+        for (int j = 1; j < S; ++j)
+          if (delta[j] > lp) {
+            lp = delta[j];
+            s = j;
+          }
+        logprob[seq] = lp;
+        *end_state = s;
+      }
     }
-#pragma unroll
-    for (int j = 0; j < S; ++j) delta[j] = nd[j];
+    __syncthreads();
   }
+  // the last tile of maps
+  const int tl = (ntiles - 1) * tile;
+  for (int o = k; o < n - tl; o += P)
+    maps[tl + o] = smaps[((ntiles - 1) & 1) * tile + o];
+  __syncthreads();
 
-  int s = 0;
+  // ---- backtrace over the maps of t = 1 .. n - 1, a chunk of Lc steps
+  // per thread
+  const int last = (int)*end_state;
+  const int Lc = max(1, (n - 1 + P - 1) / P);
+  const int s = (int)min((long long)1 + (long long)k * Lc, (long long)n);
+  const int e = min(s + Lc, n);
+  unsigned x = identity_map<S>();
+  for (int t = s; t < e; ++t) x = compose<S>(x, maps[t]);
+  // exclusive suffix scan: the composition of the chunks after this one
 #pragma unroll
-  for (int j = 1; j < S; ++j)
-    if (delta[j] > delta[s]) s = j;
-  double lp = delta[0];
-#pragma unroll
-  for (int j = 1; j < S; ++j)
-    if (j == s) lp = delta[j];  // delta[s] without a local-memory index
-  logprob[seq] = lp;
-  for (int t = n; t < T; ++t) p[t] = s;
-  p[n - 1] = s;
-  for (int t = n - 1; t >= 1; --t) {
-    s = bps[(size_t)t * S + s];
-    p[t - 1] = s;
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned y = __shfl_down_sync(kFull, x, d);
+    if (lane + d < 32) x = compose<S>(x, y);
   }
+  if (lane == 0) wt[w] = x;
+  __syncthreads();
+  unsigned after = identity_map<S>();
+  for (int j = NW - 1; j > w; --j) after = compose<S>(wt[j], after);
+  unsigned y = __shfl_down_sync(kFull, x, 1);
+  if (lane == 31) y = identity_map<S>();
+  int st = apply_map(compose<S>(y, after), last);  // state[e - 1]
+  for (int t = e - 1; t >= s; --t) {
+    st = apply_map(maps[t], st);
+    maps[t] = (unsigned)st;  // state[t - 1]
+  }
+  __syncthreads();
+  for (int t = k; t < T; t += P) p[t] = t < n - 1 ? (int)maps[t + 1] : last;
 }
 
 template <int S>
@@ -755,12 +896,21 @@ cudaError_t launch_fb(const double* b, const double* A, const double* pi,
 
 template <int S>
 cudaError_t launch_viterbi(const double* logb, const double* logA,
-                           const double* logpi, const int* L, int8_t* bp,
+                           const double* logpi, const int* L, unsigned* bp,
                            int* path, double* logprob, int B, int T,
                            cudaStream_t stream) {
-  viterbi_kernel<S><<<(B + kViterbiThreads - 1) / kViterbiThreads,
-                      kViterbiThreads, 0, stream>>>(
-      logb, logA, logpi, L, bp, path, logprob, B, T);
+  const int tile = std::min(T, kViterbiTile);
+  // two tiles of emission rows, the scan scratch and the end state (8-byte
+  // aligned), two tiles of maps
+  const size_t smem = 2 * (size_t)tile * S * sizeof(double) +
+                      (size_t)(kViterbiThreads / 32 + 2 + 2 * tile) *
+                          sizeof(unsigned);
+  const cudaError_t err = cudaFuncSetAttribute(
+      viterbi_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  viterbi_kernel<S><<<B, kViterbiThreads, smem, stream>>>(
+      logb, logA, logpi, L, bp, path, logprob, T, tile);
   return cudaGetLastError();
 }
 
@@ -787,8 +937,9 @@ extern "C" int hmm_forward_backward(const double* b, const double* A,
   }
 }
 
+// bp: [B, T] words of scratch for the back-pointer maps
 extern "C" int hmm_viterbi(const double* logb, const double* logA,
-                           const double* logpi, const int* L, int8_t* bp,
+                           const double* logpi, const int* L, unsigned* bp,
                            int* path, double* logprob, int B, int T, int S,
                            cudaStream_t stream) {
   if (B < 1 || T < 1) return (int)cudaErrorInvalidValue;

@@ -6,11 +6,19 @@ and ``_viterbi_padded`` (max-product with back-pointers) in
 are padded to ``[B, T]`` with true lengths ``L [B]``; steps t >= L[b] are
 masked exactly as the JAX package masks them.  Everything is float64.
 
-CUDA source: ``csrc/hmm_scan.cu`` (see the note at its top): K4 is a
-chunked parallel scan with one block per sequence, K5 one thread per
-sequence with the recurrence in registers.  The plain versions beside the
-wrappers are the JAX scans written as PyTorch loops over time steps: they
-run on CPU tensors and in ``chip_smoke.py``'s parity check.
+CUDA source: ``csrc/hmm_scan.cu`` (see the note at its top), one block per
+sequence in both kernels.  K4 is a chunked parallel scan.  K5 keeps the
+plain version's arithmetic order (paths and scores equal it bit for bit):
+one thread runs the forward recurrence out of shared memory, where the
+other warps stage the emission rows tile after tile (``cp.async``, double
+buffered); a step's back-pointers are one packed map of S states to S
+states, moved tile by tile to a device scratch, so that a sequence of any
+length takes one path; the backtrace is exact and parallel (each
+thread composes the maps of its chunk, a block-wide suffix scan of map
+composition gives every chunk its end state, each thread replays its
+chunk).  The plain versions beside the wrappers are the JAX scans written
+as PyTorch loops over time steps: they run on CPU tensors and in
+``chip_smoke.py``'s parity check.
 """
 
 from __future__ import annotations
@@ -170,11 +178,11 @@ def viterbi(logb: torch.Tensor, logA: torch.Tensor, logpi: torch.Tensor,
     logb, logA, logpi = (logb.contiguous(), logA.contiguous(),
                          logpi.contiguous())
     L32 = L.to(torch.int32).contiguous()
-    bp = torch.empty(B, T, S, dtype=torch.int8, device=logb.device)
     path = torch.empty(B, T, dtype=torch.int32, device=logb.device)
     logprob = torch.empty(B, dtype=logb.dtype, device=logb.device)
-    lib = _build.load()
-    _build.check(lib.hmm_viterbi(
+    # the kernel's scratch: one packed back-pointer map per step
+    bp = torch.empty(B, T, dtype=torch.int32, device=logb.device)
+    _build.check(_build.load().hmm_viterbi(
         logb.data_ptr(), logA.data_ptr(), logpi.data_ptr(), L32.data_ptr(),
         bp.data_ptr(), path.data_ptr(), logprob.data_ptr(), B, T, S,
         _build.stream_ptr(logb.device)), "hmm_viterbi")

@@ -20,10 +20,11 @@ there when the pipeline calls it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
-from ..kernels.segment_marginal import segment_marginal
+from ..kernels.segment_marginal import carry_scratch, segment_marginal
 from ..kernels.sparse_marginal import block_sym_matvec
 from .sparse import BlockMatrix, ice_iterate, ice_keep, zero_tile_diagonals
 
@@ -112,6 +113,8 @@ def hybrid_from_coo(rows: torch.Tensor, cols: torch.Tensor,
     dc = torch.cat([c, r[off]])[order]
     dv = torch.cat([v, v[off]])[order]
     bounds = torch.searchsorted(dr, torch.arange(n + 1, device=dev))
+    if int(bounds[-1]) != dr.numel():  # K7 reads bounds unchecked
+        raise ValueError(f"hybrid_from_coo: pixels outside the {n} bins")
     return HybridGW(bm=bm, sc_cols=dc.to(torch.int32),
                     sc_vals=dv.to(store),
                     bounds=bounds.to(torch.int32),
@@ -137,6 +140,10 @@ def hybrid_ice_balance(tiles, brow, bcol, sc_cols, sc_vals, bounds, sc_nnz,
     brow = brow.to(device=dev, dtype=torch.int32).contiguous()
     bcol = bcol.to(device=dev, dtype=torch.int32).contiguous()
     tiles = zero_tile_diagonals(tiles, brow, bcol, ignore_diags)
+    if scattered is segment_marginal and sc_cols.is_cuda:
+        # K7's carry scratch, once for all the iterations
+        scattered = functools.partial(
+            segment_marginal, scratch=carry_scratch(sc_cols.numel(), dev))
 
     def marginal(b):
         return (tile_matvec(tiles, brow, bcol, b, R=R, T=T)

@@ -1,25 +1,35 @@
 """Stage and kernel timings of the port on one GPU, for PERF.md.
 
     env PYTHONPATH=. python3 hichap_master_tpu_torch/testing/chip_measure.py \
-        TAG OUT_DIR
+        TAG OUT_DIR [k3] [k4] [k5] [k7] [tads] [loops]
 
 run from the root of a checkout (it measures the package and the
-``chip_smoke.py`` inputs of that checkout, so the same file measures an
-older tree too).  On chr1 at 10 kb it splits one escalation call into its
-parts, with the device time of each (CUDA events, median of 10) and its
+``chip_smoke.py`` inputs of that checkout, so the same file, copied into an
+older tree, measures that tree too); with no section named it runs them
+all.  On chr1 at 10 kb it splits one escalation call into
+its parts, with the device time of each (CUDA events, median of 10) and its
 kernel launches (``torch.profiler``): where the package has the prefix
 kernels, ``pixel_cells``, the prefix kernels, the ladder kernel and
 ``resolve_pixels``; where escalation still builds the prefix maps in
 PyTorch, the stack and cast, ``_prefix_rows``, the anti-diagonal loop, the
 ladder kernel over full maps and ``resolve_pixels``.  Then K4 at the TAD
 input's shape, one EM iteration (host wall, device time and launches), the
-TAD stage twice (wall, EM iterations, log-likelihood) and the loop stage
-twice (wall and the escalation calls' share).  Writes
-``OUT_DIR/measure_TAG.json``.
+TAD stage twice (wall, EM iterations, log-likelihood, and a hash of every
+chromosome's boundaries and domains) and the loop stage
+twice (wall and the escalation calls' share).  ``k5`` times the Viterbi
+kernel alone on the 23 DI segments of the TAD input, and ``k7`` the
+scattered marginal alone on the hybrid split of the 10 kb diploid build
+(uint16 and float32 values), beside ``torch.index_select`` of the same
+gather: CUDA events around back-to-back launches, three samples each.
+K7 is also timed by the host's clock, one synchronized call at a time
+(with the carry scratch made once, where the package has it), and on the
+same pixels regrouped into rows 64 times longer.
+Writes ``OUT_DIR/measure_TAG.json``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import statistics
@@ -150,8 +160,26 @@ def k3_split(loops, dev):
     print("K3", json.dumps(OUT["k3"]), flush=True)
 
 
-def k4_and_em(tads, dev):
-    from hichap_master_tpu_torch.kernels import hmm_scan
+def back_to_back_ms(fn, launches: int = 50, samples: int = 3):
+    """Device ms per call: CUDA events around ``launches`` back-to-back
+    calls, ``samples`` times (after one warm call)."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(samples):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / launches)
+    return out
+
+
+def hmm_inputs(tads, dev):
+    """The TAD stage's HMM input: the DI segments of all chromosomes, the
+    3-state prior, and the log emissions."""
     from hichap_master_tpu_torch.models.tads import (_di_batched,
                                                      init_parameters)
     from hichap_master_tpu_torch.ops import hmm
@@ -162,8 +190,94 @@ def k4_and_em(tads, dev):
     model = init_parameters(3)
     X, L, _ = hmm._inputs(seqs, dev)
     params = hmm._params(model, dev)
-    A, pi, means, varis, weights = params
-    logb, _ = hmm._log_mix(X, means, varis, weights)
+    logb, _ = hmm._log_mix(X, *params[2:])
+    return model, X, L, params, logb
+
+
+def k5_alone(tads, dev):
+    from hichap_master_tpu_torch.kernels import hmm_scan
+    from hichap_master_tpu_torch.ops import hmm
+
+    model, _, L, _, logb = hmm_inputs(tads, dev)
+    logA, logpi = (torch.as_tensor(a, device=dev)
+                   for a in hmm._log_params(model))
+    OUT["k5"] = dict(
+        shape=list(logb.shape), sum_L=int(L.sum()), max_L=int(L.max()),
+        event_ms=back_to_back_ms(
+            lambda: hmm_scan.viterbi(logb, logA, logpi, L), 20))
+    print("K5", json.dumps(OUT["k5"]), flush=True)
+
+
+def k7_inputs(cs, dev):
+    """The hybrid split of the 10 kb traditional matrix of the diploid
+    build, and a random positive vector."""
+    from hichap_master_tpu_torch.ops.sparse_hybrid import hybrid_from_coo
+    from hichap_master_tpu_torch.pipeline.matrix import (
+        build_haplotype_datasets, cooler_coo)
+
+    genome, classes = cs.diploid_inputs(dev)
+    res = 10_000
+    data = build_haplotype_datasets(classes, genome, [res], [],
+                                    **cs.DIPLOID_VOTE, device=dev)
+    rows, cols, vals = cooler_coo(data["Tradition_Whole"][res], genome, res)
+    n = sum(genome.cooler_n_bins(c, res) for c in genome.labels)
+    del data, classes
+    h = hybrid_from_coo(rows, cols, vals.round().long(), n,
+                        assume_unique=True)
+    del rows, cols, vals
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    return h, torch.rand(n, generator=g, device=dev) + 0.5
+
+
+def wall_ms(fn, reps: int = 200) -> float:
+    """Median host ms of one synchronized call of ``fn``."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def k7_alone(cs, dev):
+    from hichap_master_tpu_torch.kernels import segment_marginal as k7
+
+    h, b = k7_inputs(cs, dev)
+    n, P = h.n, h.sc_cols.numel()
+    f32 = h.sc_vals.to(torch.float32)
+    # the same pixels in rows 64 times longer (every 64th row bound)
+    long_bounds = torch.cat([h.bounds[:-1:64], h.bounds[-1:]]).contiguous()
+    kw = ({"scratch": k7.carry_scratch(P, dev)}
+          if hasattr(k7, "carry_scratch") else {})
+    OUT["k7"] = dict(
+        rows=n, pixels=P, vals=str(h.sc_vals.dtype),
+        event_ms=back_to_back_ms(
+            lambda: k7.segment_marginal(h.sc_cols, h.sc_vals, h.bounds, b)),
+        event_ms_f32=back_to_back_ms(
+            lambda: k7.segment_marginal(h.sc_cols, f32, h.bounds, b)),
+        wall_ms=wall_ms(
+            lambda: k7.segment_marginal(h.sc_cols, h.sc_vals, h.bounds, b,
+                                        **kw)),
+        long_rows=long_bounds.numel() - 1,
+        event_ms_long_rows=back_to_back_ms(
+            lambda: k7.segment_marginal(h.sc_cols, h.sc_vals, long_bounds,
+                                        b)),
+        index_select_ms=back_to_back_ms(
+            lambda: torch.index_select(b, 0, h.sc_cols)))
+    print("K7", json.dumps(OUT["k7"]), flush=True)
+
+
+def k4_and_em(tads, dev):
+    from hichap_master_tpu_torch.kernels import hmm_scan
+    from hichap_master_tpu_torch.ops import hmm
+
+    model, X, L, params, logb = hmm_inputs(tads, dev)
+    A, pi = params[:2]
     b = torch.exp(logb - logb.amax(-1, keepdim=True))
     zero_A = torch.as_tensor(model.A <= 0, device=dev)
     zero_pi = torch.as_tensor(model.pi <= 0, device=dev)
@@ -196,11 +310,21 @@ def tad_stage(tads, dev):
         stats = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        call_tads(tads, 40_000, False, dev, stats=stats)
+        out = call_tads(tads, 40_000, False, dev, stats=stats)
         torch.cuda.synchronize()
-        runs.append(dict(wall_s=time.perf_counter() - t0,
-                         em_iters=stats["em_iters"],
-                         loglik=repr(stats["loglik"])))
+        wall = time.perf_counter() - t0
+        # every chromosome's boundaries and domains, to compare two trees
+        sha = hashlib.sha256()
+        for c in sorted(out):
+            r = out[c]
+            for a in (r["boundaries"]["boundary"], r["filtered"],
+                      *r["domains"]):
+                sha.update(np.asarray(a, np.int64).tobytes())
+        runs.append(dict(wall_s=wall, em_iters=stats["em_iters"],
+                         loglik=repr(stats["loglik"]),
+                         domains=sum(len(r["domains"][0])
+                                     for r in out.values()),
+                         calls_sha256=sha.hexdigest()[:16]))
     OUT["tads"] = runs
     print("TADS", json.dumps(runs), flush=True)
 
@@ -240,9 +364,13 @@ def loop_stage(loops, dev):
 
 
 def main() -> None:
-    if len(sys.argv) != 3:
-        raise SystemExit("usage: chip_measure.py TAG OUT_DIR")
-    tag, out_dir = sys.argv[1:]
+    sections = ("k3", "k4", "k5", "k7", "tads", "loops")
+    if len(sys.argv) < 3 or set(sys.argv[3:]) - set(sections):
+        raise SystemExit("usage: chip_measure.py TAG OUT_DIR "
+                         + " ".join(f"[{s}]" for s in sections)
+                         + "  (K5 and K7 alone: k5 k7; default: all)")
+    tag, out_dir = sys.argv[1:3]
+    run = set(sys.argv[3:]) or set(sections)
     if not torch.cuda.is_available():
         raise SystemExit("chip_measure.py: no CUDA device visible")
     import chip_smoke as cs
@@ -257,11 +385,14 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.load()
     OUT["build_s"] = time.perf_counter() - t0
-    loops, tads = cs.loop_inputs(), cs.tad_inputs()
-    k3_split(loops, dev)
-    k4_and_em(tads, dev)
-    tad_stage(tads, dev)
-    loop_stage(loops, dev)
+    loops = cs.loop_inputs() if run & {"k3", "loops"} else None
+    tads = cs.tad_inputs() if run & {"k4", "k5", "tads"} else None
+    for name, fn, arg in (("k3", k3_split, loops), ("k4", k4_and_em, tads),
+                          ("k5", k5_alone, tads), ("k7", k7_alone, cs),
+                          ("tads", tad_stage, tads),
+                          ("loops", loop_stage, loops)):
+        if name in run:
+            fn(arg, dev)
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, f"measure_{tag}.json"), "w") as f:
         json.dump(OUT, f, indent=1)

@@ -8,7 +8,11 @@ sums over time in another).  EM: the same iteration count and parameters
 within 1e-8.  Viterbi: identical paths, log-probabilities to rtol 1e-10.
 K4's chunked scan (a test-side model of csrc/hmm_scan.cu) against the plain
 recurrence: 1e-12 relative (only the chunk starts' rounding and the
-association of the sums differ).
+association of the sums differ).  K5's forward pass and parallel backtrace
+(a test-side model of csrc/hmm_scan.cu: packed back-pointer maps, per-chunk
+composition, suffix scan, replay) against the plain recurrence and the JAX
+scans: identical paths (integers; the forward pass keeps the plain order,
+so its score is the plain version's bit for bit).
 """
 
 import math
@@ -364,3 +368,128 @@ def test_k4_chunk_scan_model_tiles(chunks):
     assert _rel(gm, gp[0].numpy()) <= 1e-12
     assert _rel(xm, xp[0].numpy()) <= 1e-12
     assert abs(lm - float(lp[0])) <= 1e-12 * abs(float(lp[0]))
+
+
+# ------------------------------------------------ K5's parallel backtrace
+def _k5_forward(logb, logA, logpi):
+    """K5's forward pass for one sequence ``logb [n, S]``, in the kernel's
+    order per entry (``cand = delta[i] + logA[i, j]``, strict ``>`` from
+    i = 0 upward, then ``+ logb[t, j]``).  A step's back-pointers are one
+    map of the S states at t to the S states at t - 1, three bits per
+    entry.  Returns (maps [n], end state, score)."""
+    n, S = logb.shape
+    maps = np.zeros(n, np.int64)
+    maps[0] = sum(j << (3 * j) for j in range(S))
+    with np.errstate(invalid="ignore"):
+        delta = logpi + logb[0]
+        for t in range(1, n):
+            nd = np.empty(S)
+            for j in range(S):
+                best, arg = delta[0] + logA[0, j], 0
+                for i in range(1, S):
+                    cand = delta[i] + logA[i, j]
+                    if cand > best:
+                        best, arg = cand, i
+                nd[j] = best + logb[t, j]
+                maps[t] |= arg << (3 * j)
+            delta = nd
+    end = 0
+    for j in range(1, S):
+        if delta[j] > delta[end]:
+            end = j
+    return maps, end, delta[end]
+
+
+def _apply(f, x):
+    return (int(f) >> (3 * x)) & 7
+
+
+def _compose(f, g, S):
+    """x -> f[g[x]] on packed maps."""
+    return sum(_apply(f, _apply(g, j)) << (3 * j) for j in range(S))
+
+
+def _k5_backtrace_model(maps, end, P, S):
+    """The kernel's backtrace on ``P`` threads: state[t - 1] =
+    maps[t][state[t]].  Each thread composes the maps of its chunk, an
+    exclusive suffix scan of map composition (within warps of 32 by
+    doubling, then the warps after) gives every chunk the state at its
+    last step from the end state, and each thread replays its chunk,
+    writing state[t - 1] over maps[t]."""
+    n = len(maps)
+    ident = sum(j << (3 * j) for j in range(S))
+    Lc = max(1, -(-(n - 1) // P))
+    bounds = [(min(1 + k * Lc, n), min(1 + (k + 1) * Lc, n))
+              for k in range(P)]
+    x = []
+    for s, e in bounds:
+        g = ident
+        for t in range(s, e):
+            g = _compose(g, maps[t], S)
+        x.append(g)
+    warps = [range(w, min(w + 32, P)) for w in range(0, P, 32)]
+    for idx in warps:
+        d = 1
+        while d < 32:
+            x = [_compose(x[k], x[k + d], S)
+                 if k in idx and k + d <= idx[-1] else x[k] for k in range(P)]
+            d *= 2
+    state = maps.copy()
+    for w, idx in enumerate(warps):
+        after = ident
+        for j in range(len(warps) - 1, w, -1):
+            after = _compose(x[warps[j][0]], after, S)
+        for k in idx:
+            y = x[k + 1] if k < idx[-1] else ident
+            st = _apply(_compose(y, after, S), end)
+            s, e = bounds[k]
+            for t in range(e - 1, s - 1, -1):
+                st = _apply(maps[t], st)
+                state[t] = st
+    return np.r_[state[1:], end].astype(np.int32)
+
+
+def _k5_case(case):
+    """(X [1, T], L, model) for one case of the backtrace model."""
+    rng = np.random.default_rng(23)
+    model = init_parameters(6 if case == "structural_zeros" else 3)
+    X, L = P._pad_sequences(_di_like(rng, [131]))
+    if case == "ties":
+        # states 0 and 1 emit alike and every transition is as likely:
+        # their scores tie exactly at every step, and the first must win
+        means, varis, weights = (a.copy() for a in (model.means, model.varis,
+                                                    model.weights))
+        means[1], varis[1], weights[1] = means[0], varis[0], weights[0]
+        model = type(model)(np.full((3, 3), 1 / 3), np.full(3, 1 / 3), means,
+                            varis, weights)
+    return X, L, model
+
+
+@pytest.mark.parametrize("case", ["three_states", "structural_zeros",
+                                  "ties"])
+@pytest.mark.parametrize("chunks", [1, 3, 8, 64, "L"])
+def test_k5_backtrace_model_matches_plain_and_jax(case, chunks):
+    X, L, model = _k5_case(case)
+    n = int(L[0])
+    logA, logpi = P._log_params(model)
+    logb, _ = P._log_mix(torch.from_numpy(X), *_params(model)[2:])
+    maps, end, score = _k5_forward(logb[0, :n].numpy(), logA, logpi)
+    got = _k5_backtrace_model(maps, end, n if chunks == "L" else chunks,
+                              logA.shape[0])
+    pp, lp = hmm_scan.viterbi_plain(logb, torch.from_numpy(logA),
+                                    torch.from_numpy(logpi),
+                                    torch.from_numpy(L.astype(np.int64)))
+    np.testing.assert_array_equal(got, pp[0, :n].numpy())
+    assert score == float(lp[0])  # the same operations in the same order
+    pj, lpj = J._viterbi_padded(jnp.asarray(X), jnp.asarray(L),
+                                jnp.asarray(logA), jnp.asarray(logpi),
+                                *(jnp.asarray(a) for a in (model.means,
+                                                           model.varis,
+                                                           model.weights)))
+    np.testing.assert_array_equal(got, np.asarray(pj)[0, :n])
+    np.testing.assert_allclose(score, float(lpj[0]), rtol=RTOL)
+    if case == "ties":  # the tie is real, and state 1 never wins it
+        assert (logb[0, :n, 0] == logb[0, :n, 1]).all()
+        assert 1 not in got and {0, 2} <= set(got.tolist())
+    elif case == "structural_zeros":
+        assert np.isinf(logA).any()

@@ -12,7 +12,11 @@ rounds once), and with the JAX package's compensated two-float prefix to
 of a 128-pixel chunk's partial sums, an absolute error).  ICE
 weights agree to 1e-4 relative with identical NaN sets (float32 marginals
 summed in other orders over the iterations).  The COO correction agrees to
-1e-9 relative (float64 in both; sums in another order).
+1e-9 relative (float64 in both; sums in another order).  K7's order of work
+(a test-side model of csrc/segment_marginal.cu: tiles of pixels, segment
+heads, float64 partials, carries summed in block order) agrees with its
+plain version to 1e-6 relative: the same float64 products summed in two
+orders, then one rounding to float32.
 """
 
 import jax.numpy as jnp
@@ -22,8 +26,8 @@ import torch
 
 from hichap_master_tpu.ops import sparse as JS
 from hichap_master_tpu.ops import sparse_hybrid as JH
-from hichap_master_tpu_torch.kernels.segment_marginal import \
-    segment_marginal
+from hichap_master_tpu_torch.kernels.segment_marginal import (
+    segment_marginal, segment_marginal_plain)
 from hichap_master_tpu_torch.ops import sparse as PSP
 from hichap_master_tpu_torch.ops import sparse_hybrid as PH
 from hichap_master_tpu_torch.testing.parity import assert_close_nan
@@ -166,3 +170,131 @@ def test_k7_wrapper_refuses_other_devices():
     with pytest.raises(TypeError, match="float32 or uint16"):
         segment_marginal(cols, torch.empty(8, dtype=torch.int64), cols,
                          torch.empty(4))
+
+
+def test_hybrid_split_refuses_pixels_outside_the_bins():
+    """K7 reads ``bounds`` unchecked, so ``hybrid_from_coo`` holds
+    ``bounds[-1] == P``: a pixel past the last bin is refused."""
+    rows = torch.tensor([0, 1, 2])
+    cols = torch.tensor([3, 5, 9])
+    with pytest.raises(ValueError, match="outside the 8 bins"):
+        PH.hybrid_from_coo(rows, cols, torch.ones(3), 8, T=4)
+    h = PH.hybrid_from_coo(rows, cols, torch.ones(3), 10, T=4)
+    assert int(h.bounds[0]) == 0 and int(h.bounds[-1]) == h.sc_cols.numel()
+    assert bool((h.bounds[1:] >= h.bounds[:-1]).all())
+
+
+# ------------------------------------------------- K7's split by pixels
+def _k7_tile_model(cols, vals, bounds, b, tile, per):
+    """What csrc/segment_marginal.cu computes, in its order of work: a
+    block per tile of ``tile`` pixels; the rows that end in the tile from
+    two searches of ``bounds`` (the first tile also takes the empty rows
+    before the first pixel, the last one those after the last); a segment
+    head at every row start inside the tile; a segmented float64 prefix
+    over runs of ``per`` pixels (one thread each; the runs are combined one
+    after another here, by a shuffle scan in the kernel: another association
+    of the same terms); a row inside the tile rounded and written by its
+    block, a row across a tile edge left as float64 partials in two carry
+    slots per block, which the second pass sums in block order and rounds
+    once.  Returns (out, writes per row)."""
+    N, P = len(bounds) - 1, len(cols)
+    out = np.zeros(N, np.float32)
+    written = np.zeros(N, int)
+    blocks = max(1, -(-P // tile))
+    crow = np.full(2 * blocks, -1)
+    cval = np.zeros(2 * blocks)
+    ends = bounds[1:]
+    b64 = b.astype(np.float64)
+    for k in range(blocks):
+        start, end = k * tile, min((k + 1) * tile, P)
+        n = end - start
+        ra = 0 if k == 0 else int(np.searchsorted(ends, start, "right"))
+        rb = (N if k == blocks - 1
+              else int(np.searchsorted(ends, end, "right")))
+        prod = vals[start:end].astype(np.float64) * b64[cols[start:end]]
+        head = np.zeros(n, bool)
+        for r in range(ra, min(rb, N - 1) + 1):
+            if start < bounds[r] < end:
+                head[bounds[r] - start] = True
+        sp = np.zeros(n)
+        carry = 0.0  # the sum since the last head over the runs before
+        for c0 in range(0, n, per):
+            run, first = 0.0, None
+            for i in range(c0, min(c0 + per, n)):
+                if head[i]:
+                    run = 0.0
+                    first = i if first is None else first
+                run += prod[i]
+                sp[i] = run if first is not None else carry + run
+            carry = run if first is not None else carry + run
+        for r in range(ra, rb):
+            s, e = bounds[r], bounds[r + 1]
+            if s >= start:
+                out[r] = np.float32(sp[e - 1 - start]) if e > s else 0.0
+                written[r] += 1
+        if ra < rb and bounds[ra] < start:
+            crow[2 * k] = ra
+            cval[2 * k] = sp[bounds[ra + 1] - 1 - start]
+        if rb < N and n > 0 and bounds[rb] < end:
+            crow[2 * k + 1] = rb
+            cval[2 * k + 1] = sp[n - 1]
+    for k in range(blocks):
+        r = crow[2 * k]
+        if r < 0:
+            continue
+        j = k
+        while j > 0 and crow[2 * (j - 1) + 1] == r:
+            j -= 1
+        total = 0.0
+        for i in range(j, k):
+            total += cval[2 * i + 1]
+        out[r] = np.float32(total + cval[2 * k])
+        written[r] += 1
+    return out, written
+
+
+def _k7_case(case):
+    """(cols, counts, bounds [N + 1], b) for one edge case of K7."""
+    rng = np.random.default_rng(17)
+    n_b = 300
+    if case == "no_pixels":
+        lens = np.zeros(40, int)
+    elif case == "one_row_holds_all":
+        lens = np.array([0, 0, 500, 0])
+    elif case == "long_row_between_empty_runs":
+        lens = np.r_[np.zeros(90, int), 3, np.zeros(200, int), 333,
+                     np.zeros(150, int), 1, 2, np.zeros(60, int)]
+    elif case == "bounds_padded_past_n":
+        lens = np.r_[rng.integers(0, 9, 100), np.zeros(28, int)]
+    else:
+        assert case == "ragged"
+        lens = rng.integers(0, 40, 120) * (rng.random(120) < 0.7)
+    bounds = np.r_[0, np.cumsum(lens)].astype(np.int32)
+    P = int(bounds[-1])
+    cols = rng.integers(0, n_b, P).astype(np.int32)
+    counts = rng.integers(1, 60_000, P)
+    b = (rng.random(n_b) + 0.5).astype(np.float32)
+    return cols, counts, bounds, b
+
+
+@pytest.mark.parametrize("case", ["no_pixels", "one_row_holds_all",
+                                  "long_row_between_empty_runs",
+                                  "bounds_padded_past_n", "ragged"])
+@pytest.mark.parametrize("tile", [1, 7, 64, 4096])
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32],
+                         ids=["u16", "f32"])
+def test_k7_tile_model_matches_plain(case, tile, dtype):
+    cols, counts, bounds, b = _k7_case(case)
+    vals = counts.astype(dtype)
+    if dtype is np.float32:
+        vals = vals + np.float32(0.25)
+    want = segment_marginal_plain(_t(cols), _t(vals), _t(bounds),
+                                  _t(b)).numpy()
+    assert tile > len(cols) or tile < 4096  # the last size holds every case
+    got, written = _k7_tile_model(cols, vals, bounds, b, tile,
+                                  per=max(1, min(16, tile // 4)))
+    # every row is written exactly once, by its block or by the carry pass
+    np.testing.assert_array_equal(written, 1)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    empty = bounds[1:] == bounds[:-1]
+    assert (got[empty] == 0).all() and (got[~empty] > 0).all()
