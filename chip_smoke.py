@@ -605,10 +605,165 @@ def diploid_inputs(dev, lengths=None, names=None, counts=None):
     return genome, classes
 
 
+def hic_coo(g, S, dev, band=4, far=None):
+    """Directed Hi-C-like COO for K6's edge cases: every pixel within
+    ``band`` of the diagonal (counts 1-4, both directions) and ``far``
+    scattered long-range pixels (default 2 per row)."""
+    i = torch.arange(S, device=dev)
+    d = torch.arange(-band, band + 1, device=dev)
+    r = i.repeat_interleave(d.numel())
+    c = (r + d.repeat(S))
+    keep = (c >= 0) & (c < S)
+    r, c = r[keep], c[keep]
+    n = 2 * S if far is None else far
+    r = torch.cat([r, torch.randint(0, S, (n,), generator=g, device=dev)])
+    c = torch.cat([c, torch.randint(0, S, (n,), generator=g, device=dev)])
+    return r, c, torch.randint(1, 5, (r.numel(),), generator=g, device=dev)
+
+
+def k6_csr(rows, cols, vals, S):
+    """A directed U for K6 from COO on the card: (scols int32, cum int64
+    [nnz+1], row_ptr int32 [S+1]), duplicate pixels merged.  Unlike
+    ``SparseU`` it mirrors nothing, so entries go to chosen rows only."""
+    key, inv = torch.unique(rows.long() * S + cols.long(), return_inverse=True)
+    v = torch.zeros(key.numel(), dtype=torch.int64, device=key.device)
+    v.index_add_(0, inv, vals.long())
+    cum = torch.cat([v.new_zeros(1), torch.cumsum(v, 0)])
+    row_ptr = torch.searchsorted(
+        key // S, torch.arange(S + 1, device=key.device)).to(torch.int32)
+    return (key % S).to(torch.int32), cum, row_ptr
+
+
+def k6_routes(u, S, di, R, budget):
+    """(bands, bands whose slice exceeds ``budget``, the widest slice)."""
+    b = torch.arange(-(-S // R), device=u[2].device)
+    lo = (b * R + int(di.min())).clamp(0, S - 1)
+    hi = ((b + 1) * R - 1 + int(di.max())).clamp(0, S - 1)
+    n = u[2].long()[hi + 1] - u[2].long()[lo]
+    return [int(b.numel()), int((n > budget).sum()), int(n.max())]
+
+
+def k6_cum_reads(scols, row_ptr, rk, c_same, c_cross, di, dj_lo, dj_hi, S,
+                 L, chunk=1 << 15):
+    """(positions of cum the vote must read, disk windows that hold an
+    entry of U, all disk windows of the in-window queries).  A window with
+    an entry reads cum at both of its ends; an empty one sums to 0 with no
+    read.  Each position counts once.  The windows are found by one
+    search of U's sorted keys row * S + col, independent of the kernel."""
+    dev = scols.device
+    rows = torch.repeat_interleave(torch.arange(S, device=dev),
+                                   (row_ptr[1:] - row_ptr[:-1]).long())
+    keys = rows * S + scols.long()
+    need = torch.zeros(scols.numel() + 1, dtype=torch.bool, device=dev)
+    inb = torch.ones_like(rk, dtype=torch.bool)
+    for x in (rk, c_same, c_cross):
+        inb &= (x >= L) & (x + L + 1 <= S)
+    r_all = rk[inb].long()
+    held = 0
+    for col in (c_same, c_cross):
+        c_all = col[inb].long()
+        for s in range(0, r_all.numel(), chunk):
+            base = (r_all[s:s + chunk, None] + di.long()) * S \
+                + c_all[s:s + chunk, None]
+            a = torch.searchsorted(keys, base + dj_lo.long())
+            b = torch.searchsorted(keys, base + dj_hi.long() + 1)
+            m = b > a
+            need[a[m]] = True
+            need[b[m]] = True
+            held += int(m.sum())
+    return int(need.sum()), held, 2 * r_all.numel() * di.numel()
+
+
+def k6_edge_cases(main, dev):
+    """K6's edge cases, seed 17, each held torch.equal to the plain
+    version, with the number of bands over the shared budget where the
+    case fixes it: an empty U; Q = 0; every query out of window; one band
+    over the shared budget (its middle rows hold 40 more pixels each: the
+    device-memory path); every band's bitmap full while its slice still
+    fits in shared memory (S = 40,000: row r holds the columns 32 j + r %
+    32 for j = r mod R, so the R rows of a band cover every 32-column
+    bucket); L = 1; every query in one band; the main shape's queries as
+    int32; a Hi-C-like U at S = 40,000."""
+    from hichap_master_tpu_torch.kernels import impute_vote as IV
+    from hichap_master_tpu_torch.ops.sparse_impute import disk_row_intervals
+
+    su, q, L, mn, rt = main
+    S, S2 = su.S, 40_000
+    R = IV.BAND_ROWS
+    mid = S // (2 * R)
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+
+    def disk(L):
+        return [torch.as_tensor(a, device=dev) for a in disk_row_intervals(L)]
+
+    def rand(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev)
+
+    def queries(S, Q, lo=0, hi=None, near=None):
+        """Rows in [lo, hi), the same candidate within 40 bins of the row,
+        the cross one anywhere; a third of them next to a pixel of
+        ``near`` (row and cross candidate within 20 bins)."""
+        hi = S if hi is None else hi
+        rk = rand(lo, hi, Q)
+        cs = (rk + rand(-40, 41, Q)).clamp(0, S - 1)
+        cc = rand(0, S, Q)
+        if near is not None:
+            k, pick = Q // 3, rand(0, near[0].numel(), Q // 3)
+            cc[:k] = (near[1][pick] + rand(-20, 21, k)).clamp(0, S - 1)
+            rk[:k] = (near[0][pick] + rand(-20, 21, k)).clamp(0, S - 1)
+        return rk, cs, cc
+
+    def add(coo, rows, cols):
+        return [torch.cat([coo[0], rows]), torch.cat([coo[1], cols]),
+                torch.cat([coo[2], torch.ones_like(rows)])]
+
+    def small(coo, Q=200_000):
+        return (*k6_csr(*coo, S2), *queries(S2, Q, near=coo), *disk(L), S2,
+                L, mn, rt)
+
+    def at_main(rk, cs, cc, L=L):
+        return (su.scols, su.cum, su.row_ptr, rk, cs, cc, *disk(L), S, L,
+                mn, rt)
+
+    # rows no other band's disks reach: 40 more pixels each
+    rows = torch.arange(100 * R + 32, 101 * R - 32,
+                        device=dev).repeat_interleave(40)
+    dense = add(hic_coo(g, S2, dev), rows, rand(0, S2, rows.numel()))
+    per_row = -(-((S2 + 31) // 32) // R)
+    fr = torch.arange(S2, device=dev).repeat_interleave(per_row)
+    j = fr % R + R * (torch.arange(fr.numel(), device=dev) % per_row)
+    keep = 32 * j < S2
+    full = add(hic_coo(g, S2, dev, band=1, far=0), fr[keep],
+               (32 * j + fr % 32)[keep])
+    e64 = torch.zeros(0, dtype=torch.int64, device=dev)
+    n_out = min(50_000, q[0].numel())
+    return [
+        ("an empty U (S = 40,000, nnz 0)",
+         (*k6_csr(e64, e64, e64, S2), *queries(S2, 50_000), *disk(L), S2, L,
+          mn, rt), 0),
+        ("Q = 0", at_main(e64, e64, e64), None),
+        ("every query out of window",
+         at_main(rand(0, L, n_out), q[1][:n_out], q[2][:n_out]), None),
+        (f"one band over the shared budget (rows {100 * R + 32}-"
+         f"{101 * R - 33} hold 40 more pixels each)", small(dense), 1),
+        ("every band's bitmap full inside the shared budget", small(full), 0),
+        ("L = 1", at_main(*q, L=1), None),
+        (f"every query in one band (rows {mid * R}-{mid * R + R - 1})",
+         at_main(*queries(S, 100_000, mid * R, mid * R + R)), None),
+        ("the main queries as int32",
+         at_main(*(t.to(torch.int32) for t in q)), None),
+        ("a Hi-C-like U at S = 40,000", small(hic_coo(g, S2, dev)), 0),
+    ]
+
+
 def k67_compare(diploid, dev, results):
     """K6 on pass 3's full query set of the 10 kb diploid build against
-    SparseU of its un-imputed matrix; K7 on the hybrid split of its 10 kb
-    traditional matrix with a random positive vector."""
+    SparseU of its un-imputed matrix, then its edge cases; K7 on the
+    hybrid split of its 10 kb traditional matrix with a random positive
+    vector."""
+    from hichap_master_tpu_torch.kernels import _build
+    from hichap_master_tpu_torch.kernels import impute_vote as IV
     from hichap_master_tpu_torch.kernels.impute_vote import (
         impute_vote, impute_vote_plain)
     from hichap_master_tpu_torch.ops.sparse_hybrid import hybrid_from_coo
@@ -617,6 +772,10 @@ def k67_compare(diploid, dev, results):
     from hichap_master_tpu_torch.pipeline.matrix import (
         build_haplotype_datasets, cooler_coo, vote_queries)
 
+    lib = _build.load()
+    consts = [lib.impute_vote_constant(i, 0) for i in range(3)]
+    check(consts == [IV.BAND_ROWS, IV.BITMAP_SHIFT, IV.BAND_BUDGET],
+          f"K6 constants {consts} differ from their Python mirror")
     genome, classes = diploid
     res = 10_000
     data = build_haplotype_datasets(classes, genome, [res], [],
@@ -625,10 +784,10 @@ def k67_compare(diploid, dev, results):
     su = SparseU(*data["UnImputated_Whole"][res].coo(), S)
     L = DIPLOID_VOTE["imputation_region"] // res
     disk = [torch.as_tensor(a, device=dev) for a in disk_row_intervals(L)]
-    args = (su.scols, su.cum, su.row_ptr,
-            *vote_queries(classes, genome, res, device=dev), *disk, S, L,
-            float(DIPLOID_VOTE["imputation_min"]),
-            float(DIPLOID_VOTE["imputation_ratio"]))
+    q = vote_queries(classes, genome, res, device=dev)
+    mn = float(DIPLOID_VOTE["imputation_min"])
+    rt = float(DIPLOID_VOTE["imputation_ratio"])
+    args = (su.scols, su.cum, su.row_ptr, *q, *disk, S, L, mn, rt)
     hk, tk = impute_vote(*args)
     hp, tp = impute_vote_plain(*args)
     torch.cuda.synchronize()
@@ -636,22 +795,49 @@ def k67_compare(diploid, dev, results):
           "queries")
     check(torch.equal(tk, tp), "K6 targets differ")
     ms = median_ms(lambda: impute_vote(*args))
+    dev_ms = event_ms(lambda: impute_vote(*args))
     plain_ms = median_ms(lambda: impute_vote_plain(*args), 3)
     Q = args[3].numel()
-    log(f"K6 impute_vote hg19 10 kb diploid, Q={Q} queries x 2 x "
-        f"{disk[0].numel()} disk rows, U nnz {su.nnz}: hits ({int(hk.sum())})"
-        f" and targets identical, {ms:.3f} ms kernel vs {plain_ms:.3f} ms "
-        "plain")
+    bands, over, widest = k6_routes(args[:3], S, disk[0], IV.BAND_ROWS,
+                                    IV.BAND_BUDGET)
+    n_cum, held, windows = k6_cum_reads(su.scols, su.row_ptr, *q, *disk, S,
+                                        L)
+    log(f"K6 impute_vote hg19 10 kb diploid, Q={Q} {q[0].dtype} queries x 2 "
+        f"x {disk[0].numel()} disk rows, U nnz {su.nnz}, {bands} bands of "
+        f"{IV.BAND_ROWS} rows ({over} over the shared budget of "
+        f"{IV.BAND_BUDGET} entries, the widest {widest}), {held} of "
+        f"{windows} disk windows holding an entry ({n_cum} prefix values "
+        f"read): hits ({int(hk.sum())}) and targets identical, {ms:.3f} ms "
+        f"per call ({dev_ms:.4f} ms device) vs {plain_ms:.3f} ms plain")
+    for name, case, want_over in k6_edge_cases((su, q, L, mn, rt), dev):
+        hke, tke = impute_vote(*case)
+        hpe, tpe = impute_vote_plain(*case)
+        torch.cuda.synchronize()
+        check(torch.equal(hke, hpe) and torch.equal(tke, tpe),
+              f"K6 edge case {name}: hits differ at "
+              f"{int((hke != hpe).sum())} queries, targets at "
+              f"{int((tke != tpe).sum())}")
+        bands, over, widest = k6_routes(case[:3], case[-4], case[6],
+                                        IV.BAND_ROWS, IV.BAND_BUDGET)
+        check(want_over is None or over == want_over,
+              f"K6 edge case {name}: {over} bands over the shared budget, "
+              f"not {want_over}")
+        log(f"K6 edge case {name}: Q={case[3].numel()}, {int(hke.sum())} "
+            f"hits, {over} of {bands} bands over the shared budget (widest "
+            f"slice {widest}): hits and targets identical")
     results["impute_vote"] = dict(
         route="cuda", source="hichap_master_tpu_torch/csrc/impute_vote.cu",
         replaces="hichap_master_tpu/ops/sparse_impute.py:198",
         unit=f"ms per vote of pass 3's {Q} queries, hg19 10 kb diploid "
-             f"(L = {L})",
+             f"(L = {L}); one launch counted per vote: a memset, the "
+             "bucketing's four small kernels and the band kernel",
         max_abs_err=float((tk - tp).abs().max()) if Q else 0.0, ms=ms,
-        plain_ms=plain_ms, library_ms=None,
-        # every input once (U whole, though the searches touch far less
-        # of it) and the outputs
-        **bound(nbytes(*(a for a in args if torch.is_tensor(a)), hk, tk)))
+        device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+        # what the vote must move: U's columns and row slices, the queries,
+        # the disk and the outputs once, and of U's prefix only the values
+        # at both ends of the windows that hold an entry
+        **bound(nbytes(su.scols, su.row_ptr, *q, *disk, hk, tk)
+                + n_cum * su.cum.element_size()))
 
     rows, cols, vals = cooler_coo(data["Tradition_Whole"][res], genome, res)
     n = sum(genome.cooler_n_bins(c, res) for c in genome.labels)

@@ -36,8 +36,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points -> argument types (pointers and the stream as c_void_p;
 # every function returns the launch's cudaError_t as int, except
-# ice_sweep_max_batch (a batch size) and segment_marginal_tile (K7's pixels
-# per tile))
+# ice_sweep_max_batch (a batch size), segment_marginal_tile (K7's pixels
+# per tile) and impute_vote_constant (K6's band rows, bitmap shift, shared
+# budget and band scratch))
 SIGNATURES = {
     "ice_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "ice_sweep_max_batch": [_I, _I],
@@ -49,8 +50,9 @@ SIGNATURES = {
     "hmm_forward_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _P],
     "hmm_viterbi": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "impute_vote": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
-                    _F, _F, _P, _P, _P],
+    "impute_vote": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I,
+                    _F, _F, _P, _P, _P, _P, _P],
+    "impute_vote_constant": [_I, _I],
     "segment_marginal": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "segment_marginal_tile": [],
 }

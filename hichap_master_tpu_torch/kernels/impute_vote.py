@@ -9,10 +9,15 @@ slices) and ``cum [nnz+1]`` (int64 prefix of the counts).  Every disk row
 so its sum is a difference of two prefix values at binary-search positions
 inside that row's slice.
 
-CUDA source: ``csrc/impute_vote.cu`` (one warp per query).  The plain
-version below materialises ``[Q, D]`` search bounds per chunk of queries.
-Both give identical hits and targets: the sums are integers, and the share
-test runs in float32 as in the JAX program.
+CUDA source: ``csrc/impute_vote.cu``.  The queries are bucketed by row band
+(``row_known // BAND_ROWS``) on the card; one block per band stages the
+band's rows of U in shared memory (up to ``BAND_BUDGET`` entries, else it
+reads them in place), builds a column-occupancy bitmap (one bit per
+``2**BITMAP_SHIFT`` columns) and searches only the candidates whose window
+meets a set bit; the others sum to 0 exactly.  The plain version below
+materialises ``[Q, D]`` search bounds per chunk of queries.  Both give
+identical hits and targets: the sums are integers, and the share test runs
+in float32 as in the JAX program.
 """
 
 from __future__ import annotations
@@ -22,6 +27,12 @@ import torch
 from . import _build
 
 _PLAIN_CHUNK = 1 << 15  # queries per plain chunk (bounds the [Q, D] temps)
+# the kernel's constants (``impute_vote_constant`` in csrc/impute_vote.cu;
+# chip_smoke.py holds the two equal): query rows per band, one bitmap bit
+# per 2**BITMAP_SHIFT columns, entries of U a band stages in shared memory
+BAND_ROWS = 128
+BITMAP_SHIFT = 5
+BAND_BUDGET = 3072
 
 
 def _bounded_searchsorted(scols: torch.Tensor, lo: torch.Tensor,
@@ -29,9 +40,11 @@ def _bounded_searchsorted(scols: torch.Tensor, lo: torch.Tensor,
                           iters: int) -> torch.Tensor:
     """Left insertion points of ``qc`` into ``scols[lo:hi]`` per entry."""
     last = scols.numel() - 1
+    if last < 0:  # no entry: every interval is empty
+        return lo
     for _ in range(iters):
         mid = lo + ((hi - lo) >> 1)
-        less = (scols[mid.clamp(0, max(last, 0))] < qc) & (mid < hi)
+        less = (scols[mid.clamp(0, last)] < qc) & (mid < hi)
         lo = torch.where(less, mid + 1, lo)
         hi = torch.where(less, hi, mid)
     return lo
@@ -107,8 +120,9 @@ def impute_vote(scols, cum, row_ptr, row_known, col_same, col_cross, di,
     """The disk vote of queries ``(row_known, col_same, col_cross)`` against
     U; returns (hit bool [Q], tgt int32 [Q]).  For hits, the imputed
     matrix gains one at (row_known, tgt).  Queries whose L-window leaves
-    [0, S) never hit.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
+    [0, S) never hit.  The queries may be int32 or int64 and are read as
+    they come.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise."""
     dev = scols.device
     if dev.type == "cpu":
         return impute_vote_plain(scols, cum, row_ptr, row_known, col_same,
@@ -125,20 +139,35 @@ def impute_vote(scols, cum, row_ptr, row_known, col_same, col_cross, di,
                         ("row_ptr", row_ptr, torch.int32)):
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise TypeError(f"{name} must be contiguous {dt} on {dev}")
-    q = [t.to(device=dev, dtype=torch.int32).contiguous()
-         for t in (row_known, col_same, col_cross, di, dj_lo, dj_hi)]
-    Q, D = q[0].numel(), q[3].numel()
-    hit = torch.empty(Q, dtype=torch.uint8, device=dev)
+    q = (row_known, col_same, col_cross)
+    qdt = (torch.int64 if any(t.dtype == torch.int64 for t in q)
+           else torch.int32)
+    q = [t.to(device=dev, dtype=qdt).contiguous() for t in q]
+    disk = [t.to(device=dev, dtype=torch.int32).contiguous()
+            for t in (di, dj_lo, dj_hi)]
+    Q, D = q[0].numel(), disk[0].numel()
+    if Q >= 2 ** 31:
+        raise ValueError("the vote kernel indexes queries with int32")
+    hit = torch.empty(Q, dtype=torch.bool, device=dev)
     tgt = torch.empty(Q, dtype=torch.int32, device=dev)
+    if Q == 0:
+        return hit, tgt
     lib = _build.load()
+    # band counts and offsets, each band's slice of U, the disk's extent
+    band = torch.empty(lib.impute_vote_constant(3, S), dtype=torch.int32,
+                       device=dev)
+    # the in-window queries in band order as (query, row, col_same,
+    # col_cross), then every query's rank in its band
+    order = torch.empty(5 * Q, dtype=torch.int32, device=dev)
     _build.check(lib.impute_vote(
         scols.data_ptr(), cum.data_ptr(), row_ptr.data_ptr(),
         q[0].data_ptr(), q[1].data_ptr(), q[2].data_ptr(), Q,
-        q[3].data_ptr(), q[4].data_ptr(), q[5].data_ptr(), D, S, L,
-        float(min_count), float(ratio), hit.data_ptr(), tgt.data_ptr(),
+        int(qdt == torch.int64), disk[0].data_ptr(), disk[1].data_ptr(),
+        disk[2].data_ptr(), D, S, L, float(min_count), float(ratio),
+        hit.data_ptr(), tgt.data_ptr(), band.data_ptr(), order.data_ptr(),
         _build.stream_ptr(dev)), "impute_vote")
     impute_vote.launches += 1
-    return hit.bool(), tgt
+    return hit, tgt
 
 
 impute_vote.launches = 0

@@ -1,7 +1,7 @@
 """Stage and kernel timings of the port on one GPU, for PERF.md.
 
     env PYTHONPATH=. python3 hichap_master_tpu_torch/testing/chip_measure.py \
-        TAG OUT_DIR [k3] [k4] [k5] [k7] [tads] [loops]
+        TAG OUT_DIR [k3] [k4] [k5] [k6] [k7] [tads] [loops]
 
 run from the root of a checkout (it measures the package and the
 ``chip_smoke.py`` inputs of that checkout, so the same file, copied into an
@@ -23,7 +23,16 @@ scattered marginal alone on the hybrid split of the 10 kb diploid build
 gather: CUDA events around back-to-back launches, three samples each.
 K7 is also timed by the host's clock, one synchronized call at a time
 (with the carry scratch made once, where the package has it), and on the
-same pixels regrouped into rows 64 times longer.
+same pixels regrouped into rows 64 times longer.  ``k6`` times the
+imputation vote alone on pass 3's queries against ``SparseU`` of the 10 kb
+diploid build (int64 queries, as ``vote_queries`` makes them), its
+kernels one by one (``torch.profiler``: the bucketing's launches and the
+band kernel), and two worst cases on the same queries: every candidate's
+window holding an entry of U (a pixel added at the query's row and each
+candidate), and every band's column bitmap full (row r also holds the
+columns 32 j + r % 32 for every j = r mod 128: ~148 more pixels a row,
+every band over the shared budget); it builds those U with the tree's
+``chip_smoke.k6_csr``.
 Writes ``OUT_DIR/measure_TAG.json``.
 """
 
@@ -272,6 +281,124 @@ def k7_alone(cs, dev):
     print("K7", json.dumps(OUT["k7"]), flush=True)
 
 
+def k6_inputs(cs, dev):
+    """Pass 3's queries of the 10 kb diploid build and ``SparseU`` of its
+    un-imputed matrix (``chip_smoke.k67_compare``'s recipe), as the
+    vote's arguments, and U as directed COO."""
+    from hichap_master_tpu_torch.ops.sparse_impute import (SparseU,
+                                                           disk_row_intervals)
+    from hichap_master_tpu_torch.pipeline.matrix import (
+        build_haplotype_datasets, vote_queries)
+
+    genome, classes = cs.diploid_inputs(dev)
+    res = 10_000
+    data = build_haplotype_datasets(classes, genome, [res], [],
+                                    **cs.DIPLOID_VOTE, device=dev)
+    S = genome.haplotype().total_bins(res)
+    su = SparseU(*data["UnImputated_Whole"][res].coo(), S)
+    del data
+    L = cs.DIPLOID_VOTE["imputation_region"] // res
+    disk = [torch.as_tensor(a, device=dev) for a in disk_row_intervals(L)]
+    q = vote_queries(classes, genome, res, device=dev)
+    rows = torch.repeat_interleave(
+        torch.arange(S, device=dev),
+        (su.row_ptr[1:] - su.row_ptr[:-1]).long())
+    coo = (rows, su.scols, su.cum[1:] - su.cum[:-1])
+    return (su.scols, su.cum, su.row_ptr, *q, *disk, S, L,
+            float(cs.DIPLOID_VOTE["imputation_min"]),
+            float(cs.DIPLOID_VOTE["imputation_ratio"])), coo
+
+
+def k6_pass_share(args, R, k):
+    """The share of the in-window queries' candidates whose window meets a
+    set bit of their band's column bitmap (bands of ``R`` rows, one bit per
+    2**k columns): the candidates that K6 searches."""
+    scols, _, row_ptr, rk, c_same, c_cross, di, lo, hi, S, L = args[:11]
+    dev = scols.device
+    nb, nbk = -(-S // R), ((S - 1) >> k) + 1
+    rows = torch.repeat_interleave(torch.arange(S, device=dev),
+                                   (row_ptr[1:] - row_ptr[:-1]).long())
+    # the bands whose staged rows hold each entry
+    first = torch.div(rows - int(di.max()), R,
+                      rounding_mode="floor").clamp_min(0)
+    last = torch.div(rows - int(di.min()), R,
+                     rounding_mode="floor").clamp_max(nb - 1)
+    occ = torch.zeros(nb * nbk, dtype=torch.bool, device=dev)
+    bucket = scols.long() >> k
+    for o in range(-(-(R + int(di.max() - di.min())) // R) + 1):
+        m = first + o <= last
+        occ[(first[m] + o) * nbk + bucket[m]] = True
+    inb = torch.ones_like(rk, dtype=torch.bool)
+    for x in (rk, c_same, c_cross):
+        inb &= (x >= L) & (x + L + 1 <= S)
+    band = rk[inb].long() // R
+    passed = 0
+    for c in (c_same[inb].long(), c_cross[inb].long()):
+        b0, b1 = (c + int(lo.min())) >> k, (c + int(hi.max())) >> k
+        hit = torch.zeros_like(c, dtype=torch.bool)
+        for o in range(int((b1 - b0).max()) + 1):
+            m = b0 + o <= b1
+            hit[m] |= occ[band[m] * nbk + b0[m] + o]
+        passed += int(hit.sum())
+    return passed / max(1, 2 * int(inb.sum()))
+
+
+def k6_alone(cs, dev):
+    from hichap_master_tpu_torch.kernels import impute_vote as k6
+
+    main, (rows, cols, vals) = k6_inputs(cs, dev)
+    scols, cum, row_ptr, rk, c_same, c_cross, di = main[:7]
+    S = main[9]
+    Q, R = rk.numel(), k6.BAND_ROWS
+
+    def vote(args):
+        return lambda: k6.impute_vote(*args)
+
+    # every candidate's window holds an entry: one pixel at the query's row
+    # and each candidate column
+    ones = torch.ones_like(rk)
+    u_pass = cs.k6_csr(torch.cat([rows, rk, rk]),
+                       torch.cat([cols, c_same, c_cross]),
+                       torch.cat([vals, ones, ones]), S)
+    pass_args = (*u_pass, *main[3:])
+    # every band's bitmap full: row r also holds 32 j + r % 32, j = r mod R
+    per_row = -(-((S + 31) // 32) // R)
+    fr = torch.arange(S, device=dev).repeat_interleave(per_row)
+    j = fr % R + R * (torch.arange(fr.numel(), device=dev) % per_row)
+    keep = 32 * j < S
+    fr, fc = fr[keep], (32 * j + fr % 32)[keep]
+    u_full = cs.k6_csr(torch.cat([rows, fr]), torch.cat([cols, fc]),
+                       torch.cat([vals, torch.ones_like(fr)]), S)
+    del fr, fc, j, keep
+    full_args = (*u_full, *main[3:])
+    out = dict(
+        Q=Q, q_dtype=str(rk.dtype), S=S, nnz=scols.numel(),
+        nnz_pass=u_pass[0].numel(), nnz_full=u_full[0].numel(),
+        routes={name: cs.k6_routes(u, S, di, k6.BAND_ROWS, k6.BAND_BUDGET)
+                for name, u in (("main", main), ("pass", u_pass),
+                                ("full", u_full))},
+        searched_share={
+            name: k6_pass_share(a, k6.BAND_ROWS, k6.BITMAP_SHIFT)
+            for name, a in (("main", main), ("pass", pass_args))},
+        event_ms=back_to_back_ms(vote(main)),
+        wall_ms=wall_ms(vote(main), 50),
+        kernels=profiled(vote(main)),
+        pass_event_ms=back_to_back_ms(vote(pass_args), 10),
+        full_event_ms=back_to_back_ms(vote(full_args), 3))
+    # the bucketing alone: its memset and four small kernels
+    out["bucketing_ms"] = sum(
+        ms for name, _, ms in out["kernels"]["top"]
+        if any(k in name for k in ("band_histogram", "band_prefix",
+                                   "band_scan", "band_scatter", "emset")))
+    # hits and a checksum of the targets, to compare two trees
+    for args in (main, pass_args, full_args):
+        h, t = k6.impute_vote(*args)
+        out.setdefault("hits", []).append(int(h.sum()))
+        out.setdefault("tgt_sum", []).append(int(t.long().sum()))
+    OUT["k6"] = out
+    print("K6", json.dumps(out), flush=True)
+
+
 def k4_and_em(tads, dev):
     from hichap_master_tpu_torch.kernels import hmm_scan
     from hichap_master_tpu_torch.ops import hmm
@@ -364,11 +491,12 @@ def loop_stage(loops, dev):
 
 
 def main() -> None:
-    sections = ("k3", "k4", "k5", "k7", "tads", "loops")
+    sections = ("k3", "k4", "k5", "k6", "k7", "tads", "loops")
     if len(sys.argv) < 3 or set(sys.argv[3:]) - set(sections):
         raise SystemExit("usage: chip_measure.py TAG OUT_DIR "
                          + " ".join(f"[{s}]" for s in sections)
-                         + "  (K5 and K7 alone: k5 k7; default: all)")
+                         + "  (K5, K6 and K7 alone: k5 k6 k7; default: "
+                         "all)")
     tag, out_dir = sys.argv[1:3]
     run = set(sys.argv[3:]) or set(sections)
     if not torch.cuda.is_available():
@@ -388,7 +516,8 @@ def main() -> None:
     loops = cs.loop_inputs() if run & {"k3", "loops"} else None
     tads = cs.tad_inputs() if run & {"k4", "k5", "tads"} else None
     for name, fn, arg in (("k3", k3_split, loops), ("k4", k4_and_em, tads),
-                          ("k5", k5_alone, tads), ("k7", k7_alone, cs),
+                          ("k5", k5_alone, tads), ("k6", k6_alone, cs),
+                          ("k7", k7_alone, cs),
                           ("tads", tad_stage, tads),
                           ("loops", loop_stage, loops)):
         if name in run:

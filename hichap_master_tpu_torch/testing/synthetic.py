@@ -58,7 +58,7 @@ def band_coords(R: int, band_tiles: int = 3, far_per_row: int = 1,
     return allc[np.sort(idx)]
 
 
-def gen_tiles(coords: np.ndarray, T: int, seed: int = 0, device=None,
+def gen_tiles(coords: np.ndarray, T: int, seed: int = 0, *, device,
               far_floor: float = 0.0):
     """Tile values drawn on ``device``: floor(Exp) counts with mean
     ~60 / (1 + |distance|), diagonal tiles mirrored full.  Returns
@@ -72,10 +72,10 @@ def gen_tiles(coords: np.ndarray, T: int, seed: int = 0, device=None,
     iterations at variance ~14, far above tol 1e-5.  With 1.0 the far tiles
     hold ~35% of the contact mass and ICE converges at tol 1e-5.
     """
-    device = torch.device(device) if device is not None else None
+    device = torch.device(device)
     brow = torch.as_tensor(coords[:, 0], dtype=torch.int32, device=device)
     bcol = torch.as_tensor(coords[:, 1], dtype=torch.int32, device=device)
-    g = torch.Generator(device=device if device is not None else "cpu")
+    g = torch.Generator(device=device)
     g.manual_seed(seed)
     K = coords.shape[0]
     li = torch.arange(T, device=device)
@@ -100,7 +100,7 @@ def gen_tiles(coords: np.ndarray, T: int, seed: int = 0, device=None,
     return tiles, brow, bcol
 
 
-def hap_batch(sizes, n_pad: int, seed: int = 0, device=None,
+def hap_batch(sizes, n_pad: int, seed: int = 0, *, device,
               background: float = 0.0) -> torch.Tensor:
     """Padded symmetric count matrices ``[C, n_pad, n_pad]`` drawn on
     ``device``: floor(Exp) counts with mean 80 / d^0.9 at distance d, zero
@@ -113,8 +113,8 @@ def hap_batch(sizes, n_pad: int, seed: int = 0, device=None,
     6,232 bins (40 kb).  With 0.05 (~1/4 of the mass at long range, as in
     real Hi-C) it takes ~30.
     """
-    device = torch.device(device) if device is not None else None
-    g = torch.Generator(device=device if device is not None else "cpu")
+    device = torch.device(device)
+    g = torch.Generator(device=device)
     g.manual_seed(seed)
     i = torch.arange(n_pad, device=device)
     d = (i[:, None] - i[None, :]).abs() + 1.0
@@ -137,7 +137,7 @@ GM12878_MIX = {"Bi_Allelic": 20_000_000, "M_M": 3_000_000,
                "P_P": 3_000_000, "M_P": 300_000, "P_M": 300_000}
 
 
-def allelic_pairs(lengths, counts, seed: int = 0, device=None,
+def allelic_pairs(lengths, counts, seed: int = 0, *, device,
                   cis_floor: float = 0.0) -> dict:
     """Allelic pair classes drawn on ``device`` (``scripts/perf_e2e_hap.py``
     ``_gen_pairs`` and ``generate_beds``): both mates' chromosomes weighted
@@ -157,8 +157,8 @@ def allelic_pairs(lengths, counts, seed: int = 0, device=None,
     Cauchy (s^-2) tail otherwise: cis-only ICE at 40 kb then needs 222
     iterations on chr1 and more on the small chromosomes (tol 1e-5; cooler's
     limit is 200).  With 0.1 it takes ~65 on every chromosome tried."""
-    device = torch.device(device) if device is not None else None
-    g = torch.Generator(device=device if device is not None else "cpu")
+    device = torch.device(device)
+    g = torch.Generator(device=device)
     g.manual_seed(seed)
     sizes = torch.as_tensor(lengths, dtype=torch.float64, device=device)
     cumw = torch.cumsum(sizes, 0) / sizes.sum()

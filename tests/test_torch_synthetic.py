@@ -44,13 +44,15 @@ def test_band_coo_matches_script():
 @pytest.mark.parametrize("far_floor", [0.0, 1.0])
 def test_gen_tiles_contract(far_floor):
     coords = S.band_coords(12)
-    tiles, brow, bcol = S.gen_tiles(coords, 16, seed=3, far_floor=far_floor)
+    tiles, brow, bcol = S.gen_tiles(coords, 16, seed=3, device="cpu",
+                                    far_floor=far_floor)
     assert tiles.shape == (coords.shape[0], 16, 16)
     assert brow.dtype == bcol.dtype == torch.int32
     assert (tiles >= 0).all() and (tiles == tiles.floor()).all()
     diag = brow == bcol
     torch.testing.assert_close(tiles[diag], tiles[diag].transpose(1, 2))
-    again, _, _ = S.gen_tiles(coords, 16, seed=3, far_floor=far_floor)
+    again, _, _ = S.gen_tiles(coords, 16, seed=3, device="cpu",
+                              far_floor=far_floor)
     torch.testing.assert_close(tiles, again)
     far = (bcol - brow) >= 3
     mean_far = float(tiles[far].mean())
@@ -60,14 +62,16 @@ def test_gen_tiles_contract(far_floor):
 def test_hap_batch_contract():
     sizes = [50, 37]
     for bg in (0.0, 0.05):
-        M = S.hap_batch(sizes, 64, seed=1, background=bg)
+        M = S.hap_batch(sizes, 64, seed=1, device="cpu", background=bg)
         assert M.shape == (2, 64, 64)
         torch.testing.assert_close(M, M.transpose(1, 2))
         assert float(M[1, 37:].abs().sum()) == 0.0
         assert float(M[1, :, 37:].abs().sum()) == 0.0
         torch.testing.assert_close(M, S.hap_batch(sizes, 64, seed=1,
+                                                  device="cpu",
                                                   background=bg))
-    far = S.hap_batch([64], 64, seed=1, background=0.5)[0].triu(40)
+    far = S.hap_batch([64], 64, seed=1, device="cpu",
+                      background=0.5)[0].triu(40)
     assert float(far.sum()) > 0
 
 
@@ -125,8 +129,8 @@ def test_allelic_pairs_follow_the_hap_script():
     lengths = [5_000_000, 3_000_000, 2_000_000]
     counts = {"Bi_Allelic": 20_000, "M_M": 9_000, "P_P": 9_000,
               "M_P": 500, "P_M": 500}
-    a = S.allelic_pairs(lengths, counts, seed=3)
-    b = S.allelic_pairs(lengths, counts, seed=3)
+    a = S.allelic_pairs(lengths, counts, seed=3, device="cpu")
+    b = S.allelic_pairs(lengths, counts, seed=3, device="cpu")
     size = torch.tensor(lengths)
     for cls, n in counts.items():
         cols = a[cls]
@@ -148,8 +152,9 @@ def test_allelic_pairs_follow_the_hap_script():
             share = torch.bincount(cols[4].long(), minlength=3) / n
             np.testing.assert_allclose(share.numpy(), [0.4, 0.3, 0.3],
                                        atol=0.03)
-    assert not torch.equal(S.allelic_pairs(lengths, counts, seed=4)["M_M"][1],
-                           a["M_M"][1])
+    assert not torch.equal(
+        S.allelic_pairs(lengths, counts, seed=4, device="cpu")["M_M"][1],
+        a["M_M"][1])
 
 
 def test_allelic_cis_floor_adds_long_range_intra_pairs():
@@ -158,6 +163,7 @@ def test_allelic_cis_floor_adds_long_range_intra_pairs():
     far = []
     for floor in (0.0, 0.2):
         c1, p1, c2, p2 = S.allelic_pairs(lengths, counts, seed=1,
+                                         device="cpu",
                                          cis_floor=floor)["Bi_Allelic"]
         intra = c1 == c2
         far.append(float(((p2 - p1).abs()[intra] > 10_000_000)
@@ -166,3 +172,17 @@ def test_allelic_cis_floor_adds_long_range_intra_pairs():
     # of the time: the floor moves ~0.2 x 0.85 (drawn intra) x ~0.55 of
     # the intra pairs there
     assert far[0] < 0.15 and 0.06 < far[1] - far[0] < 0.13
+
+
+@pytest.mark.parametrize("make", [
+    lambda: S.gen_tiles(S.band_coords(4), 8, seed=0),
+    lambda: S.hap_batch([8], 8, seed=0),
+    lambda: S.allelic_pairs([1_000_000], {"Bi_Allelic": 10}, seed=0),
+    lambda: S.allelic_pairs([1_000_000], {"Bi_Allelic": 10}, 0, "cpu"),
+], ids=["gen_tiles", "hap_batch", "allelic_pairs", "positional_device"])
+def test_generators_take_device_by_keyword_only(make):
+    """No default device: a generator called without one, or with one
+    given by position, is refused, not drawn on the CPU behind the
+    caller's back."""
+    with pytest.raises(TypeError):
+        make()
