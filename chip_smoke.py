@@ -30,6 +30,9 @@ Phases, each printed on its own line, any failure raising:
    vote and K7 the scattered marginal of the 10 kb diploid build (uint16
    and float32 values, two runs bit for bit, its edge cases, and
    torch.index_select of the same gather as the floor of its L2 traffic);
+   K3 again at the allelic 40 kb shape (chr1's corrected M matrix of the
+   same draw, its pixels cut by the allelic prefilter; pw 1, ww 3, 18
+   levels, B = 71), identical to plain;
 3. the main path at full size, after zeroing the kernels' launch counters,
    each stage's wall on its own line:
    genome-wide block-sparse ICE at 10 kb (tiles with a far-field floor,
@@ -46,8 +49,19 @@ Phases, each printed on its own line, any failure raising:
    must give the same paths, boundaries and domains; then the diploid
    matrix stage (26.6 M allelic pairs) with its own counters, and its
    10 kb hybrid weights again through the plain K2 and K7;
-4. the launch counters of each path, each kernel of the path > 0, and one
-   JSON line with the per-kernel results.
+4. the allelic analysis with its own counters: the same draw with planted
+   loops and domains (``testing.synthetic.planted_loops``) through the
+   matrix stage (whole 500 kb, local 40 kb), the traditional and allelic
+   compartment tracks at 500 kb, allelic TADs and loops (``call_loops``)
+   at 40 kb on the corrected M/P matrices cut to their cooler bins, and
+   the loop, boundary and compartment specificity tests on those calls,
+   each step's wall on its own line; checks: tracks finite, every p and q
+   in [0, 1] with q >= p, a share of the maternal-only loops called in M
+   and their loop-test median p below the shared loops'; then M1 through
+   the plain ladder and the plain Viterbi;
+5. the launch counters of each path, each kernel of the path > 0, and one
+   JSON line with the per-kernel results (``launches_by_path``: analysis,
+   diploid, allelic).
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
 every phase passed.
@@ -81,6 +95,13 @@ DIPLOID_VOTE = dict(imputation_region=10_000_000, imputation_min=2,
 # synthetic.allelic_pairs: without it cis-only ICE at 40 kb needs > 200
 # iterations on every chromosome)
 CIS_FLOOR = 0.1
+# the allelic phase's matrix stage: no 10 kb whole (no allelic analysis
+# reads it); its input plants loops and domains (synthetic.planted_loops)
+ALLELIC_WHOLE = (500_000,)
+# the planted-loop checks: at least this share of the maternal-only loops
+# is called in M, and their median p in the loop test is below the shared
+# loops'
+MATERNAL_CALLED_MIN = 0.4
 
 
 def log(msg: str) -> None:
@@ -355,16 +376,16 @@ def loop_inputs():
     return inputs, params, res
 
 
-def k3_compare(loops, dev, results):
+def _k3_measure(pr, dev, what):
+    """K3 on one prepared chromosome: the prefix kernels bit for bit
+    against anti_diagonal_prefix, the whole call's outputs identical to the
+    plain ladder's, and their times and bounds."""
     from hichap_master_tpu_torch.kernels.escalation import (
         escalation_batch, escalation_plain, ladder, prefix_maps,
         prefix_maps_plain)
-    from hichap_master_tpu_torch.models.loops import (_packed_inputs_batch,
-                                                      _pcaller_prep)
+    from hichap_master_tpu_torch.models.loops import _packed_inputs_batch
     from hichap_master_tpu_torch.ops.loops_packed import pixel_cells
 
-    inputs, params, res = loops
-    pr = _pcaller_prep(*inputs["1"][:4], inputs["1"][4], res, params)
     packed = _packed_inputs_batch([pr], dev)
     args = packed + (pr["ww"], pr["maxww"], pr["pw"], pr["num"], pr["e_lo"],
                      pr["x_pad"])
@@ -374,23 +395,17 @@ def k3_compare(loops, dev, results):
     # the prefix kernels against anti_diagonal_prefix: bit for bit
     Wk, Wp = prefix_maps(*maps), prefix_maps_plain(*maps)
     torch.cuda.synchronize()
-    check(torch.equal(Wk, Wp), "K3 prefix maps differ from "
-          "anti_diagonal_prefix at "
-          f"{int((Wk != Wp).sum())} cells")
+    check(torch.equal(Wk, Wp), f"K3 {what}: prefix maps differ from "
+          f"anti_diagonal_prefix at {int((Wk != Wp).sum())} cells")
     pre_ms = median_ms(lambda: prefix_maps(*maps))
     pre_dev_ms = event_ms(lambda: prefix_maps(*maps))
     pre_plain_ms = median_ms(lambda: prefix_maps_plain(*maps))
-    log(f"K3 prefix maps chr1 10 kb [3,1,{E},{Xp}]: identical to "
+    log(f"K3 prefix maps {what} [3,1,{E},{Xp}]: identical to "
         f"anti_diagonal_prefix (torch.equal), {pre_ms:.3f} ms kernels "
         f"({pre_dev_ms:.3f} ms device) vs {pre_plain_ms:.3f} ms plain")
-    results["escalation_prefix"] = dict(
-        route="cuda", source="hichap_master_tpu_torch/csrc/escalation.cu",
-        replaces="hichap_master_tpu/ops/loops_packed.py:165",
-        unit=f"ms per call (column prefix + diagonal pass), chr1 10 kb "
-             f"[3, 1, {E}, {Xp}]",
-        max_abs_err=float((Wk - Wp).abs().max()), ms=pre_ms,
-        device_ms=pre_dev_ms, plain_ms=pre_plain_ms, library_ms=None,
-        **bound(nbytes(*maps, Wk), 2.0 * Wk.numel()))
+    prefix = dict(max_abs_err=float((Wk - Wp).abs().max()), ms=pre_ms,
+                  device_ms=pre_dev_ms, plain_ms=pre_plain_ms,
+                  **bound(nbytes(*maps, Wk), 2.0 * Wk.numel()))
     del Wp
 
     # the whole call against the plain ladder: every output identical
@@ -399,9 +414,10 @@ def k3_compare(loops, dev, results):
     torch.cuda.synchronize()
     for name, a, b in zip(("resolved", "bS_K", "bE_K", "bS_Y", "bE_Y"), rk,
                           rp):
-        check(torch.equal(a, b), f"K3 {name} differs from the plain ladder")
+        check(torch.equal(a, b), f"K3 {what}: {name} differs from the plain "
+              "ladder")
     res_mask = rp[0]
-    check(bool(res_mask.any()), "K3 resolved nothing")
+    check(bool(res_mask.any()), f"K3 {what}: resolved nothing")
     cell, pixmask = pixel_cells(*packed[3:], pr["e_lo"], pr["x_pad"], E, Xp)
     ladder_ms = event_ms(lambda: ladder(Wk, pixmask, pr["ww"], pr["maxww"],
                                         pr["pw"]))
@@ -409,22 +425,68 @@ def k3_compare(loops, dev, results):
     dev_ms = event_ms(lambda: escalation_batch(*args))
     plain_ms = median_ms(lambda: escalation_plain(*args))
     n_cand = int(pixmask.sum())
-    log(f"K3 escalation chr1 10 kb [1,{E},{Xp}], {n_cand} candidate cells, "
+    log(f"K3 escalation {what} [1,{E},{Xp}] (pw {pr['pw']}, ww {pr['ww']}, "
+        f"maxww {pr['maxww']}, B {pr['num']}), {n_cand} candidate cells, "
         f"{int(res_mask.sum())} resolved pixels: resolved sets and "
         f"backgrounds identical to the plain ladder, {ms:.3f} ms per call "
         f"({dev_ms:.3f} ms device; the ladder kernel alone {ladder_ms:.3f} "
         f"ms) vs {plain_ms:.3f} ms plain")
+    call = dict(max_abs_err=max(float((a - b).abs().max())
+                                for a, b in zip(rk[1:], rp[1:])),
+                ms=ms, device_ms=dev_ms, ladder_ms=ladder_ms,
+                plain_ms=plain_ms,
+                # the maps and the pixels in, the per-pixel results out
+                **bound(nbytes(*maps, *packed[3:], *rk)))
+    return prefix, call, (E, Xp)
+
+
+def k3_compare(loops, dev, results):
+    from hichap_master_tpu_torch.models.loops import _pcaller_prep
+
+    inputs, params, res = loops
+    pr = _pcaller_prep(*inputs["1"][:4], inputs["1"][4], res, params)
+    prefix, call, (E, Xp) = _k3_measure(pr, dev, "chr1 10 kb")
+    results["escalation_prefix"] = dict(
+        route="cuda", source="hichap_master_tpu_torch/csrc/escalation.cu",
+        replaces="hichap_master_tpu/ops/loops_packed.py:165",
+        unit=f"ms per call (column prefix + diagonal pass), chr1 10 kb "
+             f"[3, 1, {E}, {Xp}]",
+        library_ms=None, **prefix)
     results["escalation"] = dict(
         route="cuda", source="hichap_master_tpu_torch/csrc/escalation.cu",
         replaces="hichap_master_tpu/kernels/pallas_escalation.py:90",
         unit=f"ms per escalation call (prefix maps, ladder and pixel "
              f"gather), chr1 10 kb [1, {E}, {Xp}]",
-        max_abs_err=max(float((a - b).abs().max())
-                        for a, b in zip(rk[1:], rp[1:])),
-        ms=ms, device_ms=dev_ms, ladder_ms=ladder_ms, plain_ms=plain_ms,
-        library_ms=None,
-        # the maps and the pixels in, the per-pixel results out
-        **bound(nbytes(*maps, *packed[3:], *rk)))
+        library_ms=None, **call)
+
+
+def k3_allelic_compare(diploid, dev, results):
+    """K3 at the allelic 40 kb shape (pw 1, ww 3, maxww 20, B = 71
+    diagonals): chr1's corrected M matrix at 40 kb from this phase's
+    diploid pairs, its pixels cut by the allelic prefilter.  Adds
+    ``allelic_`` keys to K3's two entries."""
+    from hichap_master_tpu_torch.models.loops import (_pcaller_prep,
+                                                      peaks_parameters)
+    from hichap_master_tpu_torch.pipeline.matrix import \
+        haplotype_matrix_construction
+
+    genome, classes = diploid
+    res = DIPLOID_LOCAL[0]
+    out = haplotype_matrix_construction(
+        {"R1_": classes}, genome, [], [res], **DIPLOID_VOTE,
+        device=dev)["R1_"]
+    local, gaps = cooler_local(out, genome.haplotype(), res)
+    params = peaks_parameters(res)
+    pr = _pcaller_prep(*local["M1"][:4], local["M1"][4], res, params,
+                       allelic=True, gap=gaps["M1"])
+    check((pr["pw"], pr["ww"], pr["maxww"], pr["num"]) == (1, 3, 20, 71),
+          "K3 allelic shape: not pw 1, ww 3, maxww 20, B 71")
+    prefix, call, (E, Xp) = _k3_measure(pr, dev, "M1 40 kb allelic")
+    shape = dict(allelic_shape=[1, E, Xp], allelic_pixels=pr["npix"])
+    for key, got in (("escalation_prefix", prefix), ("escalation", call)):
+        results[key].update(shape, **{f"allelic_{k}": v
+                                      for k, v in got.items()})
+    del out
 
 
 # ------------------------------------------------------------------ K4/K5
@@ -586,11 +648,12 @@ def viterbi_edge_cases(dev):
 
 
 # -------------------------------------------------------------- K6/K7
-def diploid_inputs(dev, lengths=None, names=None, counts=None):
+def diploid_inputs(dev, lengths=None, names=None, counts=None, loops=None):
     """The diploid build's input: allelic pair classes drawn on the card
     (GM12878-like mix of ``scripts/perf_e2e_hap.py``, 26.6 M pairs on the
     23 hg19 chromosomes, seed 7, 10% of the intra pairs at a uniform
-    distance) and the base genome."""
+    distance) and the base genome; ``loops`` (``planted_loops`` rows)
+    plants those loops and domains (``allelic_pairs``)."""
     from hichap_master_tpu_torch.core import Genome
     from hichap_master_tpu_torch.testing.synthetic import (GM12878_MIX, HG19,
                                                            HG19_NAMES,
@@ -601,7 +664,7 @@ def diploid_inputs(dev, lengths=None, names=None, counts=None):
     genome = Genome(dict(zip(names, lengths)))
     assert genome.labels == list(names)
     classes = allelic_pairs(lengths, counts or GM12878_MIX, seed=7,
-                            device=dev, cis_floor=CIS_FLOOR)
+                            device=dev, cis_floor=CIS_FLOOR, loops=loops)
     return genome, classes
 
 
@@ -1161,22 +1224,22 @@ def tad_call(tads, dev):
     return out, stats["model"]
 
 
-def chr1_plain_viterbi(called, model, dev):
+def chr1_plain_viterbi(called, model, dev, label="1"):
     from hichap_master_tpu_torch.kernels.hmm_scan import viterbi_plain
     from hichap_master_tpu_torch.models.tads import (boundaries_to_domains,
                                                      boundary_call,
                                                      boundary_filter)
     from hichap_master_tpu_torch.ops.hmm import viterbi
 
-    r = called["1"]
+    r = called[label]
     segs = r["segments"]
     keys = sorted(segs)
     plain = viterbi(model, [segs[k] for k in keys], device=dev,
                     decode=viterbi_plain)
     kernel = viterbi(model, [segs[k] for k in keys], device=dev)
     for (pp, _), (pk, _) in zip(plain, kernel):
-        check(np.array_equal(pp, pk), "chr1 Viterbi path differs between "
-              "kernel and plain")
+        check(np.array_equal(pp, pk), f"chr{label} Viterbi path differs "
+              "between kernel and plain")
     bd = boundary_call(dict(zip(keys, plain)), len(r["di"]), 3, 40_000)
     filtered = boundary_filter(bd, r["gap"], 40_000)
     ds, de = boundaries_to_domains(bd, segs, r["di"], 40_000, 200_000,
@@ -1185,8 +1248,9 @@ def chr1_plain_viterbi(called, model, dev):
           and np.array_equal(filtered, r["filtered"])
           and np.array_equal(ds, r["domains"][0])
           and np.array_equal(de, r["domains"][1]),
-          "chr1 boundaries or domains differ through the plain Viterbi")
-    log(f"chr1 through the plain Viterbi: the same paths, "
+          f"chr{label} boundaries or domains differ through the plain "
+          "Viterbi")
+    log(f"chr{label} through the plain Viterbi: the same paths, "
         f"{len(bd['boundary'])} boundaries and {len(ds)} domains")
 
 
@@ -1364,6 +1428,279 @@ def hybrid_plain(stage, dev):
         f"diff {err:.2e} (tol 1e-4)")
 
 
+# ------------------------------------------------------- allelic phase
+def _triu_coo(M):
+    """Upper-triangle nonzero COO of a dense [n, n] tensor, on the host:
+    the pixel table a cooler holds (values in float64)."""
+    r, c = torch.triu(M).nonzero(as_tuple=True)
+    return (r.cpu().numpy(), c.cpu().numpy(),
+            M[r, c].double().cpu().numpy())
+
+
+def cooler_intra(M, genome, res):
+    """{label: (rows, cols, vals, n)}: each chromosome's intra block of a
+    dense genome-wide matrix, cut to its cooler bins."""
+    offs = genome.bin_offsets(res)
+    out = {}
+    for c in genome.labels:
+        s, n = offs[c][0], genome.cooler_n_bins(c, res)
+        out[c] = (*_triu_coo(M[s:s + n, s:s + n]), n)
+    return out
+
+
+def cooler_local(r, hap, res):
+    """The corrected local M/P matrices of a matrix-stage result as the
+    analysis reads them from a cooler: {label: (rows, cols, vals, None,
+    n)} in cooler bins, and the gap lists cut to those bins."""
+    local, gaps = {}, {}
+    for c in hap.labels:
+        n = hap.cooler_n_bins(c, res)
+        local[c] = (*_triu_coo(r["imputated"]["local"][res][c][:n, :n]),
+                    None, n)
+        g = np.asarray(r["gaps"][str(res)][c])
+        gaps[c] = g[g < n]
+    return local, gaps
+
+
+def allelic_inputs(dev):
+    """The allelic phase's input: the diploid draw (GM12878_MIX, seed 7)
+    with loops planted on the 23 chromosomes."""
+    from hichap_master_tpu_torch.testing.synthetic import (HG19, LOOP_RES,
+                                                           planted_loops)
+
+    check(LOOP_RES == DIPLOID_LOCAL[0], "planted loops not at 40 kb")
+    planted = planted_loops(HG19)
+    return (*diploid_inputs(dev, loops=planted), planted)
+
+
+def _timed(walls, name, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    walls[name] = time.perf_counter() - t0
+    return out
+
+
+def _pq_values(name, rows, p_col, q_col=None):
+    """(number of numeric p values, the first violation or None): every p
+    (and q) in [0, 1], and q >= p up to BH's rounding (its q of the
+    largest p is p * n / n, which can round one ulp below p)."""
+    n, bad = 0, None
+    for r in rows:
+        p = r[p_col]
+        if p == "NA":
+            continue
+        n += 1
+        ok = 0.0 <= p <= 1.0
+        if q_col is not None:
+            q = r[q_col]
+            ok = ok and 0.0 <= q <= 1.0 and q >= p * (1 - 1e-12)
+        if not ok and bad is None:
+            bad = f"{name}: p {p}" + (f", q {r[q_col]}" if q_col else "")
+    return n, bad
+
+
+def planted_hits(calls, planted, labels, res, kind, prefix):
+    """The planted loops of ``kind`` that a ``prefix`` call lies on (both
+    anchors within one bin)."""
+    got = {}
+    for c, s, e, *_ in calls:
+        got.setdefault(c, []).append((s // res, e // res))
+    hits = total = 0
+    for ci, b1, b2, k in planted:
+        if k != kind:
+            continue
+        total += 1
+        hits += any(abs(x - b1) <= 1 and abs(y - b2) <= 1
+                    for x, y in got.get(labels[ci], []))
+    return hits, total
+
+
+def allelic_phase(allelic, dev):
+    """The diploid stage chained into allelic analysis, through the port's
+    entry points: the matrix stage (whole 500 kb, local 40 kb), the
+    traditional and allelic compartment tracks at 500 kb, allelic TADs and
+    loops at 40 kb on the corrected M/P matrices, then the three allelic
+    specificity tests on their calls; the planted loops checked at the
+    end."""
+    from hichap_master_tpu_torch.models.compartment import call_compartments
+    from hichap_master_tpu_torch.models.loops import call_loops
+    from hichap_master_tpu_torch.models.specificity import (
+        BoundaryAllelicSpecificity, CompartmentAllelicSpecificity,
+        LoopAllelicSpecificity)
+    from hichap_master_tpu_torch.models.tads import call_tads
+    from hichap_master_tpu_torch.pipeline.matrix import \
+        haplotype_matrix_construction
+    from hichap_master_tpu_torch.testing.synthetic import LOOP_PAIRS
+
+    genome, classes, planted = allelic
+    hap = genome.haplotype()
+    res_w, res_l = ALLELIC_WHOLE[0], DIPLOID_LOCAL[0]
+    haps = ("Maternal", "Paternal")
+    walls, steps = {}, {}
+    n_pairs = sum(c[0].numel() for c in classes.values())
+    r = _timed(walls, "matrix stage", lambda: haplotype_matrix_construction(
+        {"GM12878_R1_": classes}, genome, ALLELIC_WHOLE, DIPLOID_LOCAL,
+        **DIPLOID_VOTE, device=dev, walls=steps))["GM12878_R1_"]
+    for res, s in r["tradition"]["ice"].items():
+        check(s["converged"], f"allelic stage: ICE {res} did not converge")
+
+    def cut():
+        local, gaps = cooler_local(r, hap, res_l)
+        return (local, gaps,
+                cooler_intra(r["tradition"]["whole"][res_w], genome, res_w),
+                cooler_intra(r["imputated"]["whole"][res_w], hap, res_w))
+
+    local, gaps, trad500, imp500 = _timed(walls, "cooler cut", cut)
+    mats = {c: r["imputated"]["local"][res_l][c][:v[4], :v[4]]
+            for c, v in local.items()}
+    for c, m in mats.items():
+        check(bool(torch.isfinite(m).all()), f"corrected {c}: not finite")
+
+    def compartments():
+        trad_pc = call_compartments(trad500, res_w, False, dev)
+        tracks = {}
+        for a in haps:
+            tracks.update(call_compartments(imp500, res_w, a, dev,
+                                            traditional_pc=trad_pc))
+        return trad_pc, tracks
+
+    trad_pc, tracks = _timed(walls, "compartments", compartments)
+    for c, t in list(trad_pc.items()) + list(tracks.items()):
+        check(bool(np.isfinite(t).all()), f"compartment track {c}: not "
+              "finite")
+
+    def tads():
+        out, models = {}, {}
+        for a in haps:
+            st = {}
+            out.update(call_tads(local, res_l, a, dev, stats=st))
+            models[a[0]] = (st["model"], st["em_iters"])
+        return out, models
+
+    tad_out, models = _timed(walls, "TADs", tads)
+
+    def loops():
+        calls, cands = {}, {}
+        for a in haps:
+            st = {}
+            calls[a[0]] = call_loops(local, res_l, a, dev, gaps=gaps,
+                                     stats=st)
+            cands.update(st["candidates"])
+        return calls, cands
+
+    calls, cands = _timed(walls, "loops", loops)
+
+    def specificity():
+        pos = sorted({tuple(c[:3]) for h in "MP" for c in calls[h]})
+        lrows = LoopAllelicSpecificity(
+            mats, [(c, s, e, s, e) for c, s, e in pos], res_l, dev).run()
+        brows = []
+        for c in genome.labels:
+            bm = tad_out["M" + c]["boundaries"]["boundary"]
+            bp = tad_out["P" + c]["boundaries"]["boundary"]
+            for b in bm:
+                if len(bp):
+                    j = int(np.abs(bp - b).argmin())
+                    if abs(int(bp[j]) - int(b)) <= 2 * res_l:
+                        brows.append((c, int(b), int(bp[j])))
+        bres = BoundaryAllelicSpecificity(mats, brows, res_l, dev).run()
+        cres = CompartmentAllelicSpecificity(
+            {c[1:]: t for c, t in tracks.items() if c[0] == "M"},
+            {c[1:]: t for c, t in tracks.items() if c[0] == "P"}, res_w,
+            dev).run()
+        return pos, lrows, brows, bres, cres
+
+    pos, lrows, brows, bres, cres = _timed(walls, "specificity",
+                                           specificity)
+    (n_l, bad_l), (n_b, bad_b), (n_c, bad_c) = (
+        _pq_values("loop specificity", lrows, 10),
+        _pq_values("boundary specificity", bres, 6, 7),
+        _pq_values("compartment specificity", cres, 5, 6))
+
+    # the planted loops
+    labels = genome.labels
+    shares = {}
+    for kind, name in ((0, "shared"), (1, "maternal"), (2, "paternal")):
+        for h in "MP":
+            shares[(name, h)] = planted_hits(calls[h], planted, labels,
+                                             res_l, kind, h)
+    kind_of = {}
+    for ci, b1, b2, k in planted:
+        for dx in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                kind_of[(labels[ci], b1 + dx, b2 + dy)] = int(k)
+    pv = {0: [], 1: [], 2: []}
+    for row in lrows:
+        k = kind_of.get((row[0], row[1] // res_l, row[2] // res_l))
+        if k is not None and row[10] != "NA":
+            pv[k].append(float(row[10]))
+    med = {k: (float(np.median(v)) if v else float("nan"))
+           for k, v in pv.items()}
+    n_loops = {h: len(calls[h]) for h in "MP"}
+    log(f"allelic: diploid matrix construction, {n_pairs} allelic pairs "
+        f"({len(planted)} planted loops of {LOOP_PAIRS} pairs), whole "
+        f"{res_w // 1000} kb, local {res_l // 1000} kb: "
+        f"{walls['matrix stage']:.3f} s (" + ", ".join(
+            f"{k} {v:.3f}" for k, v in steps.items()) + ")")
+    log(f"allelic:   cooler cut (46 local M/P matrices and the 500 kb intra "
+        f"blocks to host COO): {walls['cooler cut']:.3f} s")
+    log(f"allelic:   compartments 500 kb, {len(trad_pc)} traditional + "
+        f"{len(tracks)} haplotype tracks, all finite: "
+        f"{walls['compartments']:.3f} s")
+    nb = {h: sum(len(t["boundaries"]["boundary"]) for c, t in
+                 tad_out.items() if c[0] == h) for h in "MP"}
+    log(f"allelic:   TADs 40 kb, {len(tad_out)} haplotype chromosomes, EM "
+        f"{models['M'][1]} (M) and {models['P'][1]} (P) iterations, "
+        f"{nb['M']} (M) and {nb['P']} (P) boundaries, "
+        f"{sum(len(t['domains'][0]) for t in tad_out.values())} domains: "
+        f"{walls['TADs']:.3f} s")
+    log(f"allelic:   loops 40 kb, {len(cands)} haplotype chromosomes, "
+        f"{sum(len(d) for d, _ in cands.values())} candidates, "
+        f"{n_loops['M']} (M) and {n_loops['P']} (P) Cluster_ calls: "
+        f"{walls['loops']:.3f} s")
+    log(f"allelic:   specificity: {len(pos)} loops ({n_l} with a p value), "
+        f"{len(brows)} boundary pairs ({n_b} tested), {n_c} discordant "
+        f"500 kb bins; every p and q in [0, 1], q >= p: "
+        f"{walls['specificity']:.3f} s")
+    log("allelic:   planted loops called (within one bin): " + ", ".join(
+        f"{name} in {h} {a} of {b}" for (name, h), (a, b) in shares.items())
+        + f"; loop-test median p: shared {med[0]:.3g} ({len(pv[0])}), "
+        f"maternal-only {med[1]:.3g} ({len(pv[1])}), paternal-only "
+        f"{med[2]:.3g} ({len(pv[2])})")
+    for bad in (bad_l, bad_b, bad_c):
+        check(bad is None, f"{bad} outside [0, 1] or q < p")
+    check(n_l > 0 and n_b > 0 and n_c > 0, "specificity: a test gave no p")
+    hit, tot = shares[("maternal", "M")]
+    check(tot > 0 and hit / tot >= MATERNAL_CALLED_MIN,
+          f"maternal-only loops called in M: {hit} of {tot}, below "
+          f"{MATERNAL_CALLED_MIN:.0%}")
+    check(bool(pv[0]) and bool(pv[1]) and med[1] < med[0],
+          f"loop test: maternal-only median p {med[1]:.3g} ({len(pv[1])} "
+          f"loops) not below the shared loops' {med[0]:.3g} ({len(pv[0])})")
+    return dict(local=local, gaps=gaps, cands=cands, tads=tad_out,
+                model=models["M"][0])
+
+
+def m1_plain_ladder(al, dev):
+    """M1's allelic loop call again through the plain ladder."""
+    from hichap_master_tpu_torch.kernels.escalation import escalation_plain
+    from hichap_master_tpu_torch.models.loops import (_call_group,
+                                                      _pcaller_prep,
+                                                      peaks_parameters)
+
+    res = DIPLOID_LOCAL[0]
+    v = al["local"]["M1"]
+    pr = _pcaller_prep(*v[:4], v[4], res, peaks_parameters(res),
+                       allelic=True, gap=al["gaps"]["M1"])
+    plain = _call_group([pr], ["M1"], res, dev, escalation_plain, {})["M1"]
+    check(set(plain[0]) == set(al["cands"]["M1"][0]),
+          "M1 loop set differs between kernel and plain ladder")
+    log(f"M1 (allelic, 40 kb) through the plain ladder: the same "
+        f"{len(plain[0])} loops")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device visible")
@@ -1402,6 +1739,8 @@ def main() -> None:
     hmm_compare(tads, dev, results)
     diploid = diploid_inputs(dev)
     k67_compare(diploid, dev, results)
+    torch.cuda.empty_cache()
+    k3_allelic_compare(diploid, dev, results)
     torch.cuda.empty_cache()
 
     counters = {"ice_sweep": ice_sweeps, "sparse_marginal": block_sym_matvec,
@@ -1447,10 +1786,24 @@ def main() -> None:
     chr1_plain_ladder(loops, dev, called)
     chr1_plain_viterbi(tad_called, model, dev)
     hybrid_plain(stage, dev)
+    del stage, loops, tads, called, tad_called
+    torch.cuda.empty_cache()
+    # the allelic analysis: allelic pairs with planted loops in, compartment
+    # tracks, TADs, loops and the specificity tests out
+    allelic = allelic_inputs(dev)
+    reset()
+    al = allelic_phase(allelic, dev)
+    allelic_l = read("allelic", ("ice_sweep", "escalation_prefix",
+                                 "escalation", "hmm_forward_backward",
+                                 "hmm_viterbi"))
+    del allelic
+    m1_plain_ladder(al, dev)
+    chr1_plain_viterbi(al["tads"], al["model"], dev, label="M1")
 
-    kernels = [dict(name=k, launches=analysis[k] + diploid_l[k],
-                    launches_by_path={"analysis": analysis[k],
-                                      "diploid": diploid_l[k]},
+    paths = {"analysis": analysis, "diploid": diploid_l,
+             "allelic": allelic_l}
+    kernels = [dict(name=k, launches=sum(p[k] for p in paths.values()),
+                    launches_by_path={n: p[k] for n, p in paths.items()},
                     **results[k]) for k in counters]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

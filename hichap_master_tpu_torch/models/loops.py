@@ -9,25 +9,36 @@ gap-neighborhood removal, and the intersection of the two flavors.
 Chromosomes whose padded shapes coincide run as one batch.
 
 Host preparation is numpy (float64 like the reference); the band maps, the
-ladder and, on a CUDA device, the post-filter run on tensors.  Allelic
-calling (the allelic pixel prefilter) is not ported yet.
+ladder and, on a CUDA device, the post-filter run on tensors.  Allelic mode
+(corrected haplotype matrices, biases 1) drops candidate pixels with the
+gap and zero-neighbour prefilter (``_allelic_prefilter``) before the
+ladder.
+
+The post-stages (``loop_selecting``, ``loop_cluster``) are host numpy and
+``scipy.sparse`` as in the reference, on the COO in memory; ``call_loops``
+chains calling and post-stages and, given a path, writes the reference's
+``<prefix>_Loops_<unit>.txt``, ``Selected_...`` and ``Cluster_...`` files.
 """
 
 from __future__ import annotations
 
+import bisect
+import math
 import os
-from typing import List, Optional
+from typing import Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 
 from ..core import pad_to_bucket
 from ..kernels.escalation import escalation_batch
-from ..ops.loops_packed import (derive_pixels_batch, pack_margins,
+from ..ops.loops_packed import (derive_pixels_batch,
+                                derive_pixels_masked_batch, pack_margins,
                                 pack_raw_bal_batch)
 from ..ops.stats import isotonic_fit, poisson_bh_chunked
 from ..ops.stats_torch import (loop_post_compact_batch,
                                poisson_bh_chunked as poisson_bh_device)
+from .compartment import _proper_unit
 
 _DEVICE_BH_MIN = 262_144   # pixel count above which BH runs on the card
 _XP_BUCKET = 512           # packed-map width padding (shared batch shapes)
@@ -58,10 +69,50 @@ def _pack_expected_batch(pE: torch.Tensor, ns: torch.Tensor, B: int, Xp: int,
     return torch.where(ok, vals, torch.zeros((), device=dev))
 
 
+def _allelic_prefilter(xi, yi, N: int, gap: Optional[np.ndarray],
+                       rows, cols, vals) -> np.ndarray:
+    """Keep mask of the allelic candidate pixels (xi, yi): a pixel goes when
+    both of its bins are gaps, or when one of its four neighbours is zero or
+    absent in the symmetric contact map.  The reference reads its left
+    neighbour twice and wraps negative indices (DIVERGENCES D4): here the
+    right neighbour is ``(x + 1, y)`` and an out-of-range neighbour counts
+    as nonzero.  Neighbours are found by one search of the sorted COO
+    keys."""
+    gap_mask = np.zeros(N, bool)
+    if gap is not None and len(gap):
+        gap_mask[np.asarray(gap, int)] = True
+    both_gap = gap_mask[xi] & gap_mask[yi]
+
+    r64 = rows.astype(np.int64)
+    c64 = cols.astype(np.int64)
+    keys = np.concatenate([r64 * N + c64, c64 * N + r64])
+    kv = np.concatenate([vals, vals]).astype(np.float64)
+    order = np.argsort(keys, kind="stable")
+    skeys, svals = keys[order], kv[order]
+
+    def _nonzero_at(qx, qy, in_range):
+        q = qx.astype(np.int64) * N + qy.astype(np.int64)
+        pos = np.searchsorted(skeys, q)
+        posc = np.clip(pos, 0, max(skeys.size - 1, 0))
+        present = (skeys.size > 0) & (skeys[posc] == q)
+        hit = present & (svals[posc] != 0)
+        return np.where(in_range, hit, True)
+
+    ok = _nonzero_at(xi - 1, yi, xi - 1 >= 0)
+    ok &= _nonzero_at(xi + 1, yi, xi + 1 < N)
+    ok &= _nonzero_at(xi, yi + 1, yi + 1 < N)
+    ok &= _nonzero_at(xi, yi - 1, yi - 1 >= 0)
+    return ~both_gap & ok
+
+
 def _pcaller_prep(rows, cols, vals, weights, n: int, res: int,
-                  params) -> dict:
+                  params, allelic: bool = False,
+                  gap: Optional[np.ndarray] = None) -> dict:
     """Host preparation of one chromosome: biases, expected curve, band COO
-    padded to a power of two, candidate-pixel count, gap bins, shapes."""
+    padded to a power of two, candidate-pixel count, gap bins, shapes.  In
+    allelic mode the candidate pixels are cut by ``_allelic_prefilter``
+    (``gap``: the chromosome's gap bins) and ``band_keep`` marks the kept
+    ones in band order."""
     pw, ww = params["pw"], params["ww"]
     maxww, maxapart, sig = params["maxww"], params["maxapart"], params["sig"]
     num = maxapart // res + maxww + 1
@@ -108,19 +159,35 @@ def _pcaller_prep(rows, cols, vals, weights, n: int, res: int,
     rs = np.bincount(rows[inband], weights=vals[inband], minlength=n)
     gaps = set(np.flatnonzero(rs == 0).tolist())
 
-    npix = int(sel.sum())
     e_lo, _e_hi, x_pad = pack_margins(maxww)
-    return dict(n=n, N=n, num=num, ww=ww, pw=pw, maxww=maxww, sig=sig,
-                predictE=predictE, br=br, bd=bd, bv=bv, cap=cap, w32=w32,
-                dmax=maxapart // res, biases=biases, gaps=gaps, npix=npix,
-                P2=1 << max(npix - 1, 1).bit_length(), e_lo=e_lo,
-                x_pad=x_pad, Xp=pad_to_bucket(n + 2 * x_pad, _XP_BUCKET),
-                _raw=(rows, cols, vals, d_all, sel))
+    pr = dict(n=n, N=n, num=num, ww=ww, pw=pw, maxww=maxww, sig=sig,
+              predictE=predictE, br=br, bd=bd, bv=bv, cap=cap, w32=w32,
+              dmax=maxapart // res, biases=biases, gaps=gaps,
+              band_keep=None, e_lo=e_lo, x_pad=x_pad,
+              Xp=pad_to_bucket(n + 2 * x_pad, _XP_BUCKET),
+              _raw=(rows, cols, vals, d_all, sel))
+    if allelic:
+        _ensure_host_pixels(pr)  # the prefilter reads the pixel arrays
+        keep = _allelic_prefilter(pr["xi"], pr["yi"], n, gap, rows, cols,
+                                  vals)
+        for k in ("xi", "yi", "o_val", "em_val"):
+            pr[k] = pr[k][keep]
+        # sel's entries in band order are sel's entries in COO order
+        band_keep = np.zeros(cap, bool)
+        band_keep[np.flatnonzero((bd[:bn] >= ww)
+                                 & (bd[:bn] <= maxapart // res))[keep]] = True
+        pr["band_keep"] = band_keep
+        npix = int(keep.sum())
+    else:
+        npix = int(sel.sum())
+    pr.update(npix=npix, P2=1 << max(npix - 1, 1).bit_length())
+    return pr
 
 
 def _ensure_host_pixels(pr: dict) -> None:
     """Candidate-pixel arrays for the host post, built on demand (the
-    device post derives pixels from the band COO on the device)."""
+    device post derives pixels from the band COO on the device).  Allelic
+    preps hold them from the start, cut by the prefilter."""
     if "xi" in pr:
         return
     rows, cols, vals, d_all, sel = pr["_raw"]
@@ -157,8 +224,12 @@ def _packed_inputs_batch(prs: List[dict], device):
                                       x_pad=pr0["x_pad"], ww=pr0["ww"])
     D_exp = _pack_expected_batch(pE, ns, pr0["num"], pr0["Xp"], pr0["e_lo"],
                                  pr0["x_pad"], pr0["ww"])
-    ep, xp, vp = derive_pixels_batch(rows, ds, npix, ww=pr0["ww"],
-                                     dmax=pr0["dmax"], P2=pr0["P2"])
+    kw = dict(ww=pr0["ww"], dmax=pr0["dmax"], P2=pr0["P2"])
+    if pr0["band_keep"] is not None:
+        keep = up(np.stack([pr["band_keep"] for pr in prs]))
+        ep, xp, vp = derive_pixels_masked_batch(rows, ds, keep, npix, **kw)
+    else:
+        ep, xp, vp = derive_pixels_batch(rows, ds, npix, **kw)
     return D_raw, D_bal, D_exp, ep, xp, vp
 
 
@@ -339,13 +410,17 @@ def _call_group(prs: List[dict], chros, res: int, device, escalate,
     return results
 
 
-def pcaller_multi(inputs: dict, res: int, params, allelic: bool = False, *,
-                  device, stats: Optional[dict] = None) -> dict:
+def pcaller_multi(inputs: dict, res: int, params, allelic: bool = False,
+                  gaps: Optional[Mapping] = None, *, device,
+                  stats: Optional[dict] = None) -> dict:
     """HICCUPS calling for many chromosomes, one escalation launch per
     size group.
 
     inputs : {chrom: (rows, cols, vals, weights_or_None, n)} with
-             upper-triangle intra COO in local bins
+             upper-triangle intra COO in local bins; allelic inputs carry
+             None (corrected matrices, biases 1)
+    allelic : apply the allelic pixel prefilter (``_allelic_prefilter``)
+    gaps   : {chrom: gap bin indices} for the prefilter (allelic mode)
     device : where the band maps and the ladder live
     stats  : optional dict; receives ``overflow_fallbacks``, the number of
              chromosomes whose device post overflowed its compaction
@@ -353,15 +428,14 @@ def pcaller_multi(inputs: dict, res: int, params, allelic: bool = False, *,
     Returns {chrom: (donuts, lowerleft)}, each {(x_bp, y_bp): (o, fold, p,
     q)}.
     """
-    if allelic:
-        raise NotImplementedError("allelic loop calling (the allelic pixel "
-                                  "prefilter) is not ported yet")
     device = torch.device(device)
+    gaps = gaps or {}
     stats = {} if stats is None else stats
     stats.setdefault("overflow_fallbacks", 0)
     preps, groups = {}, {}
     for chro, (rows, cols, vals, wt, n) in inputs.items():
-        pr = _pcaller_prep(rows, cols, vals, wt, n, res, params)
+        pr = _pcaller_prep(rows, cols, vals, wt, n, res, params,
+                           allelic=allelic, gap=gaps.get(chro))
         preps[chro] = pr
         groups.setdefault((pr["Xp"], pr["cap"], pr["P2"]), []).append(chro)
 
@@ -373,8 +447,241 @@ def pcaller_multi(inputs: dict, res: int, params, allelic: bool = False, *,
 
 
 def pcaller_chrom_coo(rows, cols, vals, weights, n: int, res: int, params,
-                       allelic: bool = False, *, device):
+                       allelic: bool = False,
+                       gap: Optional[np.ndarray] = None, *, device):
     """HICCUPS backgrounds + Poisson/BH for one chromosome from COO pixels
     (``pcaller_multi`` on a single chromosome)."""
     return pcaller_multi({0: (rows, cols, vals, weights, n)}, res, params,
-                         allelic=allelic, device=device)[0]
+                         allelic=allelic, gaps={0: gap}, device=device)[0]
+
+
+# ------------------------------------------------------------ post-stages
+LOOP_HEADER = "\t".join(["chromLabel", "loc_1", "loc_2", "IF", "D-Enrichment",
+                         "D-pvalue", "D-qvalue", "LL-Enrichment", "LL-pvalue",
+                         "LL-qvalue"]) + "\n"
+CLUSTER_HEADER = "chr\tstart\tend\tIF\tweight_Q-value\taggregateNum\n"
+
+
+def _sym_csr(rows, cols, vals, n: int):
+    """Symmetric CSR from upper-triangle COO: the post-stages only read
+    points, diagonals and small windows."""
+    from scipy.sparse import coo_matrix
+
+    off = rows != cols
+    dr = np.concatenate([rows, cols[off]])
+    dc = np.concatenate([cols, rows[off]])
+    dv = np.concatenate([vals, vals[off]])
+    return coo_matrix((dv, (dr, dc)), shape=(n, n)).tocsr()
+
+
+def loop_lines(results: Mapping, allelic) -> List[str]:
+    """The lines of ``<prefix>_Loops_<unit>.txt`` after its header, in the
+    reference's order and format (4 significant digits); labels lose the
+    haplotype prefix in allelic mode."""
+    lines = []
+    for chro, (donuts, ll) in results.items():
+        label = str(chro)[1:] if allelic else chro
+        for pos in donuts:
+            row = (label,) + pos + donuts[pos] + ll[pos][1:]
+            lines.append("%s\t%d\t%d\t%.4g\t%.4g\t%.4g\t%.4g\t%.4g\t%.4g"
+                         "\t%.4g\n" % row)
+    return lines
+
+
+def loop_selecting(matrices: Mapping, res: int, lines: List[str],
+                   loop_ratio: float = 0.6, loop_strength: float = 16,
+                   strict_parity: bool = False) -> List[str]:
+    """Distance-quantile and strength filter of candidate lines (the
+    reference's ``Loop_Selecting``).  The resolution is a parameter where
+    the reference hardcodes 40 kb (DIVERGENCES D5); ``strict_parity=True``
+    restores ``// 40000``."""
+    if strict_parity:
+        res = 40_000
+    sorted_diag = {}  # (chrom, distance) -> sorted diagonal, shared by lines
+    out = []
+    for line in lines:
+        l = line.split()
+        chro = l[0]
+        b1 = int(l[1]) // res
+        b2 = int(l[2]) // res
+        M = matrices[chro]
+        IF = float(M[b1, b2])
+        key = (chro, b2 - b1)
+        if key not in sorted_diag:
+            sorted_diag[key] = np.sort(np.asarray(M.diagonal(b2 - b1)))
+        dist = sorted_diag[key]
+        ratio = bisect.bisect_left(dist, IF) / len(dist)
+        if ratio < loop_ratio or IF < loop_strength:
+            continue
+        out.append(line)
+    return out
+
+
+def _cluster_pass(loops: List[tuple], dis: float) -> List[List[tuple]]:
+    """Greedy centroid clustering, one ordered scan per cluster without the
+    reference's skip after a removal (DIVERGENCES D6)."""
+    classes = []
+    remaining = sorted(loops, key=lambda t: t[1])
+    while remaining:
+        cls = [remaining.pop(0)]
+        cx = float(np.mean([m[1] for m in cls]))
+        cy = float(np.mean([m[2] for m in cls]))
+        kept = []
+        for lp in remaining:
+            if math.sqrt((cx - lp[1]) ** 2 + (cy - lp[2]) ** 2) <= dis:
+                cls.append(lp)
+                cx = float(np.mean([m[1] for m in cls]))
+                cy = float(np.mean([m[2] for m in cls]))
+            else:
+                kept.append(lp)
+        remaining = kept
+        classes.append(cls)
+    return classes
+
+
+def _weighted_q(q, sums) -> float:
+    """q / 10**sums in float64 (inf -> 0 for large clusters, no
+    OverflowError)."""
+    with np.errstate(over="ignore"):
+        return float(np.float64(q) / np.float64(10.0) ** np.float64(sums))
+
+
+def loop_cluster(matrices: Mapping, res: int, lines: List[str], allelic,
+                 weight_q_value: float = 1e-4) -> List[tuple]:
+    """Iterative centroid clustering and weighted-q selection of candidate
+    lines (the reference's ``LoopCluster``).  Returns the ``Cluster_``
+    rows ``(chrom, start, end, IF, weighted q, aggregate count)``; in
+    allelic mode only those at or above their chromosome's 15th percentile
+    of ``IF * -log10(weighted q)``."""
+    rows = []
+    for line in lines:
+        l = line.split()
+        rows.append((l[0], int(l[1]), int(l[2]), float(l[9])))
+    init_dis = res * math.sqrt(2) + 1000
+    by_chrom: Dict[str, List[tuple]] = {}
+    for r in rows:
+        by_chrom.setdefault(r[0], []).append(r)
+
+    # pass 1: representative = min-q member, count absorbed
+    level1 = []
+    for lps in by_chrom.values():
+        for cls in _cluster_pass(lps, init_dis):
+            best = min(cls, key=lambda t: t[3])
+            level1.append((best[0], best[1], best[2], best[3],
+                           float(len(cls))))
+    while True:
+        nxt = []
+        by_chrom2: Dict[str, List[tuple]] = {}
+        for r in level1:
+            by_chrom2.setdefault(r[0], []).append(r)
+        for lps in by_chrom2.values():
+            for cls in _cluster_pass(lps, init_dis * 2):
+                best = min(cls, key=lambda t: t[3])
+                sums = sum(t[4] for t in cls)
+                nxt.append((best[0], best[1], best[2], best[3], sums))
+        done = len(nxt) == len(level1)
+        level1 = nxt
+        if done:
+            break
+
+    out = []
+    if not allelic:
+        for chro, s1, e1, q, sums in level1:
+            wq = _weighted_q(q, sums)
+            if wq < weight_q_value:
+                IF = float(matrices[chro][s1 // res, e1 // res])
+                out.append((chro, s1, e1, IF, wq, sums))
+        return out
+    pre = allelic[0]
+    weighted = []
+    for chro, s1, e1, q, sums in level1:
+        wq = _weighted_q(q, sums)
+        if wq < weight_q_value:
+            # only exact zeros become 1e-20 (the reference's underflow floor)
+            IF = float(matrices[pre + chro][s1 // res, e1 // res])
+            weighted.append((chro, s1, e1, IF, wq if wq > 0 else 1e-20,
+                             sums))
+    if weighted:
+        arr = np.array([w[3] * -np.log10(w[4]) for w in weighted])
+        labels = np.array([w[0] for w in weighted])
+        thr = {c: np.percentile(arr[labels == c], 15) for c in set(labels)}
+        out = [w for w, v in zip(weighted, arr) if v >= thr[w[0]]]
+    return out
+
+
+def cluster_lines(calls: List[tuple]) -> List[str]:
+    """The lines of a ``Cluster_`` file after its header."""
+    return ["\t".join(map(str, c)) + "\n" for c in calls]
+
+
+def call_loops(inputs: Mapping, res: int, allelic, device,
+               gaps: Optional[Mapping] = None,
+               out_path: Optional[str] = None, loop_ratio: float = 0.6,
+               loop_strength: float = 16,
+               stats: Optional[dict] = None) -> List[tuple]:
+    """Loop calling on every chromosome of ``inputs``, then the reference's
+    post-stages (the in-memory ``run_loops``).
+
+    inputs : {chrom: (rows, cols, vals, weights_or_None, n)}, upper-triangle
+             intra COO in local bins; in allelic mode the weights are not
+             read (corrected matrices, biases 1)
+    allelic : False / None, or 'Maternal' / 'Paternal' (the chromosomes
+             whose names start with M or P)
+    gaps   : {chrom: gap bin indices}, needed in allelic mode (the
+             ``Imputated_Gap`` lists of the matrix stage)
+    out_path : when given, writes ``<prefix>_Loops_<unit>.txt``,
+             ``Selected_<prefix>_Loops_<unit>.txt`` (traditional only) and
+             the ``Cluster_`` file there, as ``run_loops`` does
+    stats  : optional dict; receives ``overflow_fallbacks`` and
+             ``candidates`` (the ``pcaller_multi`` result)
+    Returns the ``Cluster_`` rows (see ``loop_cluster``).
+    """
+    if allelic is False or allelic is None:
+        chroms = list(inputs)
+    elif allelic in ("Maternal", "Paternal"):
+        chroms = [c for c in inputs if str(c).startswith(allelic[0])]
+        if gaps is None:
+            raise ValueError("gaps needed for haplotype loop calling")
+    else:
+        raise ValueError(f"Unknown allelic key {allelic!r}")
+    stats = {} if stats is None else stats
+    matrices, sel = {}, {}
+    for c in chroms:
+        rows, cols, vals, wt, n = inputs[c]
+        matrices[c] = _sym_csr(rows, cols, vals, n)
+        sel[c] = (rows, cols, vals, None if allelic else wt, n)
+    found = pcaller_multi(sel, res, peaks_parameters(res),
+                          allelic=bool(allelic), gaps=gaps, device=device,
+                          stats=stats)
+    found = {c: found[c] for c in chroms}
+    stats["candidates"] = found
+    lines = loop_lines(found, allelic)
+    selected = None
+    if not allelic:
+        selected = loop_selecting(matrices, res, lines, loop_ratio,
+                                  loop_strength)
+    calls = loop_cluster(matrices, res, lines if allelic else selected,
+                         allelic)
+    if out_path is not None:
+        write_loop_files(out_path, res, lines, selected, calls)
+    return calls
+
+
+def write_loop_files(out_path: str, res: int, lines: List[str],
+                     selected: Optional[List[str]], calls: List[tuple]):
+    """``<prefix>_Loops_<unit>.txt``, ``Selected_...`` (when ``selected``
+    is given) and ``Cluster_`` + the name of the file clustered, in
+    ``out_path``.  Returns the ``Cluster_`` path."""
+    os.makedirs(out_path, exist_ok=True)
+    prefix = os.path.basename(out_path.rstrip("/"))
+    name = f"{prefix}_Loops_{_proper_unit(res)}.txt"
+    files = [(name, LOOP_HEADER, lines)]
+    if selected is not None:
+        name = "Selected_" + name
+        files.append((name, LOOP_HEADER, selected))
+    files.append(("Cluster_" + name, CLUSTER_HEADER, cluster_lines(calls)))
+    for fname, head, body in files:
+        with open(os.path.join(out_path, fname), "w") as f:
+            f.write(head)
+            f.writelines(body)
+    return os.path.join(out_path, files[-1][0])

@@ -95,12 +95,15 @@ def pack_raw_bal(row, d, bv, w, **kw):
     return D_raw[0], D_bal[0]
 
 
-def derive_pixels_batch(row, d, npix, *, ww: int, dmax: int, P2: int):
-    """Candidate pixels (epad, xpad, vpad) ``[C, P2]`` derived from the band
-    COO: entries with d in [ww, dmax] in COO order, padded to P2."""
+def _derive_pixels_core(row, d, keep, npix, *, ww: int, dmax: int,
+                        P2: int):
+    """One body for the masked and unmasked derivations: entries with d in
+    [ww, dmax] (and ``keep``, when given) in COO order, padded to P2."""
     cap = row.shape[-1]
     e = d.to(torch.int32)
     sel = (e >= ww) & (e <= dmax)
+    if keep is not None:
+        sel = sel & keep.to(torch.bool)
     ar = torch.arange(cap, dtype=torch.int32, device=row.device)
     idx = torch.sort(torch.where(sel, ar, cap), dim=-1).values[:, :P2]
     safe = torch.clamp(idx, 0, cap - 1).long()
@@ -112,9 +115,29 @@ def derive_pixels_batch(row, d, npix, *, ww: int, dmax: int, P2: int):
     return ep, xp, vp
 
 
+def derive_pixels_batch(row, d, npix, *, ww: int, dmax: int, P2: int):
+    """Candidate pixels (epad, xpad, vpad) ``[C, P2]`` derived from the band
+    COO: entries with d in [ww, dmax] in COO order, padded to P2."""
+    return _derive_pixels_core(row, d, None, npix, ww=ww, dmax=dmax, P2=P2)
+
+
 def derive_pixels(row, d, npix, **kw):
     ep, xp, vp = derive_pixels_batch(row[None], d[None],
                                      torch.as_tensor(npix).reshape(1), **kw)
+    return ep[0], xp[0], vp[0]
+
+
+def derive_pixels_masked_batch(row, d, keep, npix, *, ww: int, dmax: int,
+                               P2: int):
+    """``derive_pixels_batch`` with a keep mask ``[C, cap]`` over the band
+    order (the allelic prefilter, ``models.loops._allelic_prefilter``)."""
+    return _derive_pixels_core(row, d, keep, npix, ww=ww, dmax=dmax, P2=P2)
+
+
+def derive_pixels_masked(row, d, keep, npix, **kw):
+    ep, xp, vp = derive_pixels_masked_batch(
+        row[None], d[None], keep[None], torch.as_tensor(npix).reshape(1),
+        **kw)
     return ep[0], xp[0], vp[0]
 
 

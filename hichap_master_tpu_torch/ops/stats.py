@@ -1,4 +1,5 @@
-"""Host statistics in float64: BH-FDR, Poisson tails, isotonic regression.
+"""Host statistics in float64: BH-FDR, Poisson tails, isotonic regression,
+the paired t-test and the normal tail.
 
 Numpy copy of ``hichap_master_tpu/ops/stats.py`` (the loop caller's host
 path), kept here because importing the JAX package's ``ops`` pulls in jax.
@@ -151,3 +152,18 @@ def isotonic_fit(x: np.ndarray, y: np.ndarray,
         w = counts.astype(float)
     fit = _pava(ys, w) if inc else -_pava(-ys, w)
     return IsotonicFit(xs, fit)
+
+
+def ttest_rel(a: np.ndarray, b: np.ndarray):
+    """Two-sided paired t-test (``scipy.stats.ttest_rel``): the t tail
+    needs an incomplete beta function, which torch lacks."""
+    from scipy import stats as _st
+
+    return _st.ttest_rel(a, b)
+
+
+def norm_sf(x):
+    """Standard normal upper tail (``scipy.stats.norm.sf``)."""
+    from scipy import stats as _st
+
+    return _st.norm.sf(x)

@@ -137,8 +137,61 @@ GM12878_MIX = {"Bi_Allelic": 20_000_000, "M_M": 3_000_000,
                "P_P": 3_000_000, "M_P": 300_000, "P_M": 300_000}
 
 
+# planted structure of the allelic phase (``allelic_pairs(loops=...)``):
+# loops one each LOOP_SPACING bp, anchors LOOP_SPAN bins of LOOP_RES apart
+# (HICCUPS on 40 kb allelic matrices resolves little farther out), with
+# LOOP_PAIRS pairs each, and DOMAIN_SHARE of the intra pairs inside
+# DOMAIN-bp domains
+LOOP_RES = 40_000
+LOOP_SPACING = 2_500_000
+LOOP_SPAN = (5, 8)
+LOOP_PAIRS = 480
+DOMAIN = 1_000_000
+DOMAIN_SHARE = 0.3
+
+
+def planted_loops(lengths, seed: int = 0) -> np.ndarray:
+    """Loop anchors for ``allelic_pairs(loops=...)``: on every chromosome
+    one loop each LOOP_SPACING bp from LOOP_SPACING on (none within
+    LOOP_SPACING of either end), its second anchor LOOP_SPAN bins of
+    LOOP_RES after the first, its kind cycling through shared (0),
+    maternal only (1) and paternal only (2).  Returns ``[K, 4]`` int64 rows
+    (chromosome index, anchor bin, anchor bin, kind)."""
+    rng = np.random.default_rng(seed)
+    step = LOOP_SPACING // LOOP_RES
+    rows = []
+    for ci, length in enumerate(lengths):
+        for b in range(step, length // LOOP_RES - step, step):
+            d = int(rng.integers(LOOP_SPAN[0], LOOP_SPAN[1] + 1))
+            rows.append((ci, b, b + d, len(rows) % 3))
+    return np.asarray(rows, np.int64).reshape(-1, 4)
+
+
+def _loop_pairs(uniform, loops, sizes, device):
+    """LOOP_PAIRS intra pairs per planted loop: each mate in its anchor
+    bin, or one bin to either side (1/4 each), at a uniform offset inside
+    the bin; shared loops split their pairs evenly over Bi_Allelic, M_M and
+    P_P, maternal ones go to M_M and paternal ones to P_P.  Returns
+    ``{class: (c, p1, p2)}``."""
+    lp = torch.as_tensor(loops, device=device).repeat_interleave(LOOP_PAIRS,
+                                                                 0)
+    n = lp.shape[0]
+
+    def mate(b):
+        jitter = (uniform(n) < 0.5).long() + (uniform(n) < 0.5).long() - 1
+        pos = ((b + jitter).double() + uniform(n)) * LOOP_RES
+        return torch.minimum(pos.long().clamp_min(0), sizes[lp[:, 0]].long()
+                             - 1)
+
+    p1, p2 = mate(lp[:, 1]), mate(lp[:, 2])
+    third = (uniform(n) * 3).long().clamp_max(2)
+    cls = torch.where(lp[:, 3] == 0, third, lp[:, 3])  # 0 Bi, 1 M_M, 2 P_P
+    return {k: (lp[cls == i, 0], p1[cls == i], p2[cls == i])
+            for i, k in enumerate(("Bi_Allelic", "M_M", "P_P"))}
+
+
 def allelic_pairs(lengths, counts, seed: int = 0, *, device,
-                  cis_floor: float = 0.0) -> dict:
+                  cis_floor: float = 0.0, loops=None) -> dict:
     """Allelic pair classes drawn on ``device`` (``scripts/perf_e2e_hap.py``
     ``_gen_pairs`` and ``generate_beds``): both mates' chromosomes weighted
     by length, 75% intra pairs at a Cauchy-tailed distance (``|Cauchy| *
@@ -156,7 +209,15 @@ def allelic_pairs(lengths, counts, seed: int = 0, *, device,
     its length share: ~2.6% of chr1's pairs, ~0.4% of chr21's), with a
     Cauchy (s^-2) tail otherwise: cis-only ICE at 40 kb then needs 222
     iterations on chr1 and more on the small chromosomes (tol 1e-5; cooler's
-    limit is 200).  With 0.1 it takes ~65 on every chromosome tried."""
+    limit is 200).  With 0.1 it takes ~65 on every chromosome tried.
+
+    loops : ``planted_loops`` rows, or None (the default: nothing more is
+    drawn, so the draws above are those of the script).  With them,
+    DOMAIN_SHARE of the intra pairs draw their second mate uniform within
+    the first mate's DOMAIN-bp domain, the same domains on both
+    haplotypes, so that DI has boundaries to find; and each loop adds
+    LOOP_PAIRS intra pairs around its anchors (``_loop_pairs``), drawn
+    after every class and tagged as the other M_M and P_P pairs."""
     device = torch.device(device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -169,6 +230,10 @@ def allelic_pairs(lengths, counts, seed: int = 0, *, device,
 
     def chrom(n):
         return torch.searchsorted(cumw, uniform(n), right=True).clamp_max(last)
+
+    def tag(n):
+        u = uniform(n)
+        return (u >= 0.4).to(torch.int8) + (u >= 0.7).to(torch.int8)
 
     out = {}
     for cls, n in counts.items():
@@ -184,11 +249,26 @@ def allelic_pairs(lengths, counts, seed: int = 0, *, device,
         if cis_floor > 0:
             far = intra & (uniform(n) < cis_floor)
             p2 = torch.where(far, (uniform(n) * sizes[c1]).long(), p2)
+        if loops is not None:
+            inside = intra & (uniform(n) < DOMAIN_SHARE)
+            pd = p1 // DOMAIN * DOMAIN + (uniform(n) * DOMAIN).long()
+            p2 = torch.where(inside, torch.minimum(pd, size1 - 1), p2)
         cols = (c1.to(torch.int32), p1, c2.to(torch.int32), p2)
         if cls in ("M_M", "P_P"):
-            u = uniform(n)
-            cols += ((u >= 0.4).to(torch.int8) + (u >= 0.7).to(torch.int8),)
+            cols += (tag(n),)
         out[cls] = cols
+    if loops is None:
+        return out
+    extra = _loop_pairs(uniform, loops, sizes, device)
+    for cls in counts:
+        if cls not in extra:
+            continue
+        c, p1, p2 = extra[cls]
+        c = c.to(torch.int32)
+        add = (c, p1, c, p2)
+        if cls in ("M_M", "P_P"):
+            add += (tag(c.numel()),)
+        out[cls] = tuple(torch.cat([a, b]) for a, b in zip(out[cls], add))
     return out
 
 

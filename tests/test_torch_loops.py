@@ -141,9 +141,16 @@ def test_single_chrom_and_allelic(coo, weights):
     multi = PL.pcaller_multi(_inputs(coo, weights), RES, params,
                              device="cpu")
     assert set(single[0]) == set(multi["3"][0])
-    with pytest.raises(NotImplementedError):
-        PL.pcaller_multi(_inputs(coo, weights), RES, params, allelic=True,
-                         device="cpu")
+    # allelic mode (biases 1, the pixel prefilter with a gap list): the
+    # single-chromosome call equals the multi-chromosome one
+    allelic = {c: (r_, c_, v_, None, n_)
+               for c, (r_, c_, v_, _w, n_) in _inputs(coo, weights).items()}
+    gaps = {c: np.array([0, 7, 8]) for c in SIZES}
+    single = PL.pcaller_chrom_coo(r, cc, v, None, SIZES["3"], RES, params,
+                                  allelic=True, gap=gaps["3"], device="cpu")
+    multi = PL.pcaller_multi(allelic, RES, params, allelic=True, gaps=gaps,
+                             device="cpu")
+    assert single[0] and single == multi["3"]
 
 
 def test_device_is_required(coo, weights):

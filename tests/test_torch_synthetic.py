@@ -174,6 +174,51 @@ def test_allelic_cis_floor_adds_long_range_intra_pairs():
     assert far[0] < 0.15 and 0.06 < far[1] - far[0] < 0.13
 
 
+def test_allelic_pairs_plant_loops_and_domains():
+    """Planted loops: LOOP_PAIRS pairs per loop within one bin of its
+    anchors, shared loops over Bi_Allelic, M_M
+    and P_P, maternal ones in M_M only, paternal ones in P_P only; and
+    intra pairs gathered inside DOMAIN-bp domains."""
+    lengths = [30_000_000, 20_000_000]
+    counts = {"Bi_Allelic": 60_000, "M_M": 20_000, "P_P": 20_000,
+              "M_P": 500, "P_M": 500}
+    loops = S.planted_loops(lengths)
+    assert loops.shape == (18, 4) and set(loops[:, 3]) == {0, 1, 2}
+    d = loops[:, 2] - loops[:, 1]
+    assert d.min() >= S.LOOP_SPAN[0] and d.max() <= S.LOOP_SPAN[1]
+    base = S.allelic_pairs(lengths, counts, seed=2, device="cpu")
+    got = S.allelic_pairs(lengths, counts, seed=2, device="cpu", loops=loops)
+    res = S.LOOP_RES
+    for cls, n in counts.items():
+        assert len(got[cls]) == len(base[cls])
+        c1, p1, c2, p2 = (t[n:] for t in got[cls][:4])
+        kinds = {"Bi_Allelic": {0}, "M_M": {0, 1}, "P_P": {0, 2}}.get(cls)
+        if kinds is None:
+            assert c1.numel() == 0
+            continue
+        assert torch.equal(c1, c2) and c1.numel() > 0
+        # every extra pair sits on a loop of an allowed kind, within a bin
+        hit = torch.zeros(c1.numel(), dtype=torch.bool)
+        for ci, b1, b2, k in loops:
+            on = ((c1 == ci) & ((p1 // res - b1).abs() <= 1)
+                  & ((p2 // res - b2).abs() <= 1))
+            assert k in kinds or not bool(on.any())
+            hit |= on
+        assert bool(hit.all())
+    extra = sum(got[c][0].numel() - n for c, n in counts.items())
+    assert extra == S.LOOP_PAIRS * len(loops)
+    # domains: DOMAIN_SHARE (30%) of the intra pairs drawn inside their
+    # DOMAIN-bp block, of which ~40% would not have been (about 0.59 of
+    # the Cauchy-distance pairs share a block already): ~+0.08
+    inside = []
+    for draw in (base, got):
+        c1, p1, c2, p2 = (t[:counts["M_M"]] for t in draw["M_M"][:4])
+        intra = c1 == c2
+        same = (p1 // S.DOMAIN == p2 // S.DOMAIN)[intra]
+        inside.append(float(same.double().mean()))
+    assert 0.05 < inside[1] - inside[0] < 0.12
+
+
 @pytest.mark.parametrize("make", [
     lambda: S.gen_tiles(S.band_coords(4), 8, seed=0),
     lambda: S.hap_batch([8], 8, seed=0),
