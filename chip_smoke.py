@@ -59,17 +59,39 @@ Phases, each printed on its own line, any failure raising:
    in [0, 1] with q >= p, a share of the maternal-only loops called in M
    and their loop-test median p below the shared loops'; then M1 through
    the plain ladder and the plain Viterbi;
-5. the launch counters of each path, each kernel of the path > 0, and one
+5. the user path through files, with its own counters: the allelic draw
+   written as the five allelic beds of ``GM12878_R1_`` and an hg19
+   genome-size file (``testing.synthetic.write_allelic_beds``), then
+   ``pipeline.matrix.haplotype_matrix_files`` (the port's bed scanner, the
+   matrix stage at whole 500 kb + 10 kb and local 40 kb, the three coolers
+   and the gap npz through ``io.cooler`` / ``io.hdf5``), then the
+   cooler-backed drivers on those files: ``run_compartment`` at 500 kb
+   (traditional, then Maternal and Paternal with its PC file),
+   ``run_tads`` and ``run_loops`` (with the gap npz) on the M/P matrices at
+   40 kb, ``run_loops`` on the Traditional cooler at 10 kb with its
+   weights, and the three specificity tests from the cooler and the
+   written call files; after the counters are read, the checks: pairs
+   parsed = the draw's, every integer pixel table identical to the
+   in-memory stage's on the same pairs (float tables identical or within
+   FLOAT_TABLE_RTOL), Traditional weights within 1e-4 with the same NaN
+   sets, each driver's calls identical to its in-memory entry point fed
+   the reader's tables; then the valid-bed path at 1/VALID_EVERY of the
+   pairs (a 15-column bed through ``traditional_matrix_files``), each
+   step's wall and rate on its own line, and the temporary files removed;
+6. the launch counters of each path, each kernel of the path > 0, and one
    JSON line with the per-kernel results (``launches_by_path``: analysis,
-   diploid, allelic).
+   diploid, allelic, files).
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
 every phase passed.
 """
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -102,6 +124,15 @@ ALLELIC_WHOLE = (500_000,)
 # is called in M, and their median p in the loop test is below the shared
 # loops'
 MATERNAL_CALLED_MIN = 0.4
+# the files phase: the replicate's prefix; the valid-bed path's share of
+# the pairs (every VALID_EVERY-th); the imputed float tables' tolerance
+# against the in-memory stage where they are not identical (the 10 kb
+# correction's float64 row sums, ``index_add_`` in
+# ``ops.sparse.genomewide_correction_coo``, add in the order their atomics
+# land: ~1e-15 relative)
+FILES_PREFIX = "GM12878_R1_"
+VALID_EVERY = 10
+FLOAT_TABLE_RTOL = 1e-12
 
 
 def log(msg: str) -> None:
@@ -1680,7 +1711,7 @@ def allelic_phase(allelic, dev):
           f"loop test: maternal-only median p {med[1]:.3g} ({len(pv[1])} "
           f"loops) not below the shared loops' {med[0]:.3g} ({len(pv[0])})")
     return dict(local=local, gaps=gaps, cands=cands, tads=tad_out,
-                model=models["M"][0])
+                model=models["M"][0], calls=calls, tracks=tracks)
 
 
 def m1_plain_ladder(al, dev):
@@ -1699,6 +1730,403 @@ def m1_plain_ladder(al, dev):
           "M1 loop set differs between kernel and plain ladder")
     log(f"M1 (allelic, 40 kb) through the plain ladder: the same "
         f"{len(plain[0])} loops")
+
+
+# ---------------------------------------------------------- files phase
+def _mb(path) -> float:
+    return os.path.getsize(path) / 1e6
+
+
+def _written_pixels(M, genome, res, dtype):
+    """The pixel table that the cooler writer makes of a matrix-stage
+    table: ``cooler_coo`` for a genome-wide one (dense or accumulator),
+    the writer's own cut for a corrected COO or ``{label: [n, n]}``."""
+    from hichap_master_tpu_torch.io.cooler import CoolerWriter
+    from hichap_master_tpu_torch.pipeline.matrix import cooler_coo
+
+    w = CoolerWriter(genome, res, dtype)
+    if isinstance(M, dict):
+        return w.pixels_from_dense(M)
+    if isinstance(M, tuple):
+        return w.pixels_from_genomewide_coo(*M)
+    b1, b2, v = cooler_coo(M, genome, res)
+    return b1, b2, w._counts(v)
+
+
+def _same_table(table, want, what, dev):
+    """The read-back ``(bin1, bin2, count)`` against the in-memory table:
+    ids identical; integer counts identical; float counts identical, or
+    the largest relative difference (returned) when not."""
+    b1, b2, v = (torch.from_numpy(a).to(dev) for a in table)
+    w1, w2, wv = want
+    check(torch.equal(b1, w1.long()) and torch.equal(b2, w2.long()),
+          f"{what}: pixel ids differ from the in-memory table")
+    if not v.is_floating_point():
+        check(torch.equal(v, wv.to(v.dtype)),
+              f"{what}: counts differ from the in-memory table")
+        return 0.0
+    wv = wv.double()
+    if torch.equal(v, wv):
+        return 0.0
+    return float(((v - wv).abs() / wv.abs()).max())
+
+
+def _close_weights(got, want, what):
+    got = torch.as_tensor(got, device=want.device)
+    fg, fw = torch.isfinite(got), torch.isfinite(want)
+    check(torch.equal(fg, fw), f"{what}: NaN sets differ")
+    err = float(((got[fg] - want[fw].double()).abs()
+                 / want[fw].double().abs()).max())
+    check(err <= 1e-4, f"{what}: weights off the in-memory ones by "
+          f"{err:.2e}")
+    return err
+
+
+def _reader_inputs(path, res, allelic, kind, dev, gaps=None):
+    """In-memory inputs of the analysis entry points, cut from a cooler by
+    the port's reader: compartments (raw COO and n), TADs and loops (COO,
+    weights or None, n)."""
+    from hichap_master_tpu_torch.io.cooler import CoolerReader
+
+    r = CoolerReader(path, res)
+    chroms = [c for c in r.chromnames
+              if not allelic or c.startswith(allelic[0])]
+    out = {}
+    for c in chroms:
+        if kind == "compartment":
+            out[c] = (*r.fetch_coo(c, keep_dtype=True), r.n_bins(c))
+        else:
+            out[c] = (*r.fetch_coo(c), None if allelic else
+                      r.bins_weight(c), r.n_bins(c))
+    return out
+
+
+def _lines(path):
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+def files_phase(allelic, al, dev):
+    """The user path through files: the allelic draw written as beds,
+    ``haplotype_matrix_files`` to coolers, the cooler-backed drivers on
+    them; then (outside the launch counters' window, see ``main``) the
+    checks against the in-memory stage and entry points, and the
+    valid-bed path at a tenth of the pairs.  Returns a function that runs
+    the checks."""
+    from hichap_master_tpu_torch.models.compartment import run_compartment
+    from hichap_master_tpu_torch.models.loops import run_loops
+    from hichap_master_tpu_torch.models.specificity import (
+        BoundaryAllelicSpecificity, CompartmentAllelicSpecificity,
+        LoopAllelicSpecificity)
+    from hichap_master_tpu_torch.models.tads import run_tads
+    from hichap_master_tpu_torch.pipeline.matrix import haplotype_matrix_files
+    from hichap_master_tpu_torch.testing.synthetic import write_allelic_beds
+
+    genome, classes, _ = allelic
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    walls, steps, stats = {}, {}, {}
+    res_w, res_l, res_hi = ALLELIC_WHOLE[0], DIPLOID_LOCAL[0], \
+        min(DIPLOID_WHOLE)
+    beds, out = os.path.join(tmp, "beds"), os.path.join(tmp, "out")
+    sizes = os.path.join(tmp, "hg19.sizes")
+    genome.write(sizes)
+    _timed(walls, "bed write", lambda: write_allelic_beds(
+        beds, FILES_PREFIX, classes, genome.labels))
+    files = _timed(walls, "matrix files", lambda: haplotype_matrix_files(
+        out, [beds], sizes, DIPLOID_WHOLE, DIPLOID_LOCAL, **DIPLOID_VOTE,
+        device=dev, walls=steps, stats=stats))[FILES_PREFIX]
+    trad, imp, gap = files["tradition"], files["imputated"], files["gap"]
+    calls = os.path.join(tmp, "calls")
+    haps = ("Maternal", "Paternal")
+
+    def where(*parts):
+        return os.path.join(calls, *parts)
+
+    res = {}
+    res["compartments T"] = _timed(walls, "compartments T", lambda:
+                                  run_compartment(trad, res_w, False,
+                                                  where("comp", "T"),
+                                                  device=dev))
+    trad_pc = where("comp", "T", f"T_Compartment_{res_w // 1000}K.txt")
+    for a in haps:
+        res[f"compartments {a[0]}"] = _timed(
+            walls, f"compartments {a[0]}", lambda a=a: run_compartment(
+                imp, res_w, a, where("comp", a[0]),
+                traditional_pc_file=trad_pc, device=dev))
+        res[f"TADs {a[0]}"] = _timed(walls, f"TADs {a[0]}", lambda a=a:
+                                    run_tads(imp, res_l, a,
+                                             where("tads", a[0]),
+                                             device=dev))
+        res[f"loops {a[0]}"] = _timed(walls, f"loops {a[0]}", lambda a=a:
+                                     run_loops(imp, res_l, a,
+                                               where("loops", a[0]),
+                                               gap_file=gap, device=dev))
+    res["loops T"] = _timed(walls, f"loops T {res_hi // 1000} kb", lambda:
+                           run_loops(trad, res_hi, False, where("loops", "T"),
+                                     device=dev))
+
+    # the specificity tests on the call files
+    loop_file = where("loop_positions.txt")
+    pos = sorted({tuple(l.split("\t")[:3]) for a in haps
+                  for l in _lines(res[f"loops {a[0]}"])[1:]})
+    with open(loop_file, "w") as f:
+        f.write("chr\tstartM\tendM\tstartP\tendP\n")
+        f.writelines(f"{c}\t{s}\t{e}\t{s}\t{e}\n" for c, s, e in pos)
+    bound_file = where("boundary_pairs.txt")
+    with open(bound_file, "w") as f:
+        for c in genome.labels:
+            bm = res["TADs M"]["M" + c]["boundaries"]["boundary"]
+            bp = res["TADs P"]["P" + c]["boundaries"]["boundary"]
+            for b in bm:
+                if len(bp):
+                    j = int(np.abs(bp - b).argmin())
+                    if abs(int(bp[j]) - int(b)) <= 2 * res_l:
+                        f.write(f"{c}\t{int(b)}\t{int(bp[j])}\n")
+    comp = {h: where("comp", h, f"{h}_Compartment_{res_w // 1000}K.txt")
+            for h in "MP"}
+
+    def specificity():
+        return (LoopAllelicSpecificity.from_cooler(imp, loop_file, res_l,
+                                                   device=dev).run(),
+                BoundaryAllelicSpecificity.from_cooler(
+                    imp, bound_file, res_l, device=dev).run(
+                    where("Boundary_Specificity.txt")),
+                CompartmentAllelicSpecificity.from_files(
+                    comp["M"], comp["P"], res_w, device=dev).run(
+                    where("Compartment_Specificity.txt")))
+
+    res["specificity"] = _timed(walls, "specificity", specificity)
+    state = dict(tmp=tmp, walls=walls, steps=steps, stats=stats, files=files,
+                 res=res, loop_file=loop_file, bound_file=bound_file,
+                 comp=comp, trad_pc=trad_pc, sizes=sizes, beds=beds)
+    return lambda: files_checks(allelic, al, state, dev)
+
+
+def files_checks(allelic, al, st, dev):
+    """The files phase's checks and report, then the valid-bed path; the
+    temporary directory is removed at the end, whatever happens."""
+    try:
+        _files_checks(allelic, al, st, dev)
+        _valid_path(allelic, st, dev)
+    finally:
+        shutil.rmtree(st["tmp"], ignore_errors=True)
+
+
+def _files_checks(allelic, al, st, dev):
+    from hichap_master_tpu_torch.io.cooler import CoolerReader
+    from hichap_master_tpu_torch.models.compartment import call_compartments
+    from hichap_master_tpu_torch.models.loops import call_loops, cluster_lines
+    from hichap_master_tpu_torch.models.specificity import (
+        BoundaryAllelicSpecificity, CompartmentAllelicSpecificity,
+        LoopAllelicSpecificity)
+    from hichap_master_tpu_torch.models.tads import call_tads
+    from hichap_master_tpu_torch.pipeline.matrix import \
+        haplotype_matrix_construction
+
+    genome, classes, _ = allelic
+    hap = genome.haplotype()
+    walls, steps, files, res = st["walls"], st["steps"], st["files"], \
+        st["res"]
+    res_w, res_l, res_hi = ALLELIC_WHOLE[0], DIPLOID_LOCAL[0], \
+        min(DIPLOID_WHOLE)
+    haps = ("Maternal", "Paternal")
+
+    # pairs parsed = the draw's
+    parsed = st["stats"]["pairs"][FILES_PREFIX]
+    for k, cols in classes.items():
+        check(parsed[k] == cols[0].numel(), f"{k}: {parsed[k]} pairs parsed, "
+              f"{cols[0].numel()} drawn")
+    n_pairs = sum(parsed.values())
+
+    # every table read back against the in-memory stage on the same pairs
+    r = haplotype_matrix_construction(
+        {FILES_PREFIX: classes}, genome, DIPLOID_WHOLE, DIPLOID_LOCAL,
+        **DIPLOID_VOTE, device=dev)[FILES_PREFIX]
+    read_s, read_mb, float_err, w_err = 0.0, 0.0, {}, 0.0
+    for key, g, dtype in (("tradition", genome, "int"),
+                          ("unimputated", hap, "int"),
+                          ("imputated", hap, "float")):
+        path = files[key]
+        for rs in DIPLOID_WHOLE + DIPLOID_LOCAL:
+            part = "whole" if rs in DIPLOID_WHOLE else "local"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reader = CoolerReader(path, rs)
+            table = reader.pixels_coo()
+            read_s += time.perf_counter() - t0
+            read_mb += sum(a.nbytes for a in table) / 1e6
+            want = _written_pixels(r[key][part][rs], g, rs, dtype)
+            err = _same_table(table, want, f"{key} {rs}", dev)
+            if dtype == "float":
+                float_err[rs] = err
+            if key == "tradition":
+                w_err = max(w_err, _close_weights(
+                    reader.bins_weight(), r["tradition"]["weights"][rs],
+                    f"Traditional weights {rs}"))
+            del table, want
+    for rs, err in float_err.items():
+        check(err <= FLOAT_TABLE_RTOL, f"imputed {rs}: counts off the "
+              f"in-memory ones by {err:.2e}")
+
+    # the drivers' calls against the in-memory entry points fed the
+    # reader's tables
+    trad, imp, gap = files["tradition"], files["imputated"], files["gap"]
+    got = call_compartments(_reader_inputs(trad, res_w, False, "compartment",
+                                           dev), res_w, False, dev)
+    same = {"compartments T": _same_tracks(got, res["compartments T"])}
+    gaps = {str(res_l): np.load(gap, allow_pickle=True)[str(res_l)][()]}
+    for a in haps:
+        h = a[0]
+        got = call_compartments(_reader_inputs(imp, res_w, a, "compartment",
+                                               dev), res_w, a, dev,
+                                traditional_pc=st["trad_pc"])
+        same[f"compartments {h}"] = _same_tracks(got, res[f"compartments {h}"])
+        inputs = _reader_inputs(imp, res_l, a, "tads", dev)
+        got = call_tads(inputs, res_l, a, dev)
+        same[f"TADs {h}"] = _same_tads(got, res[f"TADs {h}"])
+        g = {c: np.asarray(v) for c, v in gaps[str(res_l)].items()
+             if c.startswith(h)}
+        got = call_loops(inputs, res_l, a, dev, gaps=g)
+        same[f"loops {h}"] = (cluster_lines(got) == [
+            l + "\n" for l in _lines(res[f"loops {h}"])[1:]])
+    got = call_loops(_reader_inputs(trad, res_hi, False, "loops", dev),
+                     res_hi, False, dev)
+    same["loops T"] = (cluster_lines(got) == [
+        l + "\n" for l in _lines(res["loops T"])[1:]])
+    reader = CoolerReader(imp, res_l)
+    mats = {c: torch.from_numpy(reader.matrix(c)).to(dev)
+            for c in reader.chromnames}
+    l_rows, b_rows, c_rows = res["specificity"]
+    same["specificity"] = (
+        _same_rows(LoopAllelicSpecificity(mats, st["loop_file"], res_l,
+                                          dev).run(os.devnull), l_rows)
+        and _same_rows(BoundaryAllelicSpecificity(mats, st["bound_file"],
+                                                  res_l, dev).run(), b_rows)
+        and _same_rows(CompartmentAllelicSpecificity(
+            st["comp"]["M"], st["comp"]["P"], res_w, dev).run(), c_rows))
+    del mats
+    for k, ok in same.items():
+        check(ok, f"files: {k} differ from the in-memory entry point on the "
+              "reader's tables")
+
+    # the report
+    sizes = {k: _mb(v) for k, v in files.items()}
+    bed_mb = sum(_mb(os.path.join(st["beds"], f))
+                 for f in os.listdir(st["beds"]))
+    stage = sum(v for k, v in steps.items()
+                if k not in ("parse", "cooler_write"))
+    cw_mb = sum(v for k, v in sizes.items() if k != "gap")
+    log(f"files: bed write (not part of the path): {walls['bed write']:.3f} "
+        f"s, {n_pairs} lines, {bed_mb:.1f} MB")
+    log(f"files:   parse: {steps['parse']:.3f} s, "
+        f"{n_pairs / steps['parse'] / 1e6:.2f} M lines/s")
+    log(f"files:   matrix stage (whole {res_w // 1000} kb + {res_hi // 1000} "
+        f"kb, local {res_l // 1000} kb): {stage:.3f} s (" + ", ".join(
+            f"{k} {v:.3f}" for k, v in steps.items()
+            if k not in ("parse", "cooler_write")) + ")")
+    log(f"files:   cooler write: {steps['cooler_write']:.3f} s, {cw_mb:.1f} "
+        f"MB, {cw_mb / steps['cooler_write']:.1f} MB/s (" + ", ".join(
+            f"{k} {v:.1f} MB" for k, v in sizes.items()) + ")")
+    log(f"files:   read (every pixel table back): {read_s:.3f} s, "
+        f"{read_mb:.1f} MB, {read_mb / read_s:.1f} MB/s")
+    log("files:   drivers: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in walls.items()
+        if k not in ("bed write", "matrix files")))
+    log(f"files:   checks: pairs parsed per class = the draw's; integer "
+        f"tables identical to the in-memory stage's; imputed float tables "
+        + ", ".join(f"{rs // 1000} kb " + ("identical" if e == 0 else
+                                           f"max rel diff {e:.2e}")
+                    for rs, e in float_err.items())
+        + f"; Traditional weights within {w_err:.1e} (tol 1e-4), same NaN "
+        f"sets; every driver's calls identical to its in-memory entry point "
+        f"on the reader's tables")
+    # information: how far the calls agree with the allelic phase's
+    agree = []
+    for h in "MP":
+        mine = [tuple(l.split("\t")[:3]) for l in
+                _lines(res[f"loops {h}"])[1:]]
+        theirs = {(c, str(s), str(e)) for c, s, e, *_ in al["calls"][h]}
+        agree.append(f"loops {h} {sum(x in theirs for x in mine)} of "
+                     f"{len(mine)} (allelic phase {len(theirs)})")
+        nb = sum(np.array_equal(res[f"TADs {h}"][c]["boundaries"]["boundary"],
+                                al["tads"][c]["boundaries"]["boundary"])
+                 for c in res[f"TADs {h}"])
+        agree.append(f"TAD boundaries {h} same on {nb} of "
+                     f"{len(res[f'TADs {h}'])} chromosomes")
+    dt = max(float(np.abs(res[f"compartments {c[0]}"][c] - t).max())
+             for c, t in al["tracks"].items())
+    agree.append(f"allelic compartment tracks max |diff| {dt:.2e}")
+    log("files:   against the allelic phase (information): "
+        + "; ".join(agree))
+
+
+def _same_tracks(a, b) -> bool:
+    return list(a) == list(b) and all(np.array_equal(a[c], b[c]) for c in a)
+
+
+def _same_tads(a, b) -> bool:
+    return list(a) == list(b) and all(
+        np.array_equal(a[c]["di"], b[c]["di"])
+        and np.array_equal(a[c]["boundaries"]["boundary"],
+                           b[c]["boundaries"]["boundary"])
+        and np.array_equal(a[c]["filtered"], b[c]["filtered"])
+        and all(np.array_equal(x, y) for x, y in zip(a[c]["domains"],
+                                                     b[c]["domains"]))
+        for c in a)
+
+
+def _same_rows(a, b) -> bool:
+    return len(a) == len(b) and all(
+        len(x) == len(y) and all(
+            (u == v) or (isinstance(u, float) and isinstance(v, float)
+                         and np.isnan(u) and np.isnan(v))
+            for u, v in zip(x, y)) for x, y in zip(a, b))
+
+
+def _valid_path(allelic, st, dev):
+    """The valid-bed path at a tenth of the pairs: a 15-column valid bed
+    through ``traditional_matrix_files``, its tables and weights against
+    ``traditional_matrix_construction`` on the same pairs."""
+    from hichap_master_tpu_torch.io.cooler import CoolerReader
+    from hichap_master_tpu_torch.pipeline.matrix import (
+        traditional_matrix_construction, traditional_matrix_files)
+    from hichap_master_tpu_torch.testing.synthetic import write_valid_bed
+
+    genome, classes, _ = allelic
+    pairs = tuple(torch.cat([cols[i] for cols in classes.values()])
+                  [::VALID_EVERY] for i in range(4))
+    rep = os.path.join(st["tmp"], "valid")
+    os.makedirs(rep)
+    walls, steps = {}, {}
+    bed = os.path.join(rep, FILES_PREFIX + "Valid.bed")
+    _timed(walls, "bed write", lambda: write_valid_bed(bed, pairs,
+                                                      genome.labels))
+    out = _timed(walls, "files", lambda: traditional_matrix_files(
+        os.path.join(st["tmp"], "out_valid"), [rep], st["sizes"],
+        DIPLOID_WHOLE, DIPLOID_LOCAL, device=dev, walls=steps))
+    want = traditional_matrix_construction(
+        {FILES_PREFIX: pairs}, genome, DIPLOID_WHOLE, DIPLOID_LOCAL,
+        device=dev)["Merged_Multi"]
+    w_err = 0.0
+    for path in out["coolers"]:
+        for rs in DIPLOID_WHOLE + DIPLOID_LOCAL:
+            part = "whole" if rs in DIPLOID_WHOLE else "local"
+            reader = CoolerReader(path, rs)
+            _same_table(reader.pixels_coo(), _written_pixels(
+                want[part][rs], genome, rs, "int"), f"valid {rs}", dev)
+            w_err = max(w_err, _close_weights(
+                reader.bins_weight(), want["weights"][rs], f"valid {rs}"))
+    n = pairs[0].numel()
+    log(f"files: valid-bed path, 1/{VALID_EVERY} of the pairs ({n} lines of "
+        f"15 columns, {_mb(bed):.1f} MB; bed write {walls['bed write']:.3f} "
+        f"s, not part of the path): parse {steps['parse']:.3f} s "
+        f"({n / steps['parse'] / 1e6:.2f} M lines/s), build "
+        f"{steps['build']:.3f} s, weights "
+        f"{steps['matrix'] - steps['parse'] - steps['build']:.3f} s, "
+        f"cooler write {steps['cooler_write']:.3f} s "
+        f"({_mb(out['merged']):.1f} MB a file, copied to Merged_Multi); "
+        f"tables identical to traditional_matrix_construction's, weights "
+        f"within {w_err:.1e}")
 
 
 def main() -> None:
@@ -1796,12 +2224,20 @@ def main() -> None:
     allelic_l = read("allelic", ("ice_sweep", "escalation_prefix",
                                  "escalation", "hmm_forward_backward",
                                  "hmm_viterbi"))
-    del allelic
     m1_plain_ladder(al, dev)
     chr1_plain_viterbi(al["tads"], al["model"], dev, label="M1")
+    torch.cuda.empty_cache()
+    # the same draw through files: beds in, coolers out, the cooler-backed
+    # drivers on them; the checks run after the counters are read
+    reset()
+    checks = files_phase(allelic, al, dev)
+    files_l = read("files", tuple(counters))
+    checks()
+    del allelic, al
+    torch.cuda.empty_cache()
 
     paths = {"analysis": analysis, "diploid": diploid_l,
-             "allelic": allelic_l}
+             "allelic": allelic_l, "files": files_l}
     kernels = [dict(name=k, launches=sum(p[k] for p in paths.values()),
                     launches_by_path={n: p[k] for n, p in paths.items()},
                     **results[k]) for k in counters]

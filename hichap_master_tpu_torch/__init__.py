@@ -13,9 +13,12 @@ recurrences, K6 the sparse imputation vote, K7 the scattered marginal).  On
 a CPU tensor every kernel wrapper runs its plain PyTorch version instead,
 which is what the parity tests against the JAX package exercise.
 
-Entry points take arrays in memory and an explicit ``device``: bed
-reading and cooler writing are not ported.  The package never imports
-``jax``, nor anything of the JAX package.
+Entry points take arrays in memory and an explicit ``device``; the file
+drivers (``pipeline.matrix.haplotype_matrix_files`` /
+``traditional_matrix_files``, ``models.*.run_*``) read beds and read and
+write coolers through ``io`` (a host C++ bed scanner and a minimal HDF5
+writer and reader in numpy: no pandas, no h5py).  The package never
+imports ``jax``, nor anything of the JAX package.
 """
 
 from .device import set_precision

@@ -19,6 +19,8 @@ from __future__ import annotations
 import os
 from typing import Dict, Iterable, List, Mapping, Sequence, Tuple
 
+import numpy as np
+
 DEFAULT_CHROMS = ("#", "X")
 
 
@@ -103,6 +105,12 @@ class Genome:
                     sizes[parts[0]] = int(parts[1])
         return cls(sizes, chroms)
 
+    def write(self, path: str | os.PathLike) -> None:
+        """A genome-size file: ``label<TAB>length`` per chromosome."""
+        with open(path, "w") as f:
+            for c in self.labels:
+                f.write(f"{c}\t{self.sizes[c]}\n")
+
     def haplotype(self) -> "Genome":
         """Diploid registry ``M1..Mn, P1..Pn``."""
         g = Genome.__new__(Genome)
@@ -133,3 +141,15 @@ class Genome:
 
     def total_bins(self, res: int) -> int:
         return sum(self.n_bins(c, res) for c in self.labels)
+
+    def cooler_bin_table(self, res: int):
+        """(chrom index int32, start int64, end int64) arrays of a cooler's
+        ``bins`` group: ``ceil(length / res)`` bins a chromosome."""
+        chrom_ids, starts, ends = [], [], []
+        for ci, c in enumerate(self.labels):
+            s = np.arange(self.cooler_n_bins(c, res), dtype=np.int64) * res
+            chrom_ids.append(np.full(s.size, ci, dtype=np.int32))
+            starts.append(s)
+            ends.append(np.minimum(s + res, self.sizes[c]))
+        return (np.concatenate(chrom_ids), np.concatenate(starts),
+                np.concatenate(ends))

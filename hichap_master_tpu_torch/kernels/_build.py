@@ -11,6 +11,11 @@ edited source rebuilds and an unchanged one loads the cached ``.so``.  Each
 source compiles in its own ``nvcc`` process, all started together, and the
 objects are linked into one library.  A failed build raises with the
 compiler's output.
+
+The host scanners of ``csrc/bedparse.cpp`` are not CUDA: they build with
+the host compiler (``$CXX`` or ``g++``) into a library of their own
+(``host_library_path``), so that they build and load where there is no
+``nvcc``, and bind under ``HOST_SIGNATURES``.
 """
 
 from __future__ import annotations
@@ -55,6 +60,19 @@ SIGNATURES = {
     "impute_vote_constant": [_I, _I],
     "segment_marginal": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "segment_marginal_tile": [],
+}
+
+
+# host C entry points (csrc/bedparse.cpp) -> argument types; each returns
+# the number of rows kept (long)
+_L = ctypes.c_long
+_S = ctypes.POINTER(ctypes.c_char_p)
+HOST_SOURCE = CSRC_DIR / "bedparse.cpp"
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+HOST_SIGNATURES = {
+    "bedparse_valid": [ctypes.c_char_p, _L, _S, _I, _P, _P, _P, _P],
+    "bedparse_allelic": [ctypes.c_char_p, _L, _S, _I, _I, _P, _P, _P, _P,
+                         _P],
 }
 
 
@@ -142,3 +160,42 @@ def check(rc: int, name: str) -> None:
 def stream_ptr(device) -> int:
     """The current CUDA stream of ``device`` as an integer handle."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def host_library_path() -> Path:
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(HOST_SOURCE.read_bytes())
+    return BUILD_DIR / f"libhichap_host_{h.hexdigest()[:16]}.so"
+
+
+def build_host(path: Path) -> str:
+    """Compile ``csrc/bedparse.cpp`` with the host compiler into ``path``.
+    Raises with the compiler's output if it fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cmd = [os.environ.get("CXX", "g++"), *HOST_FLAGS, "-o", str(tmp),
+           str(HOST_SOURCE)]
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"host compiler not found: {' '.join(cmd)}: {e}")
+    if r.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"host build failed (exit {r.returncode}):\n"
+                           f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
+    os.replace(tmp, path)
+    return r.stdout + r.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def load_host() -> ctypes.CDLL:
+    """The host scanner library, built on first call."""
+    path = host_library_path()
+    if not path.exists():
+        build_host(path)
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in HOST_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_long
+    return lib

@@ -11,7 +11,8 @@ JAX package.
 Like the reference, the input is the RAW (unbalanced) matrix, made dense
 and symmetric on the device from upper-triangle COO in float32, as
 ``hichap_master_tpu.io.cooler.CoolerReader.matrix_device`` makes it.
-Plots and the cooler reader are not ported.
+``run_compartment`` reads that COO from a cooler (``io.cooler``) and writes
+the track file.  Plots are not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core import pad_to_shape
+from ..io.cooler import CoolerReader
 from ..ops.expected import (correlation_matrix, default_compartment_gap,
                             distance_decay, oe_matrix, oe_matrix_sliding)
 from ..ops.pc_select import select_pc_new_device
@@ -236,6 +238,16 @@ def _run_batches(inputs, chroms, res: int, device, sliding: bool,
     return results
 
 
+def _allelic_chroms(names, allelic) -> List[str]:
+    """The chromosomes a mode reads: all, or those whose names start with
+    M (Maternal) or P (Paternal)."""
+    if allelic is False or allelic is None:
+        return list(names)
+    if allelic in ("Maternal", "Paternal"):
+        return [c for c in names if str(c).startswith(allelic[0])]
+    raise ValueError(f"Unknown allelic key {allelic!r}")
+
+
 def call_compartments(inputs: Mapping, res: int, allelic, device,
                       traditional_pc: Union[None, str, Mapping] = None,
                       sliding: bool = False, pca_method: str = "subspace",
@@ -266,12 +278,7 @@ def call_compartments(inputs: Mapping, res: int, allelic, device,
         raise ValueError("selector='legacy' applies to traditional mode "
                          "only; allelic runs use the supervised selector")
     device = torch.device(device)
-    if allelic is False or allelic is None:
-        chroms = list(inputs)
-    elif allelic in ("Maternal", "Paternal"):
-        chroms = [c for c in inputs if str(c).startswith(allelic[0])]
-    else:
-        raise ValueError(f"Unknown allelic key {allelic!r}")
+    chroms = _allelic_chroms(inputs, allelic)
     trad = None
     if allelic:
         if traditional_pc is None:
@@ -304,6 +311,39 @@ def call_compartments(inputs: Mapping, res: int, allelic, device,
     if out_path is not None:
         write_compartment_track(out_path, tracks, res, bool(allelic))
     return tracks
+
+
+NO_PLOTS = ("plots are not ported (ROADMAP.md Queue 1 item 7): pass "
+            "plot=False")
+
+
+def run_compartment(cooler_path: str, res: int, allelic, out_path: str,
+                    sliding: bool = False,
+                    traditional_pc_file: Optional[str] = None,
+                    pca_method: str = "subspace", plot: bool = False,
+                    ms: str = "IF", batched: bool = True,
+                    selector: str = "new", *, device,
+                    q0: Optional[Callable[[int, int], object]] = None
+                    ) -> Dict[str, np.ndarray]:
+    """Compartment calling from a cooler (``path`` or ``path::res``), as
+    the JAX package's ``run_compartment``: the raw counts of every
+    chromosome of the mode through ``call_compartments``, and
+    ``<prefix>_Compartment_<unit>.txt`` in ``out_path``.  ``ms`` only
+    chooses a plot's matrix and ``batched`` is accepted for the reference's
+    signature (the port always batches); ``q0`` as in
+    ``call_compartments``.  Returns {chrom: signed PC track}."""
+    if plot:
+        raise NotImplementedError(NO_PLOTS)
+    del ms, batched
+    reader = CoolerReader(cooler_path, res)
+    inputs = {}
+    for c in _allelic_chroms(reader.chromnames, allelic):
+        rows, cols, vals = reader.fetch_coo(c, keep_dtype=True)
+        inputs[c] = (rows, cols, vals, reader.n_bins(c))
+    return call_compartments(inputs, res, allelic, device,
+                             traditional_pc=traditional_pc_file,
+                             sliding=sliding, pca_method=pca_method,
+                             selector=selector, out_path=out_path, q0=q0)
 
 
 def write_compartment_track(out_path: str, tracks: Mapping, res: int,

@@ -18,6 +18,8 @@ The post-stages (``loop_selecting``, ``loop_cluster``) are host numpy and
 ``scipy.sparse`` as in the reference, on the COO in memory; ``call_loops``
 chains calling and post-stages and, given a path, writes the reference's
 ``<prefix>_Loops_<unit>.txt``, ``Selected_...`` and ``Cluster_...`` files.
+``call_peaks`` and ``run_loops`` read their input from a cooler
+(``io.cooler``) and the gap lists from the matrix stage's npz.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from ..ops.loops_packed import (derive_pixels_batch,
 from ..ops.stats import isotonic_fit, poisson_bh_chunked
 from ..ops.stats_torch import (loop_post_compact_batch,
                                poisson_bh_chunked as poisson_bh_device)
-from .compartment import _proper_unit
+from ..io.cooler import CoolerReader
+from .compartment import NO_PLOTS, _allelic_chroms, _proper_unit
 
 _DEVICE_BH_MIN = 262_144   # pixel count above which BH runs on the card
 _XP_BUCKET = 512           # packed-map width padding (shared batch shapes)
@@ -636,14 +639,9 @@ def call_loops(inputs: Mapping, res: int, allelic, device,
              ``candidates`` (the ``pcaller_multi`` result)
     Returns the ``Cluster_`` rows (see ``loop_cluster``).
     """
-    if allelic is False or allelic is None:
-        chroms = list(inputs)
-    elif allelic in ("Maternal", "Paternal"):
-        chroms = [c for c in inputs if str(c).startswith(allelic[0])]
-        if gaps is None:
-            raise ValueError("gaps needed for haplotype loop calling")
-    else:
-        raise ValueError(f"Unknown allelic key {allelic!r}")
+    chroms = _allelic_chroms(inputs, allelic)
+    if allelic and gaps is None:
+        raise ValueError("gaps needed for haplotype loop calling")
     stats = {} if stats is None else stats
     matrices, sel = {}, {}
     for c in chroms:
@@ -685,3 +683,56 @@ def write_loop_files(out_path: str, res: int, lines: List[str],
             f.write(head)
             f.writelines(body)
     return os.path.join(out_path, files[-1][0])
+
+
+# ------------------------------------------------------ cooler-backed drivers
+def _cooler_inputs(cooler_path: str, res: int, allelic,
+                   gap_file: Optional[str]):
+    """({chrom: (rows, cols, vals, weights or None, n)}, gaps or None) of
+    the chromosomes of a mode, as the JAX package's ``call_peaks`` reads
+    them: traditional with ``bins/weight``, allelic with the
+    ``Imputated_Gap`` lists of ``gap_file``."""
+    reader = CoolerReader(cooler_path, res)
+    chroms = _allelic_chroms(reader.chromnames, allelic)
+    gaps = None
+    if allelic:
+        if gap_file is None:
+            raise ValueError("Gap file needed for haplotype loop calling")
+        lib = np.load(gap_file, allow_pickle=True)[str(res)][()]
+        gaps = {c: np.asarray(lib[c]) for c in chroms}
+    inputs = {c: (*reader.fetch_coo(c),
+                  None if allelic else reader.bins_weight(c),
+                  reader.n_bins(c)) for c in chroms}
+    return inputs, gaps
+
+
+def call_peaks(cooler_path: str, res: int, allelic, outfil: str,
+               gap_file: Optional[str] = None, *, device) -> Dict:
+    """The loop candidates of a cooler into ``outfil`` (the ``_Loops_``
+    file), as the JAX package's ``call_peaks``.  Returns {chrom: symmetric
+    CSR of the raw counts}, what the post-stages read."""
+    inputs, gaps = _cooler_inputs(cooler_path, res, allelic, gap_file)
+    found = pcaller_multi(inputs, res, peaks_parameters(res),
+                          allelic=bool(allelic), gaps=gaps, device=device)
+    with open(outfil, "w") as f:
+        f.write(LOOP_HEADER)
+        f.writelines(loop_lines({c: found[c] for c in inputs}, allelic))
+    return {c: _sym_csr(*v[:3], v[4]) for c, v in inputs.items()}
+
+
+def run_loops(cooler_path: str, res: int, allelic, out_path: str,
+              gap_file: Optional[str] = None, loop_ratio: float = 0.6,
+              loop_strength: float = 16, plot: bool = False, *,
+              device) -> str:
+    """Loop calling from a cooler, as the JAX package's ``run_loops``:
+    ``call_loops`` on every chromosome of the mode, its files in
+    ``out_path``.  Returns the ``Cluster_`` file's path."""
+    if plot:
+        raise NotImplementedError(NO_PLOTS)
+    inputs, gaps = _cooler_inputs(cooler_path, res, allelic, gap_file)
+    call_loops(inputs, res, allelic, device, gaps=gaps, out_path=out_path,
+               loop_ratio=loop_ratio, loop_strength=loop_strength)
+    prefix = os.path.basename(out_path.rstrip("/"))
+    return os.path.join(out_path, ("Cluster_" if allelic
+                                   else "Cluster_Selected_")
+                        + f"{prefix}_Loops_{_proper_unit(res)}.txt")

@@ -14,6 +14,11 @@ bh_fdr``.
 Reference bugs fixed as in the JAX package (DIVERGENCES D7, D8): the loop
 background's percentile is taken over the nonzero mean values, and each
 boundary branch reports its own statistic and means.
+
+``from_cooler`` (loop and boundary tests) and ``from_files`` (compartment
+test) take the JAX package's arguments: a haplotype cooler, read one
+chromosome at a time into a float64 matrix on the device, and the call
+files.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..io.cooler import CoolerReader
 from ..ops.stats import bh_fdr, norm_sf, ttest_rel
 from .compartment import load_pc_track
 
@@ -98,6 +104,29 @@ def _gather(M: torch.Tensor, r: List[int], c: List[int]) -> List[float]:
     return M[ri, ci].to(torch.float64).tolist()
 
 
+class CoolerMatrices(Mapping):
+    """``{label: [n, n] float64 tensor on device}`` of a cooler, each
+    matrix made on the device from its pixels when it is looked up (the
+    dense symmetric matrix that ``CoolerReader.matrix`` gives)."""
+
+    def __init__(self, cooler_uri: str, res: int, device):
+        self.reader = CoolerReader(cooler_uri, res)
+        self.device = torch.device(device)
+
+    def __getitem__(self, label: str) -> torch.Tensor:
+        if label not in self.reader.chromnames:
+            raise KeyError(label)
+        n = self.reader.n_bins(label)
+        return self.reader.matrix_device(label, device=self.device,
+                                         padded=n, dtype=torch.float64)[0]
+
+    def __iter__(self):
+        return iter(self.reader.chromnames)
+
+    def __len__(self) -> int:
+        return len(self.reader.chromnames)
+
+
 # ------------------------------------------------------------------ loops
 class LoopAllelicSpecificity:
     """Maternal-vs-paternal test of loops.
@@ -113,6 +142,14 @@ class LoopAllelicSpecificity:
         self.loops = loops
         self.res = res
         self.device = torch.device(device)
+
+    @classmethod
+    def from_cooler(cls, cooler_uri: str, loop_file: str, res: int, *,
+                    device) -> "LoopAllelicSpecificity":
+        """The JAX package's arguments: a haplotype cooler and a loop
+        file."""
+        return cls(CoolerMatrices(cooler_uri, res, device), loop_file, res,
+                   device)
 
     def _load(self):
         rows = _rows(self.loops, 5, skip_header=True)
@@ -232,6 +269,15 @@ class BoundaryAllelicSpecificity:
         self.device = torch.device(device)
         self.offset = offset
 
+    @classmethod
+    def from_cooler(cls, cooler_fil: str, boundary_fil: str, res: int,
+                    offset: int = 10, *,
+                    device) -> "BoundaryAllelicSpecificity":
+        """The JAX package's arguments: a haplotype cooler and a boundary
+        file."""
+        return cls(CoolerMatrices(cooler_fil, res, device), boundary_fil,
+                   res, device, offset)
+
     def _samples(self, rows) -> Dict[tuple, tuple]:
         """{(chrom, bin): (M sample, P sample, M mean, P mean, M joint
         mean, P joint mean)}: the means on the device in float64, over the
@@ -334,6 +380,12 @@ class CompartmentAllelicSpecificity:
         self.p_pc = load(paternal_pc)
         self.res = res
         self.device = torch.device(device)
+
+    @classmethod
+    def from_files(cls, maternal_pc: str, paternal_pc: str, res: int, *,
+                   device) -> "CompartmentAllelicSpecificity":
+        """The JAX package's arguments: the two compartment files."""
+        return cls(maternal_pc, paternal_pc, res, device)
 
     def _oriented(self):
         for chro in self.m_pc:

@@ -10,7 +10,8 @@ extraction, gap-proximity filtering and the boundary -> domain rules are
 host numpy, copied from the JAX package.
 
 Traditional mode reads balanced matrices (NaN -> 0), allelic mode the raw
-counts (StructureFind.py:850-865).  Plots are not ported.
+counts (StructureFind.py:850-865).  ``run_tads`` reads them from a cooler
+(``io.cooler``).  Plots are not ported.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import torch
 from ..core import pad_to_shape
 from ..ops.di import directionality_index_band, tad_gap_mask_counts
 from ..ops.hmm import GMMHMM, baum_welch_fused, viterbi
-from .compartment import _proper_unit
+from ..io.cooler import CoolerReader
+from .compartment import NO_PLOTS, _allelic_chroms, _proper_unit
 
 log = logging.getLogger(__name__)
 
@@ -350,12 +352,7 @@ def call_tads(inputs: Mapping, res: int, allelic, device,
     "domains"}}.
     """
     device = torch.device(device)
-    if allelic is False or allelic is None:
-        chroms = list(inputs)
-    elif allelic in ("Maternal", "Paternal"):
-        chroms = [c for c in inputs if str(c).startswith(allelic[0])]
-    else:
-        raise ValueError(f"Unknown allelic key {allelic!r}")
+    chroms = _allelic_chroms(inputs, allelic)
     stats = {} if stats is None else stats
 
     prep = _di_batched(inputs, chroms, res, min_tad, window, test_type,
@@ -418,3 +415,23 @@ def write_tad_files(out_path: str, results: Mapping, res: int,
             ds, de = r["domains"]
             for s, e in zip(ds, de):
                 f.write(f"{strip(c)}\t{s}\t{e}\n")
+
+
+def run_tads(cooler_path: str, res: int, allelic, out_path: str,
+             min_tad: int = 200_000, max_tad: int = 4_000_000,
+             state_num: int = 3, window: int = 600_000,
+             test_type: str = "ttest", plot: bool = False, *, device):
+    """TAD calling from a cooler, as the JAX package's ``run_tads``: every
+    chromosome of the mode (traditional: balanced by ``bins/weight``;
+    allelic: raw) through ``call_tads``, with the DI, All_Boundary,
+    Filtered_Boundary and Domain files in ``out_path``."""
+    if plot:
+        raise NotImplementedError(NO_PLOTS)
+    reader = CoolerReader(cooler_path, res)
+    inputs = {}
+    for c in _allelic_chroms(reader.chromnames, allelic):
+        wt = None if allelic else reader.bins_weight(c)
+        inputs[c] = (*reader.fetch_coo(c), wt, reader.n_bins(c))
+    return call_tads(inputs, res, allelic, device, min_tad=min_tad,
+                     max_tad=max_tad, state_num=state_num, window=window,
+                     test_type=test_type, out_path=out_path)

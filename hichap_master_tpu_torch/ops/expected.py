@@ -15,14 +15,14 @@ StructureFind.py:201-337):
   NaN -> 0, inf -> 1.
 
 Every function takes ``[N, N]`` with a scalar ``n`` or ``[C, N, N]`` with
-``n [C]``.  The per-distance scatter is one ``index_add_``; the sliding box
+``n [C]``.  The per-distance sums shear the matrix and reduce over rows (a
+fixed order, no float atomics); the sliding box
 sum is one ``conv2d`` (TF32 is off, ``device.set_precision``), which adds the
 same cells as the JAX package's shifted adds in another order.
 """
 
 from __future__ import annotations
 
-import math
 
 import torch
 import torch.nn.functional as F
@@ -49,15 +49,22 @@ def distance_decay(M: torch.Tensor, gap: torch.Tensor, n) -> torch.Tensor:
     n = sizes_on(n, M)
     N = M.shape[-1]
     lead = M.shape[:-2]
-    C = math.prod(lead)
     valid = valid_row_mask(n, N)
     keep = valid[..., :, None] & valid[..., None, :] & ~gap[..., None, :]
     W = torch.where(keep, M, torch.zeros((), dtype=M.dtype, device=M.device))
-    d = _absdiff(N, M.device)
-    idx = (torch.arange(C, device=M.device)[:, None, None] * N + d).reshape(-1)
-    sums = torch.zeros(C * N, dtype=M.dtype, device=M.device)
-    sums.index_add_(0, idx, W.reshape(-1))
-    sums = sums.reshape(*lead, N)
+    # per-distance sums in a fixed order (a float index_add_ on a card adds
+    # in whatever order its atomics land): shear the matrix so that row i,
+    # column d holds W[i, i + d] (and W[i + d, i] from the transpose), then
+    # one reduction over rows
+    i = torch.arange(N, device=M.device)
+    shift = i[:, None] + i[None, :]
+    col = (shift % N).expand(*lead, N, N)
+    zero = torch.zeros((), dtype=M.dtype, device=M.device)
+    upper = torch.where(shift < N, torch.gather(W, -1, col), zero)
+    lower = torch.where((shift < N) & (i[None, :] > 0),
+                        torch.gather(W.transpose(-1, -2), -1, col), zero)
+    sums = upper.sum(-2) + lower.sum(-2)
+    del upper, lower
 
     # gap-count prefix sums over the true range
     g_le = torch.cumsum((gap & valid).to(torch.int64), -1)   # #gaps <= k

@@ -43,10 +43,11 @@ def _top(w: torch.Tensor, V: torch.Tensor, k: int):
     return Vk, torch.gather(w, -1, order)
 
 
-def start_block(N: int, q: int, dtype=torch.float32, device=None,
+def start_block(N: int, q: int, dtype=torch.float32, *, device,
                 seed: int = 0) -> torch.Tensor:
-    """A standard-normal ``[N, q]`` start block from a seeded generator."""
-    g = torch.Generator(device=device if device is not None else "cpu")
+    """A standard-normal ``[N, q]`` start block from a generator on
+    ``device``, seeded."""
+    g = torch.Generator(device=device)
     g.manual_seed(seed)
     return torch.randn(N, q, generator=g, dtype=dtype, device=device)
 
@@ -61,7 +62,7 @@ def pca_components_subspace(X: torch.Tensor, n, k: int = 3,
     C = _covariance(X, valid)
     q = k + oversample
     if q0 is None:
-        q0 = start_block(N, q, X.dtype, X.device)
+        q0 = start_block(N, q, X.dtype, device=X.device)
     if tuple(q0.shape) != (N, q):
         raise ValueError(f"q0 must be [{N}, {q}], got {tuple(q0.shape)}")
     Q = q0.to(device=X.device, dtype=X.dtype) * valid[..., :, None]

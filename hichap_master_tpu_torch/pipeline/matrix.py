@@ -1,10 +1,14 @@
 """Contact-matrix construction, traditional and haplotype-resolved, on the
 device.
 
-Counterpart of ``hichap_master_tpu/pipeline/matrix.py`` minus the bed
-reading and the cooler writing: pairs come in as arrays, and the matrices,
-corrected matrices, gap lists and ICE weights come out as tensors (the
-weights in cooler bins, as ``cooler balance`` would store them).
+Counterpart of ``hichap_master_tpu/pipeline/matrix.py``.  The in-memory
+drivers (``haplotype_matrix_construction``,
+``traditional_matrix_construction``) take pairs as arrays and return the
+matrices, corrected matrices, gap lists and ICE weights as tensors (the
+weights in cooler bins, as ``cooler balance`` would store them); the file
+drivers (``haplotype_matrix_files``, ``traditional_matrix_files``) read
+bed directories through ``io.bedio`` and write each cooler once, weights
+included, through ``io.cooler``.
 
 Where the JAX package keeps most of this stage on the host (TPU scatter
 serialises, so it bins with ``np.bincount`` and a native hash), the port
@@ -30,6 +34,8 @@ the reference's P_P and R2 bugs (DIVERGENCES.md):
 from __future__ import annotations
 
 import contextlib
+import os
+import shutil
 import time
 from typing import Dict, Mapping, Sequence
 
@@ -37,6 +43,10 @@ import numpy as np
 import torch
 
 from ..core import Genome, bucket_groups, pad_to_shape
+from ..io.bedio import (ALLELIC_CLASSES, TAG_BOTH, TAG_R1, TAG_R2,
+                        allelic_classes, bed_prefix, discover_allelic_beds,
+                        valid_pairs)
+from ..io.cooler import cooler_group, write_multi_cooler
 from ..ops.balance import ice_balance, ice_balance_batch
 from ..ops.binning import (bin_genomewide_bins,
                            bin_genomewide_single_triangle_bins, bin_intra,
@@ -50,8 +60,6 @@ from ..ops.sparse_impute import (SparseU, disk_row_intervals,
                                  sparse_impute_vote_rowptr)
 
 DENSE_GW_MAX_BINS = 65_536
-TAG_BOTH, TAG_R1, TAG_R2 = 0, 1, 2
-ALLELIC_CLASSES = ("Bi_Allelic", "M_M", "P_P", "M_P", "P_M")
 
 
 # ---------------------------------------------------------- accumulators
@@ -760,11 +768,20 @@ def traditional_matrix_construction(
     ``weights`` in cooler bins and their ``ice`` stats (one replicate: its
     weights are the merged ones, as its matrices are)."""
     whole_res, local_res = list(whole_res or []), list(local_res or [])
+    builds = ((prefix, build_traditional(
+        pairs, genome, whole_res, local_res, device=device,
+        dense_max_bins=dense_max_bins))
+        for prefix, pairs in replicates.items())
+    return _traditional(builds, genome, whole_res, local_res, device,
+                        dense_max_bins, balance=True)
+
+
+def _traditional(builds, genome, whole_res, local_res, device,
+                 dense_max_bins, balance: bool) -> Dict[str, dict]:
+    """``<prefix>Multi`` entries of ``(prefix, (whole, local))`` builds and
+    their ``Merged_Multi`` sum, with ICE weights when ``balance``."""
     out = {}
-    for prefix, pairs in replicates.items():
-        whole, local = build_traditional(
-            pairs, genome, whole_res, local_res, device=device,
-            dense_max_bins=dense_max_bins)
+    for prefix, (whole, local) in builds:
         out[prefix + "Multi"] = {"whole": whole, "local": local}
     reps = list(out.values())
     if len(reps) == 1:
@@ -776,6 +793,8 @@ def traditional_matrix_construction(
             "local": {res: {c: sum(r["local"][res][c] for r in reps)
                             for c in genome.labels} for res in local_res}}
     out["Merged_Multi"] = merged
+    if not balance:
+        return out
     for entry in (reps if len(reps) > 1 else []) + [merged]:
         entry["weights"], entry["ice"] = _tradition_weights(
             entry["whole"], entry["local"], genome, whole_res, local_res,
@@ -783,3 +802,165 @@ def traditional_matrix_construction(
     if len(reps) == 1:
         reps[0].update(weights=merged["weights"], ice=merged["ice"])
     return out
+
+
+# ------------------------------------------------------------ file drivers
+_INTER_MD = {"onlyIntra": "False"}
+_INTRA_MD = {"onlyIntra": "True"}
+
+
+def _gw_group(genome: Genome, res: int, M, dtype: str, weights=None):
+    """The cooler group of a genome-wide matrix: a dense ``[S, S]`` tensor,
+    an accumulator, or a corrected upper-triangle COO tuple."""
+    if isinstance(M, _SparseAcc):
+        kw = {"genomewide_coo": M.coo()}
+    elif isinstance(M, tuple):
+        kw = {"genomewide_coo": M}
+    else:
+        kw = {"genomewide": M}
+    return cooler_group(genome, res, dtype=dtype, weights=weights,
+                        metadata=_INTER_MD, **kw)
+
+
+def _write_traditional_cooler(path: str, genome: Genome, entry: dict,
+                              whole_res, local_res) -> int:
+    w = entry.get("weights", {})
+    groups = {res: _gw_group(genome, res, entry["whole"][res], "int",
+                             w.get(res)) for res in whole_res}
+    for res in local_res:
+        groups[res] = cooler_group(genome, res, entry["local"][res],
+                                   weights=w.get(res), metadata=_INTRA_MD)
+    return write_multi_cooler(path, groups)
+
+
+def _write_hap_coolers(cooler_dir: str, prefix: str, genome: Genome,
+                       out: dict, whole_res, local_res) -> Dict[str, str]:
+    """The three coolers and the gap npz of one prefix's matrix-stage
+    output (``_hap_outputs``), each file written once."""
+    hap = genome.haplotype()
+    paths = {k: os.path.join(cooler_dir, prefix + name) for k, name in (
+        ("tradition", "Traditional_Multi.cool"),
+        ("unimputated", "UnImputated_Haplotype_Multi.cool"),
+        ("imputated", "Imputated_Haplotype_Multi.cool"),
+        ("gap", "Imputated_Gap.npz"))}
+    _write_traditional_cooler(paths["tradition"], genome, out["tradition"],
+                              whole_res, local_res)
+    for key, dtype in (("unimputated", "int"), ("imputated", "float")):
+        groups = {res: _gw_group(hap, res, out[key]["whole"][res], dtype)
+                  for res in whole_res}
+        for res in local_res:
+            groups[res] = cooler_group(hap, res, out[key]["local"][res],
+                                       dtype=dtype, metadata=_INTRA_MD)
+        write_multi_cooler(paths[key], groups)
+    gaps = {r: {h + c: lib[h + c] for c in genome.labels for h in "MP"}
+            for r, lib in out["gaps"].items()}
+    np.savez(paths["gap"], **{k: np.array(v, dtype=object)
+                              for k, v in gaps.items()})
+    return paths
+
+
+def haplotype_matrix_files(
+    out_path: str, rep_paths: Sequence[str], genome_size: str,
+    whole_res: Sequence[int], local_res: Sequence[int],
+    imputation_region: int = 10_000_000, imputation_min: int = 2,
+    imputation_ratio: float = 0.9, chroms: Sequence[str] = ("#", "X"), *,
+    device, dense_max_bins: int = DENSE_GW_MAX_BINS,
+    walls: dict | None = None, stats: dict | None = None,
+) -> Dict[str, Dict[str, str]]:
+    """The haplotype matrix stage from allelic bed directories to files:
+    ``out_path/Cooler/`` receives ``Hap_genomeSize`` and, per replicate
+    prefix (and ``Merged_`` for more than one replicate),
+    ``<prefix>Traditional_Multi.cool`` (with ICE weights),
+    ``<prefix>UnImputated_Haplotype_Multi.cool``,
+    ``<prefix>Imputated_Haplotype_Multi.cool`` and
+    ``<prefix>Imputated_Gap.npz``, as the JAX package's
+    ``haplotype_matrix_construction`` writes them.  Returns
+    ``{prefix: {"tradition", "unimputated", "imputated", "gap"}: path}``.
+    ``walls`` receives the seconds of ``parse``, the build's steps and
+    ``cooler_write``; ``stats`` the pairs parsed per prefix and class."""
+    genome = Genome.from_file(genome_size, chroms)
+    cooler_dir = os.path.join(out_path, "Cooler")
+    os.makedirs(cooler_dir, exist_ok=True)
+    genome.haplotype().write(os.path.join(cooler_dir, "Hap_genomeSize"))
+    whole_res, local_res = list(whole_res or []), list(local_res or [])
+    out, total = {}, None
+    for rep in rep_paths:
+        prefix = bed_prefix([f for v in discover_allelic_beds(rep).values()
+                             for f in v])
+        with _step(walls, "parse", device):
+            classes = allelic_classes(rep, genome, device=device)
+        if stats is not None:
+            stats.setdefault("pairs", {})[prefix] = {
+                k: int(v[0].numel()) for k, v in classes.items()}
+        data = build_haplotype_datasets(
+            classes, genome, whole_res, local_res, imputation_region,
+            imputation_min, imputation_ratio, device=device,
+            dense_max_bins=dense_max_bins, walls=walls)
+        del classes
+        res_out = _hap_outputs(data, genome, whole_res, local_res,
+                               dense_max_bins, walls, device)
+        with _step(walls, "cooler_write", device):
+            out[prefix] = _write_hap_coolers(cooler_dir, prefix, genome,
+                                             res_out, whole_res, local_res)
+        del res_out
+        total = data if total is None else _sum_datasets(total, data)
+        del data
+    if len(rep_paths) > 1:
+        merged = _hap_outputs(total, genome, whole_res, local_res,
+                              dense_max_bins, walls, device)
+        with _step(walls, "cooler_write", device):
+            out["Merged_"] = _write_hap_coolers(cooler_dir, "Merged_", genome,
+                                                merged, whole_res, local_res)
+    return out
+
+
+def traditional_matrix_files(
+    out_path: str, rep_paths: Sequence[str], genome_size: str,
+    whole_res: Sequence[int], local_res: Sequence[int],
+    chroms: Sequence[str] = ("#", "X"), balance: bool = True, *, device,
+    dense_max_bins: int = DENSE_GW_MAX_BINS, walls: dict | None = None,
+) -> Dict[str, object]:
+    """The traditional matrix stage from valid-bed directories (every
+    ``*_Valid.bed`` of each) to ``out_path/Cooler/<prefix>Multi.cool`` per
+    replicate and ``Merged_Multi.cool`` (a copy of the replicate's file for
+    one replicate), with ICE weights when ``balance``, as the JAX package's
+    ``traditional_matrix_construction`` writes them.  Returns
+    ``{"coolers": [paths], "merged": path}``."""
+    genome = Genome.from_file(genome_size, chroms)
+    cooler_dir = os.path.join(out_path, "Cooler")
+    os.makedirs(cooler_dir, exist_ok=True)
+    whole_res, local_res = list(whole_res or []), list(local_res or [])
+
+    def builds():
+        for rep in rep_paths:
+            files = [os.path.join(rep, f) for f in sorted(os.listdir(rep))
+                     if f.endswith("_Valid.bed")]
+            if not files:
+                raise FileNotFoundError(f"no *_Valid.bed under {rep}")
+            with _step(walls, "parse", device):
+                pairs = valid_pairs(files, genome, device=device)
+            with _step(walls, "build", device):
+                built = build_traditional(pairs, genome, whole_res,
+                                          local_res, device=device,
+                                          dense_max_bins=dense_max_bins)
+            yield bed_prefix(files), built
+
+    with _step(walls, "matrix", device):
+        entries = _traditional(builds(), genome, whole_res, local_res,
+                               device, dense_max_bins, balance)
+    merged = os.path.join(cooler_dir, "Merged_Multi.cool")
+    coolers = []
+    with _step(walls, "cooler_write", device):
+        for name, entry in entries.items():
+            if name == "Merged_Multi":
+                continue
+            coolers.append(os.path.join(cooler_dir, name + ".cool"))
+            _write_traditional_cooler(coolers[-1], genome, entry, whole_res,
+                                      local_res)
+        if len(coolers) == 1:
+            shutil.copyfile(coolers[0], merged)
+        else:
+            _write_traditional_cooler(merged, genome,
+                                      entries["Merged_Multi"], whole_res,
+                                      local_res)
+    return {"coolers": coolers + [merged], "merged": merged}

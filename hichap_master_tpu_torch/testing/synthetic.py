@@ -327,3 +327,106 @@ def ab_coo(rng: np.random.Generator, n: int, block: int = 10, band=None):
     return _band_poisson(
         rng, n, band, lambda i, j: (1.0 + 0.5 * s[i] * s[j])
         * np.where((s[i] > 0) & (s[j] > 0), 1.2, 1.0))
+
+
+# ------------------------------------------------------------- bed writers
+_BED_CHUNK = 1 << 20   # rows formatted at a time
+_TAGS = (b"Both", b"R1", b"R2")
+
+
+def _table(words) -> tuple:
+    """([K, W] uint8 bytes, [K] lengths) of byte strings."""
+    out = np.zeros((len(words), max([len(w) for w in words] + [1])),
+                   np.uint8)
+    for i, w in enumerate(words):
+        out[i, :len(w)] = np.frombuffer(w, np.uint8)
+    return out, np.asarray([len(w) for w in words], np.int64)
+
+
+def _part(part, s: int, e: int) -> tuple:
+    """(bytes [rows, W], kept [rows, W]) of one part of a field for rows
+    s..e: ``("word", table, lengths, index)``, ``("int", values)`` (non-
+    negative decimal) or ``("const", bytes)``."""
+    if part[0] == "word":
+        _, tab, lens, idx = part
+        i = np.asarray(idx[s:e], np.int64)
+        return tab[i], np.arange(tab.shape[1]) < lens[i][:, None]
+    if part[0] == "int":
+        v = np.asarray(part[1][s:e], np.int64)
+        if v.size and int(v.min()) < 0:
+            raise ValueError("bed positions must be non-negative")
+        W = len(str(int(v.max()))) if v.size else 1
+        d = v[:, None] // 10 ** np.arange(W - 1, -1, -1, dtype=np.int64) % 10
+        width = np.where(v == 0, 1, W - np.argmax(d != 0, axis=1))
+        return ((d + ord("0")).astype(np.uint8),
+                np.arange(W) >= (W - width)[:, None])
+    c = np.frombuffer(part[1], np.uint8)
+    return (np.broadcast_to(c, (e - s, c.size)),
+            np.ones((e - s, c.size), bool))
+
+
+def _format_rows(fields, n: int, f) -> None:
+    """Write ``n`` lines of tab-separated ``fields`` (each a list of parts,
+    see ``_part``, written one after the other) to the binary file ``f``,
+    a chunk of rows at a time, with no Python loop per row."""
+    for s in range(0, n, _BED_CHUNK):
+        e = min(n, s + _BED_CHUNK)
+        blocks, keeps = [], []
+        for k, parts in enumerate(fields):
+            for part in parts:
+                b, m = _part(part, s, e)
+                blocks.append(b)
+                keeps.append(m)
+            blocks.append(np.full((e - s, 1), 10 if k == len(fields) - 1
+                                  else 9, np.uint8))
+            keeps.append(np.ones((e - s, 1), bool))
+        f.write(np.concatenate(blocks, 1)[np.concatenate(keeps, 1)]
+                .tobytes())
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def write_allelic_beds(dirpath: str, prefix: str, classes, labels) -> dict:
+    """The allelic bed classes of ``classes`` (``{class: (c1, p1, c2,
+    p2[, tag])}``, tensors or arrays; chromosome indices into ``labels``)
+    as ``<prefix>Valid_<class>.bed`` files in ``dirpath``: ``chrom1 pos1
+    chrom2 pos2 [tag]`` lines.  Returns {class: path}."""
+    import os
+
+    os.makedirs(dirpath, exist_ok=True)
+    tab, lens = _table([str(l).encode() for l in labels])
+    tags = _table(list(_TAGS))
+    out = {}
+    for cls, cols in classes.items():
+        c1, p1, c2, p2, *tag = (_host(a) for a in cols)
+        fields = [[("word", tab, lens, c1)], [("int", p1)],
+                  [("word", tab, lens, c2)], [("int", p2)]]
+        if tag:
+            fields.append([("word", *tags, tag[0])])
+        out[cls] = os.path.join(dirpath, f"{prefix}Valid_{cls}.bed")
+        with open(out[cls], "wb") as f:
+            _format_rows(fields, len(c1), f)
+    return out
+
+
+def write_valid_bed(path: str, pairs, labels) -> str:
+    """A 15-column valid bed of ``(c1, p1, c2, p2)`` (tensors or arrays) in
+    the layout of the JAX package's test writer: read name, chrom1, strand,
+    pos1, length, score, fragment-mid1 (= pos1), fragment index, chrom2,
+    strand, pos2, length, score, fragment-mid2 (= pos2), fragment index."""
+    c1, p1, c2, p2 = (_host(a) for a in pairs)
+    tab, lens = _table([str(l).encode() for l in labels])
+
+    def const(b):
+        return [("const", b)]
+
+    fields = [[("const", b"read"), ("int", np.arange(len(c1)))],
+              [("word", tab, lens, c1)], const(b"0"), [("int", p1)],
+              const(b"100"), const(b"-10"), [("int", p1)], const(b"0"),
+              [("word", tab, lens, c2)], const(b"16"), [("int", p2)],
+              const(b"100"), const(b"-12"), [("int", p2)], const(b"0")]
+    with open(path, "wb") as f:
+        _format_rows(fields, len(c1), f)
+    return path

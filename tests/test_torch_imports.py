@@ -18,6 +18,8 @@ import importlib, pkgutil
 import hichap_master_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 assert "hichap_master_tpu_torch.pipeline.matrix" in names, names
+for io in ("bedio", "cooler", "hdf5"):
+    assert f"hichap_master_tpu_torch.io.{io}" in names, names
 for name in names:
     importlib.import_module(name)
 loaded = [k for k, v in sys.modules.items()
@@ -40,6 +42,32 @@ def test_port_imports_without_jax():
                        env=_env())
     assert r.returncode == 0, r.stderr
     assert int(r.stdout.split()[-1]) >= 37  # every module was imported
+
+
+_HOST_BUILD = """
+import ctypes, shutil, sys
+from pathlib import Path
+assert shutil.which("nvcc") is None
+from hichap_master_tpu_torch.kernels import _build
+from hichap_master_tpu_torch.io import bedio
+path = Path(sys.argv[1]) / "libhost.so"
+_build.build_host(path)
+_build.host_library_path = lambda: path
+print(bedio._parse_allelic(b"chr1\\t5\\t1\\t9\\tR2\\n", ["1"], True))
+"""
+
+
+def test_host_scanner_builds_without_nvcc(tmp_path):
+    """The bed scanner is host C++: it builds with the host compiler where
+    no nvcc is on the path."""
+    path = os.pathsep.join(p for p in os.environ["PATH"].split(os.pathsep)
+                           if not os.path.exists(os.path.join(p, "nvcc")))
+    r = subprocess.run([sys.executable, "-c", _HOST_BUILD, str(tmp_path)],
+                       cwd=REPO, capture_output=True, text=True, timeout=300,
+                       env=_env(PATH=path))
+    assert r.returncode == 0, r.stderr
+    assert (tmp_path / "libhost.so").exists()
+    assert "array([2], dtype=int8)" in r.stdout
 
 
 def _smoke(cwd):

@@ -79,3 +79,17 @@ def test_default_start_converges_to_eigh(rng):
     _aligned(approx.numpy(), exact.numpy(), n)
     with pytest.raises(ValueError):
         P.pca_components(C, n, 3, q0=torch.zeros(N, 3))
+
+
+def test_start_block_takes_its_device():
+    """The start block has no CPU default: ``device`` is required, and the
+    block and its generator live where it says."""
+    with pytest.raises(TypeError, match="device"):
+        P.start_block(8, 7)
+    a = P.start_block(8, 7, device="cpu")
+    assert a.device.type == "cpu" and a.shape == (8, 7)
+    torch.testing.assert_close(a, P.start_block(8, 7, device="cpu"))
+    assert not torch.equal(a, P.start_block(8, 7, device="cpu", seed=1))
+    X = torch.zeros(2, 16, 16, dtype=torch.float64)
+    comps, _ = P.pca_components_subspace(X + torch.eye(16), 16, 3)
+    assert comps.dtype == torch.float64
