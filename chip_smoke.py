@@ -71,16 +71,30 @@ Phases, each printed on its own line, any failure raising:
    40 kb, ``run_loops`` on the Traditional cooler at 10 kb with its
    weights, and the three specificity tests from the cooler and the
    written call files; after the counters are read, the checks: pairs
-   parsed = the draw's, every integer pixel table identical to the
-   in-memory stage's on the same pairs (float tables identical or within
-   FLOAT_TABLE_RTOL), Traditional weights within 1e-4 with the same NaN
-   sets, each driver's calls identical to its in-memory entry point fed
-   the reader's tables; then the valid-bed path at 1/VALID_EVERY of the
-   pairs (a 15-column bed through ``traditional_matrix_files``), each
-   step's wall and rate on its own line, and the temporary files removed;
-6. the launch counters of each path, each kernel of the path > 0, and one
+   parsed = the draw's, every pixel table, integer and float, identical
+   to the in-memory stage's on the same pairs, Traditional weights within
+   1e-4 with the same NaN sets, each driver's calls identical to its
+   in-memory entry point fed the reader's tables; then the valid-bed path
+   at 1/VALID_EVERY of the pairs (a 15-column bed through
+   ``traditional_matrix_files``), each step's wall and rate on its own
+   line;
+6. the same beds through the command line, with its own counters: the
+   ``hichap-torch`` sub-commands in this process (``cli.run``, default
+   device): ``matrix``, ``compartment`` (traditional, M, P), ``tads`` and
+   ``loops`` on M, ``loops`` on the Traditional cooler at 10 kb and the
+   three ``specificity`` commands (``loops`` at 10 kb on the files phase's
+   Traditional cooler, see ``cli_phase``); checks: the haplotype coolers
+   and the gap npz byte for byte the files phase's (a second run of the
+   matrix stage), the Traditional pixel tables identical and its weights
+   within 1e-4, every output file of the analysis commands identical to
+   the drivers', a metrics JSON for each command; then the temporary
+   files are removed;
+7. the launch counters of each path, each kernel of the path > 0, and one
    JSON line with the per-kernel results (``launches_by_path``: analysis,
-   diploid, allelic, files).
+   diploid, allelic, files, cli).
+
+The diploid, files and CLI paths each report their peak device memory
+(``torch.cuda.max_memory_allocated``).
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
 every phase passed.
@@ -125,14 +139,9 @@ ALLELIC_WHOLE = (500_000,)
 # loops'
 MATERNAL_CALLED_MIN = 0.4
 # the files phase: the replicate's prefix; the valid-bed path's share of
-# the pairs (every VALID_EVERY-th); the imputed float tables' tolerance
-# against the in-memory stage where they are not identical (the 10 kb
-# correction's float64 row sums, ``index_add_`` in
-# ``ops.sparse.genomewide_correction_coo``, add in the order their atomics
-# land: ~1e-15 relative)
+# the pairs (every VALID_EVERY-th)
 FILES_PREFIX = "GM12878_R1_"
 VALID_EVERY = 10
-FLOAT_TABLE_RTOL = 1e-12
 
 
 def log(msg: str) -> None:
@@ -1754,21 +1763,14 @@ def _written_pixels(M, genome, res, dtype):
 
 
 def _same_table(table, want, what, dev):
-    """The read-back ``(bin1, bin2, count)`` against the in-memory table:
-    ids identical; integer counts identical; float counts identical, or
-    the largest relative difference (returned) when not."""
+    """The read-back ``(bin1, bin2, count)`` identical to the in-memory
+    table, ids and counts (integer or float)."""
     b1, b2, v = (torch.from_numpy(a).to(dev) for a in table)
     w1, w2, wv = want
     check(torch.equal(b1, w1.long()) and torch.equal(b2, w2.long()),
           f"{what}: pixel ids differ from the in-memory table")
-    if not v.is_floating_point():
-        check(torch.equal(v, wv.to(v.dtype)),
-              f"{what}: counts differ from the in-memory table")
-        return 0.0
-    wv = wv.double()
-    if torch.equal(v, wv):
-        return 0.0
-    return float(((v - wv).abs() / wv.abs()).max())
+    check(torch.equal(v, wv.to(v.dtype)),
+          f"{what}: counts differ from the in-memory table")
 
 
 def _close_weights(got, want, what):
@@ -1809,10 +1811,9 @@ def _lines(path):
 def files_phase(allelic, al, dev):
     """The user path through files: the allelic draw written as beds,
     ``haplotype_matrix_files`` to coolers, the cooler-backed drivers on
-    them; then (outside the launch counters' window, see ``main``) the
-    checks against the in-memory stage and entry points, and the
-    valid-bed path at a tenth of the pairs.  Returns a function that runs
-    the checks."""
+    them.  Returns the phase's state for ``files_checks`` (which runs
+    outside the launch counters' window, see ``main``) and the CLI
+    phase."""
     from hichap_master_tpu_torch.models.compartment import run_compartment
     from hichap_master_tpu_torch.models.loops import run_loops
     from hichap_master_tpu_torch.models.specificity import (
@@ -1887,7 +1888,8 @@ def files_phase(allelic, al, dev):
 
     def specificity():
         return (LoopAllelicSpecificity.from_cooler(imp, loop_file, res_l,
-                                                   device=dev).run(),
+                                                   device=dev).run(
+                    where("Loop_Specificity.txt")),
                 BoundaryAllelicSpecificity.from_cooler(
                     imp, bound_file, res_l, device=dev).run(
                     where("Boundary_Specificity.txt")),
@@ -1896,20 +1898,16 @@ def files_phase(allelic, al, dev):
                     where("Compartment_Specificity.txt")))
 
     res["specificity"] = _timed(walls, "specificity", specificity)
-    state = dict(tmp=tmp, walls=walls, steps=steps, stats=stats, files=files,
-                 res=res, loop_file=loop_file, bound_file=bound_file,
-                 comp=comp, trad_pc=trad_pc, sizes=sizes, beds=beds)
-    return lambda: files_checks(allelic, al, state, dev)
+    return dict(tmp=tmp, walls=walls, steps=steps, stats=stats, files=files,
+                res=res, loop_file=loop_file, bound_file=bound_file,
+                comp=comp, trad_pc=trad_pc, sizes=sizes, beds=beds,
+                calls=calls)
 
 
 def files_checks(allelic, al, st, dev):
-    """The files phase's checks and report, then the valid-bed path; the
-    temporary directory is removed at the end, whatever happens."""
-    try:
-        _files_checks(allelic, al, st, dev)
-        _valid_path(allelic, st, dev)
-    finally:
-        shutil.rmtree(st["tmp"], ignore_errors=True)
+    """The files phase's checks and report, then the valid-bed path."""
+    _files_checks(allelic, al, st, dev)
+    _valid_path(allelic, st, dev)
 
 
 def _files_checks(allelic, al, st, dev):
@@ -1942,7 +1940,7 @@ def _files_checks(allelic, al, st, dev):
     r = haplotype_matrix_construction(
         {FILES_PREFIX: classes}, genome, DIPLOID_WHOLE, DIPLOID_LOCAL,
         **DIPLOID_VOTE, device=dev)[FILES_PREFIX]
-    read_s, read_mb, float_err, w_err = 0.0, 0.0, {}, 0.0
+    read_s, read_mb, w_err = 0.0, 0.0, 0.0
     for key, g, dtype in (("tradition", genome, "int"),
                           ("unimputated", hap, "int"),
                           ("imputated", hap, "float")):
@@ -1956,17 +1954,12 @@ def _files_checks(allelic, al, st, dev):
             read_s += time.perf_counter() - t0
             read_mb += sum(a.nbytes for a in table) / 1e6
             want = _written_pixels(r[key][part][rs], g, rs, dtype)
-            err = _same_table(table, want, f"{key} {rs}", dev)
-            if dtype == "float":
-                float_err[rs] = err
+            _same_table(table, want, f"{key} {rs}", dev)
             if key == "tradition":
                 w_err = max(w_err, _close_weights(
                     reader.bins_weight(), r["tradition"]["weights"][rs],
                     f"Traditional weights {rs}"))
             del table, want
-    for rs, err in float_err.items():
-        check(err <= FLOAT_TABLE_RTOL, f"imputed {rs}: counts off the "
-              f"in-memory ones by {err:.2e}")
 
     # the drivers' calls against the in-memory entry points fed the
     # reader's tables
@@ -2032,12 +2025,9 @@ def _files_checks(allelic, al, st, dev):
     log("files:   drivers: " + ", ".join(
         f"{k} {v:.3f} s" for k, v in walls.items()
         if k not in ("bed write", "matrix files")))
-    log(f"files:   checks: pairs parsed per class = the draw's; integer "
-        f"tables identical to the in-memory stage's; imputed float tables "
-        + ", ".join(f"{rs // 1000} kb " + ("identical" if e == 0 else
-                                           f"max rel diff {e:.2e}")
-                    for rs, e in float_err.items())
-        + f"; Traditional weights within {w_err:.1e} (tol 1e-4), same NaN "
+    log(f"files:   checks: pairs parsed per class = the draw's; every "
+        f"pixel table, integer and float, identical to the in-memory stage's"
+        f"; Traditional weights within {w_err:.1e} (tol 1e-4), same NaN "
         f"sets; every driver's calls identical to its in-memory entry point "
         f"on the reader's tables")
     # information: how far the calls agree with the allelic phase's
@@ -2129,6 +2119,149 @@ def _valid_path(allelic, st, dev):
         f"within {w_err:.1e}")
 
 
+def _cli(argv):
+    """One in-process ``hichap-torch`` call (``cli.run``); the root logging
+    handlers and the excepthook it installs are removed again."""
+    import logging
+    import sys
+
+    from hichap_master_tpu_torch import cli
+
+    root = logging.getLogger()
+    before, hook = list(root.handlers), sys.excepthook
+    try:
+        rc = cli.run([str(a) for a in argv])
+    finally:
+        for h in root.handlers[:]:
+            if h not in before:
+                root.removeHandler(h)
+                h.close()
+        sys.excepthook = hook
+    check(rc == 0, f"hichap-torch {argv[0]} exited {rc}")
+
+
+def cli_phase(st):
+    """The files phase's beds through the command line, in this process and
+    on the default device (``cuda``): ``matrix`` (whole 500 kb + 10 kb,
+    local 40 kb, the files phase's vote), ``compartment`` at 500 kb on the
+    Traditional cooler and then on M and P with its PC file, ``tads`` and
+    ``loops`` on M at 40 kb, ``loops`` on the Traditional cooler at 10 kb,
+    and the three ``specificity`` commands on the files phase's loop and
+    boundary files.  ``loops`` at 10 kb balances by the Traditional
+    cooler's weights, which K2's float32 atomics make differ between two
+    runs of the matrix stage (within 1e-4), and its files print those
+    balanced values: it reads the files phase's Traditional cooler, so
+    that its files can equal the driver's.  Returns the phase's state for
+    ``cli_checks``."""
+    out = os.path.join(st["tmp"], "cli")
+    ws, calls = os.path.join(out, "ws"), os.path.join(out, "calls")
+    res_w, res_l, res_hi = ALLELIC_WHOLE[0], DIPLOID_LOCAL[0], \
+        min(DIPLOID_WHOLE)
+    cool = os.path.join(out, "Cooler", FILES_PREFIX)
+    files = {"tradition": cool + "Traditional_Multi.cool",
+             "unimputated": cool + "UnImputated_Haplotype_Multi.cool",
+             "imputated": cool + "Imputated_Haplotype_Multi.cool",
+             "gap": cool + "Imputated_Gap.npz"}
+    trad, imp = files["tradition"], files["imputated"]
+    walls = {}
+
+    def where(*parts):
+        return os.path.join(calls, *parts)
+
+    def run(name, command, *argv):
+        _timed(walls, name, lambda: _cli([command, "-w", ws, *argv]))
+
+    run("matrix", "matrix", "-b", st["beds"], "-o", out, "-gs", st["sizes"],
+        "-wR", *DIPLOID_WHOLE, "-lR", *DIPLOID_LOCAL,
+        "-region", DIPLOID_VOTE["imputation_region"],
+        "-min", DIPLOID_VOTE["imputation_min"],
+        "-ratio", DIPLOID_VOTE["imputation_ratio"])
+    run("compartment T", "compartment", "-c", trad, "-R", res_w, "-o",
+        where("comp", "T"))
+    for a in ("Maternal", "Paternal"):
+        run(f"compartment {a[0]}", "compartment", "-c", imp, "-R", res_w,
+            "-A", a, "-o", where("comp", a[0]), "--traditional-pc",
+            where("comp", "T", f"T_Compartment_{res_w // 1000}K.txt"))
+    run("tads M", "tads", "-c", imp, "-R", res_l, "-A", "Maternal", "-o",
+        where("tads", "M"))
+    run("loops M", "loops", "-c", imp, "-R", res_l, "-A", "Maternal", "-o",
+        where("loops", "M"), "--gap-file", files["gap"])
+    run(f"loops T {res_hi // 1000} kb", "loops", "-c",
+        st["files"]["tradition"], "-R", res_hi, "-o", where("loops", "T"))
+    run("specificity loop", "specificity", "loop", "-c", imp, "-R", res_l,
+        "-i", st["loop_file"], "-o", where("Loop_Specificity.txt"))
+    run("specificity boundary", "specificity", "boundary", "-c", imp, "-R",
+        res_l, "-i", st["bound_file"], "-o",
+        where("Boundary_Specificity.txt"))
+    run("specificity compartment", "specificity", "compartment", "-R",
+        res_w, "-i", *(where("comp", h, f"{h}_Compartment_{res_w // 1000}K"
+                             ".txt") for h in "MP"),
+        "-o", where("Compartment_Specificity.txt"))
+    return dict(ws=ws, calls=calls, files=files, walls=walls)
+
+
+def _same_bytes(a, b) -> bool:
+    with open(a, "rb") as f, open(b, "rb") as g:
+        return f.read() == g.read()
+
+
+def cli_checks(st, cl, dev):
+    """The CLI phase's files against the files phase's: the haplotype
+    coolers and the gap npz byte for byte (two runs of the matrix stage,
+    so its sums do not depend on their order), the Traditional cooler's
+    pixel tables identical and its weights within 1e-4 with the same NaN
+    sets (K2 adds with float32 atomics), every output file of the analysis
+    commands identical; then each command's metrics JSON."""
+    from hichap_master_tpu_torch.io.cooler import CoolerReader
+
+    for key in ("unimputated", "imputated", "gap"):
+        check(_same_bytes(cl["files"][key], st["files"][key]),
+              f"cli: {os.path.basename(cl['files'][key])} differs from the "
+              "files phase's, byte for byte")
+    w_err = 0.0
+    for rs in DIPLOID_WHOLE + DIPLOID_LOCAL:
+        got = CoolerReader(cl["files"]["tradition"], rs)
+        want = CoolerReader(st["files"]["tradition"], rs)
+        check(all(np.array_equal(a, b) for a, b in zip(
+            got.pixels_coo(), want.pixels_coo())),
+            f"cli: Traditional {rs} pixels differ from the files phase's")
+        w_err = max(w_err, _close_weights(
+            got.bins_weight(), torch.from_numpy(want.bins_weight()).to(dev),
+            f"cli: Traditional weights {rs}"))
+    mine = sorted(os.path.relpath(os.path.join(root, name), cl["calls"])
+                  for root, _, names in os.walk(cl["calls"])
+                  for name in names)
+    differ = [rel for rel in mine
+              if not (os.path.exists(os.path.join(st["calls"], rel))
+                      and _same_bytes(os.path.join(cl["calls"], rel),
+                                      os.path.join(st["calls"], rel)))]
+    check(len(mine) == 15 and not differ, f"cli: {len(mine)} output files, "
+          f"these differ from the files phase's: {differ}")
+    n = len(mine)
+    metrics = {}
+    for command in ("matrix", "compartment", "tads", "loops", "specificity"):
+        path = os.path.join(cl["ws"], "Metrics", f"{command}.json")
+        check(os.path.exists(path), f"cli: no {path}")
+        with open(path) as f:
+            metrics[command] = json.load(f)
+        check(f"{command}.total" in metrics[command],
+              f"cli: {command}.json has no {command}.total")
+    walls = cl["walls"]
+    log("cli: walls (host clock, around each in-process call): " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in walls.items())
+        + f"; total {sum(walls.values()):.3f} s")
+    log("cli:   metrics JSON: " + "; ".join(
+        f"{c}.total {m[f'{c}.total']:.3f} s" for c, m in metrics.items())
+        + " (the last call of each command); matrix steps: " + ", ".join(
+            f"{k[len('matrix.'):]} {v:.3f}" for k, v in
+            sorted(metrics["matrix"].items()) if k != "matrix.total"))
+    log(f"cli:   checks: haplotype coolers and gap npz identical to the "
+        f"files phase's, byte for byte; Traditional pixel tables identical, "
+        f"weights within {w_err:.1e} (tol 1e-4), same NaN sets; {n} output "
+        f"files of the analysis commands identical to the drivers'; a "
+        f"metrics JSON for each command")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device visible")
@@ -2182,6 +2315,11 @@ def main() -> None:
         for fn in counters.values():
             fn.launches = 0
 
+    def peak(path):
+        log(f"peak device memory on the {path} path "
+            f"(torch.cuda.max_memory_allocated): "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
     def read(path, needed):
         got = {k: fn.launches for k, fn in counters.items()}
         log(f"launches on the {path} path: {got}")
@@ -2206,9 +2344,11 @@ def main() -> None:
                                  "hmm_forward_backward", "hmm_viterbi"))
     # the diploid matrix stage: allelic pairs in, matrices and weights out
     reset()
+    torch.cuda.reset_peak_memory_stats()
     stage = diploid_stage(diploid, dev)
     diploid_l = read("diploid", ("ice_sweep", "sparse_marginal",
                                  "impute_vote", "segment_marginal"))
+    peak("diploid")
     del diploid
     torch.cuda.empty_cache()
     chr1_plain_ladder(loops, dev, called)
@@ -2228,16 +2368,29 @@ def main() -> None:
     chr1_plain_viterbi(al["tads"], al["model"], dev, label="M1")
     torch.cuda.empty_cache()
     # the same draw through files: beds in, coolers out, the cooler-backed
-    # drivers on them; the checks run after the counters are read
+    # drivers on them; then the same beds through the command line; the
+    # checks run after the counters are read
     reset()
-    checks = files_phase(allelic, al, dev)
+    torch.cuda.reset_peak_memory_stats()
+    st = files_phase(allelic, al, dev)
     files_l = read("files", tuple(counters))
-    checks()
-    del allelic, al
+    peak("files")
+    try:
+        files_checks(allelic, al, st, dev)
+        del allelic, al
+        torch.cuda.empty_cache()
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        cl = cli_phase(st)
+        cli_l = read("cli", tuple(counters))
+        peak("cli")
+        cli_checks(st, cl, dev)
+    finally:
+        shutil.rmtree(st["tmp"], ignore_errors=True)
     torch.cuda.empty_cache()
 
     paths = {"analysis": analysis, "diploid": diploid_l,
-             "allelic": allelic_l, "files": files_l}
+             "allelic": allelic_l, "files": files_l, "cli": cli_l}
     kernels = [dict(name=k, launches=sum(p[k] for p in paths.values()),
                     launches_by_path={n: p[k] for n, p in paths.items()},
                     **results[k]) for k in counters]

@@ -17,8 +17,11 @@ Entry points take arrays in memory and an explicit ``device``; the file
 drivers (``pipeline.matrix.haplotype_matrix_files`` /
 ``traditional_matrix_files``, ``models.*.run_*``) read beds and read and
 write coolers through ``io`` (a host C++ bed scanner and a minimal HDF5
-writer and reader in numpy: no pandas, no h5py).  The package never
-imports ``jax``, nor anything of the JAX package.
+writer and reader in numpy: no pandas, no h5py; the reader also reads the
+``cooler`` package's chunked, compressed files).  The command line
+``hichap-torch`` (``cli``) runs the analysis sub-commands of the JAX
+package's ``hichap-tpu`` on them.  The package never imports ``jax``, nor
+anything of the JAX package.
 """
 
 from .device import set_precision

@@ -1,0 +1,248 @@
+"""hichap-torch command line: the analysis sub-commands of ``hichap-tpu``
+on the port.
+
+The sub-commands ``matrix``, ``compartment``, ``tads``, ``loops`` and
+``specificity`` take the JAX package's flags and defaults
+(``hichap_master_tpu/cli.py``), with one flag more: ``--device`` (default
+``cuda``), the device every driver runs on.  With ``--device cuda`` and no
+card visible the command fails; it never falls back to the CPU.
+
+The front of the pipeline (``rebuildG`` .. ``filtering``) is not part of the
+port: those sub-commands are refused by name.  ``-r/--resume`` is accepted
+and, as in the JAX CLI for these five sub-commands, skips nothing (only the
+front stages write a completion marker).
+
+Each command writes ``<workspace>/Metrics/<command>.json``: the command's
+wall seconds under ``<command>.total`` and, for ``matrix``, the seconds of
+each step its driver times, under ``<command>.<step>``.
+
+    hichap-torch matrix -b Allelic_Bed -o out -gs genomeSize -wR 500000
+    hichap-torch compartment -c out/Cooler/X_Traditional_Multi.cool -R 500000 -o T
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+from .utils import profiling
+from .utils.logging import get_logger, setup_logging
+
+log = get_logger("hichap_master_tpu_torch.cli")
+
+FRONT = ("rebuildG", "rebuildF", "GlobalMapping", "Rescue", "ReMapping",
+         "bamProcess", "filtering")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="hichap-torch",
+        description="diploid Hi-C analysis on PyTorch and CUDA")
+    parser.add_argument("-v", "--version", action="version",
+                        version="%(prog)s 0.1.0")
+    sub = parser.add_subparsers(dest="command")
+
+    common = argparse.ArgumentParser(add_help=False)
+    common.add_argument("-log", "--logfile", default="HiCHap.log")
+    common.add_argument("-w", "--workspace", default="hichap_workspace")
+    common.add_argument("-r", "--resume", action="store_true", default=False,
+                        help="accepted for hichap-tpu's flags; these "
+                             "sub-commands write no completion marker, so "
+                             "nothing is skipped")
+    common.add_argument("--device", default="cuda",
+                        help="torch device of every driver (default cuda; "
+                             "no fallback to the CPU)")
+
+    p = sub.add_parser("matrix", parents=[common],
+                       help="contact matrices + correction + cooler output")
+    p.add_argument("-b", "--bedPath", nargs="+", required=True)
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("-N", "--NonAllelic", action="store_true", default=False)
+    p.add_argument("-gs", "--genomeSize", required=True)
+    p.add_argument("-wR", "--wholeRes", nargs="+", type=int, default=None)
+    p.add_argument("-lR", "--localRes", nargs="+", type=int,
+                   default=[500_000, 40_000])
+    p.add_argument("-ratio", "--ImputationRatio", type=float, default=0.9)
+    p.add_argument("-min", "--ImputationMin", type=int, default=2)
+    p.add_argument("-region", "--ImputationRegion", type=int,
+                   default=10_000_000)
+    p.add_argument("-C", "--chroms", nargs="*", default=["#", "X"])
+
+    p = sub.add_parser("compartment", parents=[common])
+    p.add_argument("-c", "--cooler", required=True)
+    p.add_argument("-R", "--resolution", type=int, required=True)
+    p.add_argument("-A", "--allelic", default="False",
+                   choices=["False", "Maternal", "Paternal"])
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("--traditional-pc", default=None)
+    p.add_argument("--sliding", action="store_true", default=False)
+    p.add_argument("--plot", action="store_true", default=False)
+    p.add_argument("--pc-selector", default="new", choices=["new", "legacy"])
+
+    p = sub.add_parser("tads", parents=[common])
+    p.add_argument("-c", "--cooler", required=True)
+    p.add_argument("-R", "--resolution", type=int, required=True)
+    p.add_argument("-A", "--allelic", default="False",
+                   choices=["False", "Maternal", "Paternal"])
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("--minTAD", type=int, default=200_000)
+    p.add_argument("--maxTAD", type=int, default=4_000_000)
+    p.add_argument("--state-num", type=int, default=3, choices=[3, 5, 6])
+    p.add_argument("--window", type=int, default=600_000)
+    p.add_argument("--test-type", default="ttest",
+                   choices=["ttest", "chitest"])
+    p.add_argument("--plot", action="store_true", default=False)
+
+    p = sub.add_parser("loops", parents=[common])
+    p.add_argument("-c", "--cooler", required=True)
+    p.add_argument("-R", "--resolution", type=int, required=True)
+    p.add_argument("-A", "--allelic", default="False",
+                   choices=["False", "Maternal", "Paternal"])
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("--gap-file", default=None)
+    p.add_argument("--loop-ratio", type=float, default=0.6)
+    p.add_argument("--loop-strength", type=float, default=16)
+
+    p = sub.add_parser("specificity", parents=[common])
+    p.add_argument("kind", choices=["loop", "boundary", "compartment"])
+    p.add_argument("-c", "--cooler", default=None)
+    p.add_argument("-R", "--resolution", type=int, required=True)
+    p.add_argument("-i", "--input", nargs="+", required=True,
+                   help="loop/boundary file, or maternal+paternal PC files")
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("--offset", type=int, default=10)
+
+    return parser
+
+
+def _device(parser, name: str):
+    """The torch device ``name``; a CUDA device that is not visible is an
+    error."""
+    import torch
+
+    try:
+        dev = torch.device(name)
+    except RuntimeError as e:
+        parser.error(f"--device {name}: {e}")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available() or (
+                dev.index or 0) >= torch.cuda.device_count():
+            parser.error(f"--device {name}: no such CUDA device is visible "
+                         "(pass --device cpu to run on the CPU)")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def run(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    command = next((a for a in argv if not a.startswith("-")), None)
+    if command in FRONT:
+        print(f"hichap-torch: {command} is not part of the port; run it "
+              "with hichap-tpu", file=sys.stderr)
+        return 2
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if not args.command:
+        parser.print_help()
+        return 1
+    dev = _device(parser, args.device)
+    os.makedirs(args.workspace, exist_ok=True)
+    setup_logging(os.path.join(args.workspace, args.logfile))
+    log.log(21, "hichap-torch %s args: %s", args.command, vars(args))
+    profiling.reset_metrics()
+    walls = {}
+    t_start = time.perf_counter()
+    allelic = (False if getattr(args, "allelic", "False") == "False"
+               else args.allelic)
+
+    if args.command == "matrix":
+        from .pipeline.matrix import (haplotype_matrix_files,
+                                      traditional_matrix_files)
+        if not os.path.exists(args.genomeSize):
+            hint = os.path.join(args.workspace, "genome", "genomeSize")
+            raise FileNotFoundError(
+                f"genomeSize file not found: {args.genomeSize!r}"
+                + (f" (rebuildG wrote {hint})" if os.path.exists(hint)
+                   else " (run rebuildG first; it writes "
+                        "<workspace>/genome/genomeSize)"))
+        if args.NonAllelic:
+            traditional_matrix_files(
+                args.out, args.bedPath, args.genomeSize,
+                args.wholeRes or [], args.localRes, args.chroms,
+                device=dev, walls=walls)
+        else:
+            haplotype_matrix_files(
+                args.out, args.bedPath, args.genomeSize,
+                args.wholeRes or [], args.localRes,
+                imputation_region=args.ImputationRegion,
+                imputation_min=args.ImputationMin,
+                imputation_ratio=args.ImputationRatio, chroms=args.chroms,
+                device=dev, walls=walls)
+
+    elif args.command == "compartment":
+        from .models.compartment import run_compartment
+        run_compartment(args.cooler, args.resolution, allelic, args.out,
+                        sliding=args.sliding,
+                        traditional_pc_file=args.traditional_pc,
+                        plot=args.plot, selector=args.pc_selector,
+                        device=dev)
+
+    elif args.command == "tads":
+        from .models.tads import run_tads
+        run_tads(args.cooler, args.resolution, allelic, args.out,
+                 min_tad=args.minTAD, max_tad=args.maxTAD,
+                 state_num=args.state_num, window=args.window,
+                 test_type=args.test_type, plot=args.plot, device=dev)
+
+    elif args.command == "loops":
+        from .models.loops import run_loops
+        run_loops(args.cooler, args.resolution, allelic, args.out,
+                  gap_file=args.gap_file, loop_ratio=args.loop_ratio,
+                  loop_strength=args.loop_strength, device=dev)
+
+    elif args.command == "specificity":
+        from .models.specificity import (
+            BoundaryAllelicSpecificity, CompartmentAllelicSpecificity,
+            LoopAllelicSpecificity)
+        if args.kind == "loop":
+            test = LoopAllelicSpecificity.from_cooler(
+                args.cooler, args.input[0], args.resolution, device=dev)
+        elif args.kind == "boundary":
+            test = BoundaryAllelicSpecificity.from_cooler(
+                args.cooler, args.input[0], args.resolution, args.offset,
+                device=dev)
+        else:
+            test = CompartmentAllelicSpecificity.from_files(
+                args.input[0], args.input[1], args.resolution, device=dev)
+        test.run(args.out)
+
+    for step, seconds in walls.items():
+        profiling.add(f"{args.command}.{step}", seconds)
+    _dump_stage_metrics(args, time.perf_counter() - t_start)
+    return 0
+
+
+def _dump_stage_metrics(args, total: float) -> None:
+    """Persist the stage metrics (``utils/profiling.py``) plus the command
+    total under ``<workspace>/Metrics/<command>.json``."""
+    import json
+
+    m = profiling.metrics()
+    m[f"{args.command}.total"] = total
+    mdir = os.path.join(args.workspace, "Metrics")
+    os.makedirs(mdir, exist_ok=True)
+    path = os.path.join(mdir, f"{args.command}.json")
+    with open(path, "w") as f:
+        json.dump(m, f, indent=2, sort_keys=True)
+    log.log(21, "stage metrics written to %s", path)
+
+
+def main() -> None:
+    sys.exit(run())
+
+
+if __name__ == "__main__":
+    main()

@@ -222,7 +222,10 @@ class CoolerWriter:
 
 
 def _memmap(ds: hdf5.Dataset):
-    """A file dataset as an array backed by its file (no copy in memory)."""
+    """A file dataset as an array backed by its file (no copy in memory);
+    a chunked one is decoded into memory."""
+    if ds.chunks is not None:
+        return ds.read()
     if not ds.nbytes:
         return np.zeros(ds.shape, ds.dtype)
     return np.memmap(ds.path, ds.dtype, "r", offset=ds.address,
@@ -296,10 +299,14 @@ def write_cooler(path: str, genome: Genome, res: int, matrices: Mapping,
 
 
 class CoolerReader:
-    """Read cooler groups written by the port, by the JAX package or by
-    anything else inside ``io.hdf5``'s subset.  The file's metadata is read
-    once (again if the file was replaced); pixels are read by row ranges
-    through ``indexes/bin1_offset``."""
+    """Read cooler groups written by the port, by the JAX package, by the
+    ``cooler`` package (chunked, gzip and shuffle datasets, ``bins/chrom``
+    as an enum) or by anything else inside ``io.hdf5``'s subset: a group of
+    a multi-resolution file (``path::<res>``, or ``res`` given), the root
+    of a single-resolution ``.cool`` (``path``), or any group by its path
+    (``path.mcool::resolutions/<res>``).  The file's metadata is read once
+    (again if the file was replaced); pixels are read by row ranges through
+    ``indexes/bin1_offset``."""
 
     def __init__(self, path_or_uri: str, res: Optional[int] = None):
         path, grp = _uri(path_or_uri)

@@ -2,41 +2,54 @@
 use.
 
 The GPU machine has no h5py, so the port reads and writes its coolers with
-this module.  The subset is what h5py 3.x writes with libver ``earliest``
-(the JAX package's ``write_cooler``):
+this module.  The reader reads what h5py 3.x writes with libver
+``earliest``, h5py's default, as the JAX package's ``write_cooler`` and the
+``cooler`` package do:
 
 * superblock version 0 with 8-byte offsets and lengths;
 * version 1 object headers, continuation messages followed;
 * symbol-table groups: a version 1 group B-tree (walked through internal
   nodes too), ``SNOD`` symbol nodes and a local heap of names;
-* dataspaces of version 1, scalar or simple;
-* datatypes: fixed-point, IEEE float, fixed-length string, and
-  variable-length string (values in a global heap collection, ``GCOL``);
+* dataspaces of version 1, scalar or simple, with or without maximum
+  dimensions (resizable datasets store them);
+* datatypes: fixed-point, IEEE float, fixed-length string, variable-length
+  string (values in a global heap collection, ``GCOL``) and enum over an
+  integer base (read as the base; the members are kept on the dataset);
 * contiguous layout (version 3), with an undefined address for an empty
   dataset;
+* chunked layout (version 3): a version 1 chunk B-tree (type 1, walked
+  through internal nodes too), each chunk passed back through the filter
+  pipeline (message versions 1 and 2) of deflate (``zlib``) and shuffle,
+  a chunk's filter mask skipping the filters it was stored without;
+  chunks never written read as the fill value;
 * attribute messages of version 1.
 
-Anything else raises ``H5Error`` naming the feature (chunked layout,
-filters, version 2 object headers, dense attribute storage, link-message
-groups, other superblock, dataspace and attribute message versions, other
-datatype classes).  The reader
-reads the metadata of the whole tree once; a dataset serves row ranges from
-their byte offsets (``np.fromfile`` with ``offset`` and ``count``).
+Anything else raises ``H5Error`` naming the feature (compact layout, other
+filters such as fletcher32 or szip, version 2 object headers, dense
+attribute storage, link-message groups, other superblock, dataspace and
+attribute message versions, other datatype classes).  The reader reads the
+metadata of the whole tree once; a contiguous dataset serves row ranges
+from their byte offsets (``np.fromfile`` with ``offset`` and ``count``), a
+chunked one by decoding only the chunks that overlap the range (its chunk
+index is walked once, at its first read).
 
-The writer writes a whole file at once from a tree of ``Group``s whose
-children are ``Group``s or numpy arrays: every address is computed first,
-the metadata written, then each dataset streamed with ``ndarray.tofile``.
-Groups get a one-leaf B-tree whose single ``SNOD`` holds all their entries
-(the superblock's group leaf K is raised to fit the largest group); string
-attributes are variable-length UTF-8 strings, as h5py writes them.
+The writer writes a whole file at once, contiguous and unfiltered, from a
+tree of ``Group``s whose children are ``Group``s or numpy arrays: every
+address is computed first, the metadata written, then each dataset
+streamed with ``ndarray.tofile``.  Groups get a one-leaf B-tree whose
+single ``SNOD`` holds all their entries (the superblock's group leaf K is
+raised to fit the largest group); string attributes are variable-length
+UTF-8 strings, as h5py writes them.
 """
 
 from __future__ import annotations
 
+import bisect
 import mmap
 import os
 import struct
-from typing import Dict, Iterator, Mapping, Optional, Tuple
+import zlib
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -56,11 +69,14 @@ _SYMBOL_TABLE, _ATTRIBUTE_INFO = 0x0011, 0x0015
 _UNSUPPORTED = {
     _LINK_INFO: "link-info groups (libver later than 'earliest')",
     _LINK: "link messages (compact new-style groups)",
-    _FILTERS: "filters (compressed or shuffled datasets)",
     _ATTRIBUTE_INFO: "dense attribute storage",
 }
 _CLASSES = {2: "time", 4: "bitfield", 5: "opaque", 6: "compound",
-            7: "reference", 8: "enum", 10: "array"}
+            7: "reference", 10: "array"}
+_DEFLATE, _SHUFFLE = 1, 2
+_FILTER_NAMES = {_DEFLATE: "deflate", _SHUFFLE: "shuffle", 3: "fletcher32",
+                 4: "szip", 5: "nbit", 6: "scaleoffset", 307: "bzip2",
+                 32000: "lzf", 32001: "blosc", 32004: "lz4", 32015: "zstd"}
 
 
 class H5Error(ValueError):
@@ -100,16 +116,23 @@ class Group:
 
 
 class Dataset:
-    """A contiguous dataset of a file: its dtype, shape and byte address;
-    ``ds[a:b]`` reads rows a..b from the file."""
+    """A dataset of a file: its dtype, shape and storage; ``ds[a:b]`` reads
+    rows a..b from the file.  Contiguous storage has a byte ``address``;
+    chunked storage (``address`` None) is read through ``chunks``.  An
+    enum dataset has the dtype of its base integer and its members in
+    ``enum`` ({name: value})."""
 
     def __init__(self, path: str, dtype: np.dtype, shape: Tuple[int, ...],
-                 address: int, attrs: Dict[str, object]):
+                 address: Optional[int], attrs: Dict[str, object], *,
+                 chunks: Optional["_Chunks"] = None,
+                 enum: Optional[Dict[str, int]] = None):
         self.path = path
         self.dtype = dtype
         self.shape = shape
         self.address = address
         self.attrs = attrs
+        self.chunks = chunks
+        self.enum = enum
 
     def __len__(self) -> int:
         return self.shape[0] if self.shape else 1
@@ -123,6 +146,8 @@ class Dataset:
         n = len(self)
         start, stop, _ = slice(start, stop).indices(n)
         stop = max(stop, start)
+        if self.chunks is not None:
+            return self.chunks.read(start, stop)
         row = int(np.prod(self.shape[1:], dtype=np.int64))
         count = (stop - start) * row
         tail = self.shape[1:]
@@ -146,6 +171,93 @@ class Dataset:
             k = int(key) + (len(self) if key < 0 else 0)
             return self.read(k, k + 1)[0]
         return self.read()[key]
+
+
+def _unshuffle(raw: bytes, size: int) -> bytes:
+    """Undo the shuffle filter: ``size`` byte planes back into elements;
+    trailing bytes past the last whole element stay as they are."""
+    n = len(raw) // size
+    if size <= 1 or n == 0:
+        return raw
+    planes = np.frombuffer(raw, np.uint8, n * size).reshape(size, n)
+    return planes.T.tobytes() + raw[n * size:]
+
+
+class _Chunks:
+    """The chunked storage of one dataset: its chunk B-tree, chunk shape,
+    filter pipeline ``[(id, client data)]`` and fill value.  The chunk index
+    (offsets, stored size, filter mask, address per chunk, sorted) is
+    walked at the first read and kept."""
+
+    def __init__(self, path: str, dtype: np.dtype, shape: Tuple[int, ...],
+                 btree: int, chunk: Tuple[int, ...], filters, fill):
+        self.path = path
+        self.dtype = dtype
+        self.shape = shape
+        self.btree = btree
+        self.chunk = chunk
+        self.filters = filters
+        self.fill = fill
+        self._index: Optional[List[tuple]] = None
+        self._starts: List[int] = []
+
+    def index(self) -> List[tuple]:
+        if self._index is None:
+            entries = []
+            if self.btree != UNDEF:
+                with open(self.path, "rb") as f, mmap.mmap(
+                        f.fileno(), 0, access=mmap.ACCESS_READ) as buf:
+                    entries = sorted(_Reader(self.path, buf).chunk_entries(
+                        self.btree, len(self.chunk) + 1))
+            self._index = entries
+            self._starts = [e[0][0] for e in entries]
+        return self._index
+
+    def decode(self, raw: bytes, mask: int) -> np.ndarray:
+        """One stored chunk through the pipeline in reverse, as an array
+        of the chunk's shape."""
+        for i in reversed(range(len(self.filters))):
+            if mask >> i & 1:
+                continue
+            fid, cd = self.filters[i]
+            if fid == _DEFLATE:
+                try:
+                    raw = zlib.decompress(raw)
+                except zlib.error as e:
+                    raise H5Error(f"{self.path}: a chunk does not inflate "
+                                  f"({e})") from None
+            else:
+                raw = _unshuffle(raw, cd[0] if cd else self.dtype.itemsize)
+        n = int(np.prod(self.chunk, dtype=np.int64)) * self.dtype.itemsize
+        if len(raw) != n:
+            raise H5Error(f"{self.path}: a chunk holds {len(raw)} bytes, its "
+                          f"shape {self.chunk} needs {n}")
+        return np.frombuffer(raw, self.dtype).reshape(self.chunk)
+
+    def read(self, start: int, stop: int) -> np.ndarray:
+        out = np.empty((stop - start,) + self.shape[1:], self.dtype)
+        out[...] = self.fill
+        if stop == start:
+            return out
+        index, c0 = self.index(), self.chunk[0]
+        with open(self.path, "rb") as f:
+            for i in range(bisect.bisect_right(self._starts, start - c0),
+                           len(index)):
+                offs, size, mask, addr = index[i]
+                lo = offs[0]
+                if lo >= stop:
+                    break
+                f.seek(addr)
+                data = self.decode(f.read(size), mask)
+                src = [slice(max(start, lo) - lo, min(stop, lo + c0) - lo)]
+                dst = [slice(max(start, lo) - start,
+                             min(stop, lo + c0) - start)]
+                for d in range(1, len(self.shape)):
+                    e = min(self.shape[d], offs[d] + self.chunk[d])
+                    src.append(slice(0, e - offs[d]))
+                    dst.append(slice(offs[d], e))
+                out[tuple(dst)] = data[tuple(src)]
+        return out
 
 
 # ----------------------------------------------------------------- reader
@@ -232,15 +344,22 @@ class _Reader:
         if _LAYOUT not in types:
             raise H5Error(f"{self.path}: {path} is neither a symbol-table "
                           "group nor a dataset")
-        shape = dtype = layout = None
+        shape = dtype = layout = enum = fill = None
+        filters = []
         for t, flags, d in msgs:
             if t == _DATASPACE:
                 shape = self.dataspace(d)
             elif t == _DATATYPE:
                 dtype = self.datatype(d, path)
+                if d[0] & 0x0F == 8:
+                    enum = self.enum_members(d, path)
             elif t == _LAYOUT:
                 layout = d
-            elif (t not in (_FILL, _FILL_OLD, _ATTRIBUTE) and flags & 0x80):
+            elif t == _FILTERS:
+                filters = self.filters(d, path)
+            elif t == _FILL:
+                fill = d
+            elif (t not in (_FILL_OLD, _ATTRIBUTE) and flags & 0x80):
                 raise H5Error(f"{self.path}: {path} has message type "
                               f"{t:#06x}, marked as needed to read it")
         if dtype == VLEN_STR:
@@ -250,10 +369,25 @@ class _Reader:
             raise H5Error(f"{self.path}: {path} has layout message version "
                           f"{layout[0]} (only 3)")
         kind = layout[1]
+        attrs = self.attributes(msgs, path)
+        if kind == 2:
+            rank = layout[2]
+            btree = struct.unpack_from("<Q", layout, 3)[0]
+            dims = struct.unpack_from(f"<{rank}I", layout, 11)
+            if rank != len(shape) + 1 or dims[-1] != dtype.itemsize:
+                raise H5Error(f"{self.path}: {path} has chunks of "
+                              f"{dims} for a shape {shape} of "
+                              f"{dtype.itemsize}-byte elements")
+            chunks = _Chunks(self.path, dtype, shape, btree, dims[:-1],
+                             filters, self.fill_value(fill, dtype))
+            return Dataset(self.path, dtype, shape, None, attrs,
+                           chunks=chunks, enum=enum)
         if kind != 1:
-            name = {0: "compact", 2: "chunked"}.get(kind, f"class {kind}")
+            name = {0: "compact"}.get(kind, f"class {kind}")
             raise H5Error(f"{self.path}: {path} has {name} layout (only "
-                          "contiguous)")
+                          "contiguous and chunked)")
+        if filters:
+            raise H5Error(f"{self.path}: {path} is contiguous with filters")
         address, size = struct.unpack_from("<QQ", layout, 2)
         n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
         if address == UNDEF:
@@ -262,8 +396,7 @@ class _Reader:
         elif size != n:
             raise H5Error(f"{self.path}: {path} stores {size} bytes, its "
                           f"shape needs {n}")
-        return Dataset(self.path, dtype, shape, address,
-                       self.attributes(msgs, path))
+        return Dataset(self.path, dtype, shape, address, attrs, enum=enum)
 
     # group structures
     def local_heap(self, addr: int) -> bytes:
@@ -294,11 +427,89 @@ class _Reader:
             for i in range(nsym):
                 yield self.u("QQ", child + 8 + 40 * i)
 
+    def chunk_entries(self, addr: int, rank: int):
+        """(offsets, stored size, filter mask, address) of every chunk under
+        the version 1 chunk B-tree node at ``addr``; ``rank`` counts the
+        dataset's dimensions plus the element-size one of the keys."""
+        sig, ntype, level, used = self.u("4sBBH", addr)
+        if sig != b"TREE" or ntype != 1:
+            raise H5Error(f"{self.path}: no chunk B-tree node at {addr}")
+        p = addr + 24
+        for _ in range(used):
+            size, mask = self.u("II", p)
+            offs = self.u(f"{rank}Q", p + 8)
+            child = self.u("Q", p + 8 + 8 * rank)[0]
+            p += 16 + 8 * rank
+            if level > 0:
+                yield from self.chunk_entries(child, rank)
+            else:
+                yield offs[:-1], size, mask, child
+
     # messages
     def dataspace(self, d: bytes) -> Tuple[int, ...]:
+        """The shape of a version 1 dataspace message (its maximum
+        dimensions, which resizable datasets store after it, are not
+        needed to read)."""
         if d[0] != 1:
             raise H5Error(f"{self.path}: dataspace version {d[0]}")
         return tuple(int(x) for x in struct.unpack_from(f"<{d[1]}Q", d, 8))
+
+    def filters(self, d: bytes, where: str) -> list:
+        """[(filter id, client data)] of a filter pipeline message
+        (versions 1 and 2); a filter other than deflate and shuffle raises,
+        naming it."""
+        version, n = d[0], d[1]
+        if version not in (1, 2):
+            raise H5Error(f"{self.path}: filter pipeline version {version} "
+                          f"at {where}")
+        p, out = 8 if version == 1 else 2, []
+        for _ in range(n):
+            fid = struct.unpack_from("<H", d, p)[0]
+            if version == 1 or fid >= 256:
+                name_n, _, ncd = struct.unpack_from("<HHH", d, p + 2)
+                p += 8
+            else:
+                name_n = 0
+                _, ncd = struct.unpack_from("<HH", d, p + 2)
+                p += 6
+            name = d[p:p + name_n].split(b"\0")[0].decode(errors="replace")
+            p += _pad8(name_n) if version == 1 else name_n
+            cd = struct.unpack_from(f"<{ncd}I", d, p)
+            p += 4 * (ncd + (version == 1 and ncd % 2))
+            if fid not in (_DEFLATE, _SHUFFLE):
+                raise H5Error(
+                    f"{self.path}: {where} uses filter {fid} "
+                    f"({_FILTER_NAMES.get(fid) or name or 'unknown'}); only "
+                    "deflate and shuffle are read")
+            out.append((fid, cd))
+        return out
+
+    @staticmethod
+    def fill_value(d: Optional[bytes], dtype: np.dtype):
+        """The fill value of a fill value message (versions 1-3), zero when
+        it defines none."""
+        value = b""
+        if d is not None and d[0] in (1, 2) and (d[0] == 1 or d[3]):
+            value = d[8:8 + struct.unpack_from("<I", d, 4)[0]]
+        elif d is not None and d[0] == 3 and d[1] & 0x20:
+            value = d[6:6 + struct.unpack_from("<I", d, 2)[0]]
+        if len(value) != dtype.itemsize:
+            return np.zeros((), dtype)
+        return np.frombuffer(value, dtype)[0]
+
+    def enum_members(self, d: bytes, where: str) -> Dict[str, int]:
+        """{name: value} of an enum datatype message over an integer
+        base."""
+        n = d[1] | (d[2] << 8)
+        base = self.datatype(d[8:], where)
+        p = 8 + 12          # the base type's message: header + fixed-point
+        names = []
+        for _ in range(n):
+            end = d.index(b"\0", p)
+            names.append(d[p:end].decode())
+            p = p + _pad8(end + 1 - p) if d[0] >> 4 < 3 else end + 1
+        values = np.frombuffer(d, base, n, p)
+        return {k: int(v) for k, v in zip(names, values)}
 
     def datatype(self, d: bytes, where: str):
         cls, version = d[0] & 0x0F, d[0] >> 4
@@ -313,6 +524,11 @@ class _Reader:
             return np.dtype(f"{order}f{size}")
         if cls == 3:
             return np.dtype(f"S{size}")
+        if cls == 8:
+            if d[8] & 0x0F != 0:
+                raise H5Error(f"{self.path}: enum over a non-integer base "
+                              f"at {where}")
+            return self.datatype(d[8:], where)
         if cls == 9:
             if bits & 0x0F != 1:
                 raise H5Error(f"{self.path}: variable-length sequence at "

@@ -256,6 +256,22 @@ def ice_iterate(matvec, keep: torch.Tensor, *, tol: float, max_iters: int):
     return w, stats
 
 
+def bin_sums(idx: torch.Tensor, vals: torch.Tensor, n: int,
+             presorted: bool = False) -> torch.Tensor:
+    """``zeros(n).index_add_(0, idx, vals)`` with every bin's terms added in
+    one fixed order, so that the result is the same on every run (a float
+    ``index_add_`` on the card adds in the order its atomics land).  The
+    terms are grouped by a stable sort of ``idx`` (skipped when
+    ``presorted``) and each bin's contiguous run is reduced by
+    ``torch.segment_reduce``."""
+    idx = idx.long()
+    if not presorted:
+        idx, order = torch.sort(idx, stable=True)
+        vals = vals[order]
+    offsets = torch.searchsorted(idx, torch.arange(n + 1, device=idx.device))
+    return torch.segment_reduce(vals, "sum", offsets=offsets)
+
+
 def genomewide_correction_coo(rows: torch.Tensor, cols: torch.Tensor,
                               vals: torch.Tensor, alpha: torch.Tensor,
                               n: int, vc_alpha: float = 2.0 / 3.0):
@@ -269,8 +285,10 @@ def genomewide_correction_coo(rows: torch.Tensor, cols: torch.Tensor,
 
     Each folded key has at most two terms, and a two-term float64 sum does
     not depend on their order, so one device sort and an ``index_add_``
-    give bit-identical folded values with no ordering to control.
-    Returns sorted upper-triangle (rows, cols, vals)."""
+    give bit-identical folded values.  The row sums have many terms: they
+    are added in a fixed order (``bin_sums``), the upper triangle's rows
+    first, then its columns.  Returns sorted upper-triangle (rows, cols,
+    vals)."""
     rows, cols = rows.long(), cols.long()
     vals = vals.to(torch.float64)
     a = torch.ones(n, dtype=torch.float64, device=vals.device)
@@ -284,9 +302,7 @@ def genomewide_correction_coo(rows: torch.Tensor, cols: torch.Tensor,
     fv.index_add_(0, inv, scaled[order])
     r_u, c_u = k // n, k % n
     off = r_u != c_u
-    s1 = torch.zeros(n, dtype=torch.float64, device=vals.device)
-    s1.index_add_(0, r_u, fv)
-    s1.index_add_(0, c_u[off], fv[off])
+    s1 = bin_sums(torch.cat([r_u, c_u[off]]), torch.cat([fv, fv[off]]), n)
     f = torch.where(s1 == 0, torch.ones_like(s1), s1 ** vc_alpha)
     cor = fv / (f[r_u] * f[c_u])
     cor_total = cor.sum() + cor[off].sum()

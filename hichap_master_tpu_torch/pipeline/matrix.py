@@ -54,7 +54,7 @@ from ..ops.binning import (bin_genomewide_bins,
 from ..ops.correct import (genomewide_alpha, genomewide_alpha_margins,
                            genomewide_correction, two_step_correction_batch)
 from ..ops.imputation import disk_offsets, impute_inter_chunk
-from ..ops.sparse import genomewide_correction_coo
+from ..ops.sparse import bin_sums, genomewide_correction_coo
 from ..ops.sparse_hybrid import hybrid_from_coo, ice_balance_hybrid
 from ..ops.sparse_impute import (SparseU, disk_row_intervals,
                                  sparse_impute_vote_rowptr)
@@ -484,19 +484,18 @@ def _intra_margins(rows, cols, vals, bounds: torch.Tensor, S: int,
     """Per-bin row sums (and nonzero counts when ``symmetric``) over the
     intra-chromosome blocks of a genome-wide COO (upper-triangle when
     ``symmetric``, directed otherwise); ``bounds`` holds each chromosome's
-    last bin."""
+    last bin.  Every bin's terms are added in a fixed order
+    (``ops.sparse.bin_sums``)."""
     intra = (torch.searchsorted(bounds, rows)
              == torch.searchsorted(bounds, cols))
     r, c, v = rows[intra], cols[intra], vals[intra].to(torch.float64)
-    rs = torch.zeros(S, dtype=torch.float64, device=v.device)
-    rs.index_add_(0, r, v)
     if not symmetric:
-        return rs
-    nz = torch.zeros_like(rs).index_add_(0, r, (v != 0).to(torch.float64))
+        return bin_sums(r, v, S, presorted=True)
     off = r != c
-    rs.index_add_(0, c[off], v[off])
-    nz.index_add_(0, c[off], (v[off] != 0).to(torch.float64))
-    return rs, nz
+    idx, order = torch.sort(torch.cat([r, c[off]]), stable=True)
+    both = torch.cat([v, v[off]])[order]
+    return (bin_sums(idx, both, S, presorted=True),
+            bin_sums(idx, (both != 0).to(torch.float64), S, presorted=True))
 
 
 def _pad_rows(vs: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -1,0 +1,381 @@
+"""The port's command line (hichap_master_tpu_torch.cli) against the JAX
+package's (hichap_master_tpu.cli).
+
+Parser: the five analysis sub-commands take the same option strings,
+defaults, choices, types, ``nargs`` and ``required`` flags, with
+``--device`` the only extra; the front sub-commands are refused by name;
+``--device cuda`` with no card visible fails.
+
+Chains on the CPU (``--device cpu``): the same beds (an allelic draw with
+planted loops and domains, ``testing.synthetic.allelic_pairs``, and its
+pairs as one 15-column valid bed for ``-N``) through ``matrix`` of both
+CLIs, then the analysis commands.  The coolers compare as in
+tests/test_torch_matrix_files.py: integer datasets identical, corrected
+counts to 1e-5 relative (float32 sums in another order), ICE weights to
+1e-4 relative with identical NaN sets, the gap npz identical.  Those float32
+differences move calls, so each analysis command of both CLIs reads the
+port's coolers, and their output files compare as in
+tests/test_torch_run_drivers.py: compartment values to atol 1e-6 on
+unit-norm tracks, DI values to rtol 1e-6, boundary-test statistics to rtol
+1e-12, every other line identical.  The CLI cannot pass the subspace start
+block, so the port's default start block (``ops.pca.start_block``) is
+monkeypatched to the JAX package's ``jax.random.normal(PRNGKey(0), (N,
+q))``, as the driver tests pass it.  The allelic tracks compare to atol
+1e-5: the draw plants no A/B compartments, so the haplotype matrices' leading
+eigengap is small and float32 subspace sweeps in another order part by up
+to ~3e-6 (the traditional tracks, on more pairs, stay within 1e-6)."""
+
+import json
+import logging
+import os
+import subprocess
+import sys
+
+import h5py
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hichap_master_tpu import cli as JCLI
+from hichap_master_tpu_torch import cli as PCLI
+from hichap_master_tpu_torch.core import Genome
+from hichap_master_tpu_torch.ops import pca as PCA
+from hichap_master_tpu_torch.testing.parity import assert_close_nan
+from hichap_master_tpu_torch.testing.synthetic import (allelic_pairs,
+                                                       planted_loops,
+                                                       write_allelic_beds,
+                                                       write_valid_bed)
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+COMMANDS = ("matrix", "compartment", "tads", "loops", "specificity")
+LENGTHS = {"1": 12_010_000, "2": 10_030_000}
+COUNTS = {"Bi_Allelic": 60_000, "M_M": 30_000, "P_P": 30_000,
+          "M_P": 3_000, "P_M": 3_000}
+RES_W, RES_L = 500_000, 40_000
+PREFIX = "Cell_R1_"
+
+
+# ------------------------------------------------------------------ parser
+def _subparsers(parser):
+    action = next(a for a in parser._actions
+                  if a.__class__.__name__ == "_SubParsersAction")
+    return action.choices
+
+
+def _options(parser):
+    return {tuple(a.option_strings) or (a.dest,): (
+        a.dest, a.default, a.choices, a.type, a.nargs, a.required,
+        a.__class__.__name__) for a in parser._actions}
+
+
+@pytest.mark.parametrize("command", COMMANDS)
+def test_parser_matches_the_jax_cli(command):
+    got = _options(_subparsers(PCLI.build_parser())[command])
+    want = _options(_subparsers(JCLI.build_parser())[command])
+    extra = {k: v for k, v in got.items() if k not in want}
+    assert list(extra) == [("--device",)]
+    assert extra[("--device",)][:2] == ("device", "cuda")
+    assert {k: v for k, v in got.items() if k in want} == want
+
+
+def test_only_the_analysis_commands_are_ported():
+    got = set(_subparsers(PCLI.build_parser()))
+    want = set(_subparsers(JCLI.build_parser()))
+    assert got == set(COMMANDS)
+    assert want - got == set(PCLI.FRONT)
+
+
+@pytest.mark.parametrize("command", PCLI.FRONT)
+def test_front_commands_are_refused_by_name(command, capsys, tmp_path):
+    assert PCLI.run([command, "-w", str(tmp_path / "ws")]) == 2
+    err = capsys.readouterr().err
+    assert f"{command} is not part of the port" in err
+    assert "hichap-tpu" in err
+    assert not (tmp_path / "ws").exists()
+
+
+def test_module_entry_point_refuses_front_commands():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-m", "hichap_master_tpu_torch.cli",
+                        "bamProcess", "-f", "x"], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 2
+    assert "bamProcess is not part of the port" in r.stderr
+
+
+def test_a_cuda_device_that_is_not_visible_fails(tmp_path, capsys,
+                                                 monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        PCLI.run(["tads", "-w", str(tmp_path / "ws"), "-c", "x.cool",
+                  "-R", "40000", "-o", str(tmp_path / "o")])
+    assert e.value.code == 2
+    assert "--device cuda" in capsys.readouterr().err
+    assert not (tmp_path / "ws").exists()
+
+
+def test_matrix_names_a_missing_genome_size_file(tmp_path):
+    with pytest.raises(FileNotFoundError, match="rebuildG"):
+        _run(PCLI, ["matrix", "-w", str(tmp_path / "ws"), "-b", "beds",
+                    "-o", str(tmp_path / "out"), "-gs", "missing_file",
+                    "--device", "cpu"])
+
+
+# ------------------------------------------------------------------ chains
+def _run(cli, argv):
+    """One in-process CLI call; the root logging handlers and the
+    excepthook it installs are removed again."""
+    root = logging.getLogger()
+    before, hook = list(root.handlers), sys.excepthook
+    try:
+        return cli.run(argv)
+    finally:
+        for h in root.handlers[:]:
+            if h not in before:
+                root.removeHandler(h)
+                h.close()
+        sys.excepthook = hook
+
+
+def _jax_start(N, q, dtype=torch.float32, *, device, seed=0):
+    return torch.from_numpy(np.array(jax.random.normal(
+        jax.random.PRNGKey(seed), (N, q), jnp.float32))).to(device, dtype)
+
+
+def _h5_tree(path):
+    out = {}
+    with h5py.File(path, "r") as f:
+        def visit(name, obj):
+            data = obj[()] if isinstance(obj, h5py.Dataset) else None
+            out[name] = (dict(obj.attrs), data)
+        f.visititems(visit)
+        out["/"] = (dict(f.attrs), None)
+    return out
+
+
+def _same_cooler(got_path, want_path, float_rtol=0.0):
+    got, want = _h5_tree(got_path), _h5_tree(want_path)
+    assert list(got) == list(want)
+    for name, (wa, wd) in want.items():
+        ga, gd = got[name]
+        assert list(ga) == list(wa), name
+        for k, v in wa.items():
+            if k == "sum" and float_rtol and isinstance(v, np.floating):
+                np.testing.assert_allclose(ga[k], v, rtol=float_rtol)
+            else:
+                assert type(ga[k]) is type(v) and np.all(ga[k] == v), \
+                    (name, k, ga[k], v)
+        if wd is None:
+            assert gd is None, name
+            continue
+        assert gd.dtype == wd.dtype and gd.shape == wd.shape, name
+        if name.endswith("bins/weight"):
+            assert_close_nan(gd, wd, rtol=1e-4, label=name)
+        elif name.endswith("pixels/count") and wd.dtype.kind == "f":
+            np.testing.assert_allclose(gd, wd, rtol=float_rtol, atol=1e-9,
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(gd, wd, name)
+
+
+def _same_npz(got_path, want_path):
+    got = np.load(got_path, allow_pickle=True)
+    want = np.load(want_path, allow_pickle=True)
+    assert list(got) == list(want)
+    for key in want:
+        g, w = got[key].item(), want[key].item()
+        assert list(g) == list(w)
+        for label in w:
+            np.testing.assert_array_equal(g[label], w[label])
+
+
+def _lines(path):
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+def _same_outputs(want, got, close=None):
+    """Two output files (or directories, file by file) line for line;
+    ``close`` = (name tag, atol, rtol) compares the numbers of the files
+    whose name holds the tag."""
+    if os.path.isdir(want):
+        names = sorted(os.listdir(want))
+        assert names == sorted(os.listdir(got))
+        for name in names:
+            _same_outputs(os.path.join(want, name), os.path.join(got, name),
+                          close)
+        return names
+    lw, lg = _lines(want), _lines(got)
+    assert len(lg) == len(lw), want
+    if not (close and close[0] in os.path.basename(want)):
+        assert lg == lw, want
+        return [want]
+    for x, y in zip(lw, lg):
+        for a, b in zip(x.split("\t"), y.split("\t")):
+            try:
+                fa, fb = float(a), float(b)
+            except ValueError:
+                assert a == b, want
+                continue
+            np.testing.assert_allclose(fb, fa, atol=close[1], rtol=close[2],
+                                       err_msg=want)
+    return [want]
+
+
+@pytest.fixture(scope="module")
+def beds(tmp_path_factory):
+    """Allelic beds (planted loops and domains) and the same pairs as one
+    valid bed, with their genome-size file."""
+    d = tmp_path_factory.mktemp("cli")
+    lengths = list(LENGTHS.values())
+    classes = allelic_pairs(lengths, COUNTS, seed=3, device="cpu",
+                            cis_floor=0.1, loops=planted_loops(lengths))
+    Genome(LENGTHS).write(str(d / "genomeSize"))
+    write_allelic_beds(str(d / "allelic"), PREFIX, classes, list(LENGTHS))
+    os.makedirs(d / "valid")
+    pairs = [torch.cat([c[i] for c in classes.values()]) for i in range(4)]
+    write_valid_bed(str(d / "valid" / f"{PREFIX}Valid.bed"), pairs,
+                    list(LENGTHS))
+    return d
+
+
+def _both(d, argv):
+    """``argv`` through the JAX CLI (workspace ``d/wj``, outputs under
+    ``d/j``) and the port's (``d/wp``, ``d/p``, ``--device cpu``); ``{o}``
+    in an argument is the side's output root."""
+    for cli, side in ((JCLI, "j"), (PCLI, "p")):
+        args = [a.replace("{o}", str(d / side)) for a in argv]
+        args += ["-w", str(d / f"w{side}")]
+        if cli is PCLI:
+            args += ["--device", "cpu"]
+        assert _run(cli, args) == 0, (side, args)
+    return d / "j", d / "p"
+
+
+def _metrics(d, command):
+    with open(d / "wp" / "Metrics" / f"{command}.json") as f:
+        return json.load(f)
+
+
+@pytest.fixture(scope="module")
+def allelic_chain(beds):
+    """``matrix`` on the allelic beds through both CLIs."""
+    j, p = _both(beds, ["matrix", "-b", str(beds / "allelic"), "-o",
+                        "{o}/mat", "-gs", str(beds / "genomeSize"),
+                        "-wR", str(RES_W), "-lR", str(RES_L),
+                        "-region", "2000000"])
+    return beds, {k: str(p / "mat" / "Cooler" / f"{PREFIX}{k}")
+                  for k in ("Traditional_Multi.cool",
+                            "UnImputated_Haplotype_Multi.cool",
+                            "Imputated_Haplotype_Multi.cool",
+                            "Imputated_Gap.npz")}
+
+
+def test_matrix_command_matches_the_jax_cli(allelic_chain):
+    d, files = allelic_chain
+    jdir = d / "j" / "mat" / "Cooler"
+    for name, path in files.items():
+        want = str(jdir / os.path.basename(path))
+        if name.endswith(".npz"):
+            _same_npz(path, want)
+        else:
+            _same_cooler(path, want, 1e-5 if "Imputated_H" in name else 0.0)
+    assert _lines(str(jdir / "Hap_genomeSize")) == _lines(
+        str(d / "p" / "mat" / "Cooler" / "Hap_genomeSize"))
+    m = _metrics(d, "matrix")
+    assert {"matrix.total", "matrix.parse", "matrix.pass1", "matrix.vote",
+            "matrix.correction", "matrix.cooler_write"} <= set(m)
+    assert all(k.startswith("matrix.") and v >= 0 for k, v in m.items())
+
+
+def test_analysis_commands_match_the_jax_cli(allelic_chain, monkeypatch):
+    monkeypatch.setattr(PCA, "start_block", _jax_start)
+    d, files = allelic_chain
+    trad = files["Traditional_Multi.cool"]
+    imp = files["Imputated_Haplotype_Multi.cool"]
+    gap = files["Imputated_Gap.npz"]
+    comp = ("Compartment", 1e-6, 0)
+    j, p = _both(d, ["compartment", "-c", trad, "-R", str(RES_W), "-o",
+                     "{o}/comp/T"])
+    _same_outputs(str(j / "comp" / "T"), str(p / "comp" / "T"), comp)
+    trad_pc = str(p / "comp" / "T" / "T_Compartment_500K.txt")
+    for a in ("Maternal", "Paternal"):
+        _both(d, ["compartment", "-c", imp, "-R", str(RES_W), "-A", a,
+                  "-o", f"{{o}}/comp/{a[0]}", "--traditional-pc", trad_pc])
+        _same_outputs(str(j / "comp" / a[0]), str(p / "comp" / a[0]),
+                      ("Compartment", 1e-5, 0))
+        _both(d, ["tads", "-c", imp, "-R", str(RES_L), "-A", a, "-o",
+                  f"{{o}}/tads/{a[0]}"])
+        names = _same_outputs(str(j / "tads" / a[0]), str(p / "tads" / a[0]),
+                              ("_DI_", 1e-6, 1e-6))
+        assert len(names) == 4
+        _both(d, ["loops", "-c", imp, "-R", str(RES_L), "-A", a, "-o",
+                  f"{{o}}/loops/{a[0]}", "--gap-file", gap])
+        _same_outputs(str(j / "loops" / a[0]), str(p / "loops" / a[0]))
+    _both(d, ["loops", "-c", trad, "-R", str(RES_L), "-o", "{o}/loops/T"])
+    _same_outputs(str(j / "loops" / "T"), str(p / "loops" / "T"))
+    called = _lines(str(p / "loops" / "M" / "Cluster_M_Loops_40K.txt"))[1:]
+    assert called, "the planted loops should be called"
+    assert len(_lines(str(p / "tads" / "M" / "M_Domain_40K.txt"))) > 5
+
+    # the specificity tests on the port's calls
+    loop_file = d / "loop_positions.txt"
+    loop_file.write_text("chr\tstartM\tendM\tstartP\tendP\n" + "".join(
+        "{0}\t{1}\t{2}\t{1}\t{2}\n".format(*l.split("\t")[:3])
+        for l in called))
+    bound_file = d / "boundary_pairs.txt"
+    bound_file.write_text("".join(
+        "{0}\t{1}\t{1}\n".format(*l.split("\t")) for l in
+        _lines(str(p / "tads" / "M" / "M_All_Boundary_40K.txt"))))
+    pcs = [str(p / "comp" / h / f"{h}_Compartment_500K.txt") for h in "MP"]
+    for kind, argv, close in (
+            ("loop", ["-c", imp, "-R", str(RES_L), "-i", str(loop_file)],
+             None),
+            ("boundary", ["-c", imp, "-R", str(RES_L), "-i",
+                          str(bound_file)], ("boundary", 0, 1e-12)),
+            ("compartment", ["-R", str(RES_W), "-i", *pcs], None)):
+        _both(d, ["specificity", kind, *argv, "-o", f"{{o}}/{kind}.txt"])
+        assert len(_lines(str(p / f"{kind}.txt"))) > 1, kind
+        _same_outputs(str(j / f"{kind}.txt"), str(p / f"{kind}.txt"), close)
+    for command in ("compartment", "tads", "loops", "specificity"):
+        assert set(_metrics(d, command)) == {f"{command}.total"}
+
+
+def test_nonallelic_chain_matches_the_jax_cli(beds, monkeypatch):
+    monkeypatch.setattr(PCA, "start_block", _jax_start)
+    j, p = _both(beds, ["matrix", "-N", "-b", str(beds / "valid"), "-o",
+                        "{o}/matN", "-gs", str(beds / "genomeSize"),
+                        "-wR", str(RES_W), "-lR", str(RES_L)])
+    names = sorted(os.listdir(p / "matN" / "Cooler"))
+    assert names == sorted(os.listdir(j / "matN" / "Cooler")) == [
+        f"{PREFIX}Multi.cool", "Merged_Multi.cool"]
+    for name in names:
+        _same_cooler(str(p / "matN" / "Cooler" / name),
+                     str(j / "matN" / "Cooler" / name))
+    assert {"matrix.total", "matrix.parse", "matrix.build",
+            "matrix.cooler_write"} <= set(_metrics(beds, "matrix"))
+    merged = str(p / "matN" / "Cooler" / "Merged_Multi.cool")
+    _both(beds, ["compartment", "-c", merged, "-R", str(RES_W), "-o",
+                 "{o}/N/comp", "-r"])    # --resume skips nothing here
+    _same_outputs(str(j / "N" / "comp"), str(p / "N" / "comp"),
+                  ("Compartment", 1e-6, 0))
+    _both(beds, ["tads", "-c", merged, "-R", str(RES_L), "-o",
+                 "{o}/N/tads"])
+    _same_outputs(str(j / "N" / "tads"), str(p / "N" / "tads"),
+                  ("_DI_", 1e-6, 1e-6))
+    _both(beds, ["loops", "-c", merged, "-R", str(RES_L), "-o",
+                 "{o}/N/loops"])
+    _same_outputs(str(j / "N" / "loops"), str(p / "N" / "loops"))
+
+
+def test_plots_are_refused_through_the_cli(allelic_chain):
+    d, files = allelic_chain
+    with pytest.raises(NotImplementedError, match="plots are not ported"):
+        _run(PCLI, ["tads", "-c", files["Traditional_Multi.cool"], "-R",
+                    str(RES_L), "-o", str(d / "plot"), "--plot", "-w",
+                    str(d / "wp"), "--device", "cpu"])

@@ -6,6 +6,8 @@ port files (the checks of tests/test_cooler_schema_audit.py, written anew
 here); each package's CoolerReader reads the other's files with identical
 results.  Every comparison is exact."""
 
+import os
+
 import h5py
 import numpy as np
 import pytest
@@ -250,15 +252,150 @@ def test_set_weights_and_writes_into_existing_files(tmp_path, rng):
     assert PC.CoolerReader(r1).res == RES
 
 
-def test_reader_refuses_a_chunked_cooler(tmp_path, rng):
-    j, _ = _write_both(tmp_path, "dense", rng)
-    with h5py.File(j, "a") as f:
-        counts = f[f"{RES}/pixels/count"][()]
-        del f[f"{RES}/pixels/count"]
-        f.create_dataset(f"{RES}/pixels/count", data=counts,
-                         compression="gzip", shuffle=True, chunks=True)
-    with pytest.raises(hdf5.H5Error, match="filters"):
-        PC.CoolerReader(j, RES)
+def _stock_cooler(src: str, res: int, dst: str, mcool: bool) -> str:
+    """The group ``src::res`` rewritten with h5py in the ``cooler``
+    package's layout: every dataset chunked, gzip and shuffle, pixels and
+    bins resizable and filled by appends, ``bins/chrom`` an enum of the
+    chromosome names, the cooler's attributes; at the root of a ``.cool``,
+    or under ``resolutions/<res>`` of an ``.mcool``.  Returns the URI the
+    JAX reader takes."""
+    h5 = dict(compression="gzip", compression_opts=6, shuffle=True)
+    with h5py.File(src, "r") as f, h5py.File(dst, "w") as g:
+        s = f[str(res)]
+        if mcool:
+            g.attrs["format"] = "HDF5::MCOOL"
+            g.attrs["format-version"] = 2
+            out = g.create_group(f"resolutions/{res}")
+        else:
+            out = g
+        names = s["chroms/name"][()]
+        out.create_dataset("chroms/name", data=names, **h5)
+        out.create_dataset("chroms/length", data=s["chroms/length"][()],
+                           **h5)
+        enum = h5py.enum_dtype({n.decode(): i for i, n in enumerate(names)},
+                               basetype="i4")
+        out.create_dataset("bins/chrom", data=s["bins/chrom"][()],
+                           dtype=enum, chunks=True, maxshape=(None,), **h5)
+        for k in s["bins"]:
+            if k != "chrom":
+                out.create_dataset(f"bins/{k}", data=s[f"bins/{k}"][()],
+                                   chunks=True, maxshape=(None,), **h5)
+        for k in ("bin1_id", "bin2_id", "count"):
+            v = s[f"pixels/{k}"][()]
+            d = out.create_dataset(f"pixels/{k}", shape=(0,), dtype=v.dtype,
+                                   chunks=(64,), maxshape=(None,), **h5)
+            for part in np.array_split(v, 5):
+                n = d.shape[0]
+                d.resize((n + len(part),))
+                d[n:] = part
+        for k in s["indexes"]:
+            out.create_dataset(f"indexes/{k}", data=s[f"indexes/{k}"][()],
+                               chunks=True, maxshape=(None,), **h5)
+        for k, v in s.attrs.items():
+            out.attrs[k] = v
+        out.attrs["creation-date"] = "2026-10-17T00:00:00"
+        out.attrs["format-url"] = "https://github.com/open2c/cooler"
+    return f"{dst}::resolutions/{res}" if mcool else dst
+
+
+def _same_readers(p, j, res):
+    assert p.chromnames == j.chromnames
+    assert p.lengths == j.lengths and p.res == j.res == res
+    np.testing.assert_array_equal(p.chrom_offset, j.chrom_offset)
+    assert p.nbins == j.nbins and p.has_weights == j.has_weights
+    for a, b in zip(p.pixels_coo(), j.pixels_coo()):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    if j.has_weights:
+        np.testing.assert_array_equal(p.bins_weight(), j.bins_weight())
+    for c in j.chromnames:
+        for a, b in zip(p.fetch_coo(c), j.fetch_coo(c)):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(p.matrix(c), j.matrix(c))
+        if j.has_weights:
+            np.testing.assert_array_equal(p.bins_weight(c), j.bins_weight(c))
+            np.testing.assert_array_equal(p.matrix(c, balance=True),
+                                          j.matrix(c, balance=True))
+    np.testing.assert_array_equal(p.matrix_between("1", "X"),
+                                  j.matrix_between("1", "X"))
+
+
+@pytest.mark.parametrize("kind", [".cool", ".mcool"])
+def test_reader_reads_a_cooler_in_the_cooler_packages_layout(tmp_path, rng,
+                                                            kind):
+    """A single-resolution ``.cool`` (root group) and an ``.mcool``
+    (``resolutions/<res>``), chunked, gzip and shuffle with an enum
+    ``bins/chrom``: the port's reader equals the JAX reader on them, and
+    a rewrite through ``set_weights`` keeps every table."""
+    j, _ = _write_both(tmp_path, "weights", rng)
+    uri = _stock_cooler(j, RES, str(tmp_path / f"stock{kind}"),
+                        kind == ".mcool")
+    p = PC.CoolerReader(uri)
+    _same_readers(p, JC.CoolerReader(uri), RES)
+    path = uri.split("::")[0]
+    # what the JAX reader refuses, the port refuses: a resolution asked of
+    # a file without that group
+    for reader in (JC.CoolerReader, PC.CoolerReader):
+        with pytest.raises(KeyError):
+            reader(path, 3 * RES)
+    g = hdf5.read(path)[p.grp]
+    assert g["bins/chrom"].enum == {c: i for i, c in enumerate(p.chromnames)}
+    assert g["pixels/count"].chunks is not None
+    assert g.attrs["creation-date"] == "2026-10-17T00:00:00"
+    # a rewrite decodes the chunked tables and writes them contiguous
+    w = 1.0 + rng.random(p.nbins)
+    p.set_weights(w)
+    np.testing.assert_array_equal(PC.CoolerReader(uri).bins_weight(), w)
+    JC.CoolerReader(uri).set_weights(w)
+    _same_readers(PC.CoolerReader(uri), JC.CoolerReader(uri), RES)
+
+
+def test_tads_on_a_stock_mcool_match_the_jax_driver(tmp_path):
+    """``run_tads`` of both packages on an ``.mcool`` in the ``cooler``
+    package's layout: the same files (DI values to rtol 1e-6, float32
+    window sums in another order; every other line identical)."""
+    from hichap_master_tpu.models.tads import run_tads as j_tads
+    from hichap_master_tpu_torch.models.tads import run_tads
+    from hichap_master_tpu_torch.testing.synthetic import tad_coo
+
+    res = 40_000
+    sizes = {"1": 130 * res - 7, "2": 110 * res - 7}
+    jg, pg = JGenome(sizes), Genome(sizes)
+    rng = np.random.default_rng(4)
+    mats = {}
+    for c in jg.labels:
+        n = jg.n_bins(c, res)
+        rows, cols, vals = tad_coo(rng, n, 15)
+        M = np.zeros((n, n))
+        M[rows, cols] = vals
+        mats[c] = np.triu(M) + np.triu(M, 1).T
+    src = str(tmp_path / "src.cool")
+    nbins = sum(pg.cooler_n_bins(c, res) for c in pg.labels)
+    PC.write_cooler(src, pg, res, mats,
+                    weights=1.0 + 0.1 * rng.random(nbins))
+    uri = _stock_cooler(src, res, str(tmp_path / "stock.mcool"), True)
+    kw = dict(min_tad=3 * res, max_tad=40 * res, window=6 * res)
+    want = j_tads(uri, res, False, str(tmp_path / "j" / "T"), **kw)
+    got = run_tads(uri, res, False, str(tmp_path / "p" / "T"), device="cpu",
+                   **kw)
+    assert list(got) == list(want)
+    assert sum(len(r["domains"][0]) for r in got.values()) > 0
+    names = sorted(os.listdir(tmp_path / "j" / "T"))
+    assert names == sorted(os.listdir(tmp_path / "p" / "T"))
+    for name in names:
+        with open(tmp_path / "j" / "T" / name) as a, \
+                open(tmp_path / "p" / "T" / name) as b:
+            lj, lp = a.read().splitlines(), b.read().splitlines()
+        assert len(lj) == len(lp), name
+        if "_DI_" not in name:
+            assert lp == lj, name
+            continue
+        for x, y in zip(lj, lp):
+            assert x.split("\t")[0] == y.split("\t")[0]
+            np.testing.assert_allclose(float(y.split("\t")[1]),
+                                       float(x.split("\t")[1]),
+                                       rtol=1e-6, atol=1e-6)
 
 
 def test_pixels_from_device_tensors_sort_and_cut(rng):

@@ -1,8 +1,9 @@
 """The port's minimal HDF5 writer and reader (hichap_master_tpu_torch.io.
 hdf5) against h5py: what the writer writes, h5py reads (and can extend);
-what h5py writes with libver 'earliest', the reader reads; anything outside
-the subset raises an error that names the feature.  Values, dtypes, shapes
-and attributes compare exactly."""
+what h5py writes with libver 'earliest', the reader reads, chunked, deflated
+and shuffled datasets and enums included; anything outside the subset
+raises an error that names the feature.  Values, dtypes, shapes and
+attributes compare exactly."""
 
 import h5py
 import numpy as np
@@ -153,25 +154,106 @@ def test_h5py_can_extend_a_written_file(tmp_path):
     assert t["g"].attrs == {"n": "x", "more": "y"}
 
 
+def _btree_level(path, ds):
+    with open(path, "rb") as f:
+        f.seek(ds.chunks.btree + 5)
+        return f.read(1)[0]
+
+
+CHUNKED = ["chunked", "gzip", "shuffle", "gzip_shuffle", "enum", "maxshape",
+           "many_chunks", "two_d", "fill", "float_edge"]
+
+
+@pytest.mark.parametrize("kind", CHUNKED)
+def test_reader_reads_chunked_and_filtered_datasets(tmp_path, kind):
+    """Chunked storage, deflate and shuffle, enums, resizable datasets
+    (maximum dimensions stored), more chunks than one B-tree leaf holds,
+    two-dimensional chunks, unwritten chunks (fill value) and an edge chunk
+    past the end: whole reads and row ranges equal h5py's."""
+    path = str(tmp_path / f"{kind}.h5")
+    rng = np.random.default_rng(5)
+    x = rng.integers(-10**9, 10**9, 1000, dtype=np.int64)
+    gz = dict(compression="gzip", shuffle=True)
+    with h5py.File(path, "w") as f:
+        if kind == "chunked":
+            f.create_dataset("x", data=x, chunks=(100,))
+        elif kind == "gzip":
+            f.create_dataset("x", data=x, compression="gzip")
+        elif kind == "shuffle":
+            f.create_dataset("x", data=x, shuffle=True, chunks=(100,))
+        elif kind == "gzip_shuffle":
+            f.create_dataset("x", data=x.astype(np.int32), chunks=(96,),
+                             compression="gzip", compression_opts=6,
+                             shuffle=True)
+        elif kind == "enum":
+            dt = h5py.enum_dtype({"chr1": 0, "chr2": 1, "chrX": 7},
+                                 basetype="i4")
+            f.create_dataset("x", data=rng.choice([0, 1, 7], 1000).astype(
+                np.int32), dtype=dt, chunks=True, maxshape=(None,), **gz)
+        elif kind == "maxshape":
+            d = f.create_dataset("x", shape=(0,), maxshape=(None,),
+                                 dtype="i8", chunks=(64,), **gz)
+            for part in np.array_split(x, 7):   # appended as cooler does
+                n = d.shape[0]
+                d.resize((n + len(part),))
+                d[n:] = part
+        elif kind == "many_chunks":
+            f.create_dataset("x", data=x, chunks=(4,), **gz)
+        elif kind == "two_d":
+            f.create_dataset("x", data=rng.normal(size=(100, 10)).astype(
+                "f4"), chunks=(16, 3), **gz)
+        elif kind == "fill":
+            d = f.create_dataset("x", shape=(1000,), chunks=(100,),
+                                 dtype="i4", fillvalue=-7)
+            d[250:430] = np.arange(180)
+        else:
+            f.create_dataset("x", data=rng.normal(size=1001), chunks=(100,),
+                             **gz)
+    ds = hdf5.read(path)["x"]
+    assert ds.address is None and ds.chunks is not None
+    with h5py.File(path, "r") as f:
+        want = f["x"]
+        _equal(ds[:], want[()])
+        assert ds.shape == want.shape
+        n = len(want)
+        for a, b in ((0, 1), (n - 1, n), (3, n - 3), (n // 3, n // 2),
+                     (17, 17), (n - 5, n + 50)):
+            _equal(ds[a:b], want[a:b])
+        _equal(ds[n // 2], want[n // 2])
+        if kind == "enum":
+            assert ds.enum == h5py.check_enum_dtype(want.dtype)
+    if kind == "many_chunks":
+        assert _btree_level(path, ds) > 0   # internal nodes were walked
+        assert len(ds.chunks.index()) == 250
+
+
 @pytest.mark.parametrize("kind,match", [
-    ("chunked", "chunked layout"), ("gzip", "filters"),
-    ("shuffle", "filters"), ("latest", "superblock version"),
-    ("compound", "compound"), ("vlen_data", "variable-length strings"),
+    ("fletcher32", "fletcher32"), ("lzf", "lzf"),
+    ("scaleoffset", "scaleoffset"), ("compact", "compact layout"),
+    ("latest", "superblock version"), ("compound", "compound"),
+    ("vlen_data", "variable-length strings"),
     ("not_hdf5", "not an HDF5 file")])
 def test_outside_the_subset_raises_by_name(tmp_path, kind, match):
     path = str(tmp_path / f"{kind}.h5")
     if kind == "not_hdf5":
         (tmp_path / f"{kind}.h5").write_bytes(b"plain text, not hdf5\n")
+    elif kind == "compact":
+        with h5py.File(path, "w", libver="earliest") as f:
+            space = h5py.h5s.create_simple((4,))
+            plist = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+            plist.set_layout(h5py.h5d.COMPACT)
+            h5py.h5d.create(f.id, b"x", h5py.h5t.NATIVE_INT32, space,
+                            dcpl=plist)
     else:
         libver = "latest" if kind == "latest" else "earliest"
         with h5py.File(path, "w", libver=libver) as f:
             x = np.arange(1000, dtype=np.int64)
-            if kind == "chunked":
-                f.create_dataset("x", data=x, chunks=(100,))
-            elif kind == "gzip":
-                f.create_dataset("x", data=x, compression="gzip")
-            elif kind == "shuffle":
-                f.create_dataset("x", data=x, shuffle=True, chunks=(100,))
+            if kind == "fletcher32":
+                f.create_dataset("x", data=x, fletcher32=True, chunks=(100,))
+            elif kind == "lzf":
+                f.create_dataset("x", data=x, compression="lzf")
+            elif kind == "scaleoffset":
+                f.create_dataset("x", data=x, scaleoffset=0, chunks=(100,))
             elif kind == "latest":
                 f.create_dataset("x", data=x)
             elif kind == "compound":

@@ -3,10 +3,12 @@ with jax, h5py and pandas blocked (the GPU machine has none of them) and
 with the JAX package blocked, and chip_smoke.py refuses to run without a
 CUDA device or without the repo."""
 
+import fnmatch
 import os
 import shutil
 import subprocess
 import sys
+import tomllib
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -20,6 +22,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 assert "hichap_master_tpu_torch.pipeline.matrix" in names, names
 for io in ("bedio", "cooler", "hdf5"):
     assert f"hichap_master_tpu_torch.io.{io}" in names, names
+for mod in ("cli", "utils", "utils.logging", "utils.profiling"):
+    assert f"hichap_master_tpu_torch.{mod}" in names, names
 for name in names:
     importlib.import_module(name)
 loaded = [k for k, v in sys.modules.items()
@@ -41,7 +45,7 @@ def test_port_imports_without_jax():
                        capture_output=True, text=True, timeout=300,
                        env=_env())
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 37  # every module was imported
+    assert int(r.stdout.split()[-1]) >= 49  # every module was imported
 
 
 _HOST_BUILD = """
@@ -87,3 +91,19 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
     r = _smoke(tmp_path)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_package_data_ships_every_source():
+    """Every kernel and host source the port builds at run time is listed
+    in the package data, so that an installed port can build it."""
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    pats = data["hichap_master_tpu_torch"]
+    csrc = os.path.join(REPO, "hichap_master_tpu_torch", "csrc")
+    names = os.listdir(csrc)
+    assert "bedparse.cpp" in names
+    for name in names:
+        assert any(fnmatch.fnmatch(f"csrc/{name}", p) for p in pats), name
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    assert scripts["hichap-torch"] == "hichap_master_tpu_torch.cli:main"
