@@ -89,12 +89,26 @@ Phases, each printed on its own line, any failure raising:
    within 1e-4, every output file of the analysis commands identical to
    the drivers', a metrics JSON for each command; then the temporary
    files are removed;
-7. the launch counters of each path, each kernel of the path > 0, and one
+7. the front of the user path, chunk beds in: first the filtering stage
+   at FILTER_CHECK_RECORDS records per haplotype (chunk beds drawn by
+   ``testing.synthetic.record_beds``) on the card and on the CPU, its
+   statistics and report equal to the draw's planted truth and to each
+   other and its seven output files identical byte for byte; then, with
+   its own counters, FILTER_RECORDS per haplotype through
+   ``hichap-torch filtering`` (default device) and ``hichap-torch
+   matrix`` on its Allelic_Bed (whole 500 kb + 10 kb, local 40 kb);
+   checks: the logged statistics and report equal the planted truth, the
+   five allelic beds' pairs as the matrix stage's reader parses them equal
+   their line counts, the Traditional table sums to those pairs by its
+   rule at each resolution; printed: the draw, the command walls and
+   M records/s, each step's wall, the peak device memory at both sizes
+   and its slope in bytes per record;
+8. the launch counters of each path, each kernel of the path > 0, and one
    JSON line with the per-kernel results (``launches_by_path``: analysis,
-   diploid, allelic, files, cli).
+   diploid, allelic, files, cli, filtering).
 
-The diploid, files and CLI paths each report their peak device memory
-(``torch.cuda.max_memory_allocated``).
+The diploid, files, CLI and filtering paths each report their peak device
+memory (``torch.cuda.max_memory_allocated``).
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
 every phase passed.
@@ -2262,6 +2276,242 @@ def cli_checks(st, cl, dev):
         f"metrics JSON for each command")
 
 
+# the filtering phase: records per haplotype (chunk beds of 4 M lines
+# each) at full size, and the size of the card-against-CPU check
+FILTER_RECORDS = 16_000_000
+FILTER_CHUNKS = 4
+FILTER_CHECK_RECORDS = FILTER_RECORDS // 4
+FILTER_CELL = "GM12878_R1"
+FILTER_SEED = 13
+
+
+class _Reports:
+    """The statistics that the filtering stage logs: ``stats`` by
+    haplotype (``log.log(21, "HiC filtering (%s): %s", name, stats)``) and
+    ``reports`` (``log.log(21, "allelic filtering: %s", report)``, whose
+    one mapping argument logging keeps as ``record.args``)."""
+
+    def __init__(self):
+        import logging
+
+        self.handler = logging.Handler(level=0)
+        self.handler.emit = self._emit
+        self.logger = logging.getLogger(
+            "hichap_master_tpu_torch.pipeline.filtering")
+        self.stats, self.reports = {}, []
+
+    def _emit(self, record):
+        if record.msg.startswith("HiC filtering"):
+            self.stats[record.args[0]] = record.args[1]
+        elif isinstance(record.args, dict):
+            self.reports.append(record.args)
+
+    def __enter__(self):
+        self.level = self.logger.level
+        self.logger.setLevel(21)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
+def _filter_functions(raw, out, dev, walls=None):
+    """``hic_filtering`` of both haplotypes and ``allelic_filtering`` on
+    ``dev`` (the chunk beds kept): (stats by haplotype, report)."""
+    from hichap_master_tpu_torch.pipeline.filtering import (allelic_filtering,
+                                                            hic_filtering)
+
+    filt, alle = os.path.join(out, "Filtered_Bed"), os.path.join(
+        out, "Allelic_Bed")
+    stats = {h: hic_filtering(raw, filt, h, clean=False, device=dev,
+                              walls=walls) for h in ("Maternal", "Paternal")}
+    report = allelic_filtering(
+        *(os.path.join(filt, f"{FILTER_CELL}_{h}_Valid.bed")
+          for h in ("Maternal", "Paternal")), alle, device=dev, walls=walls)
+    return stats, report
+
+
+def _tree_bytes(root) -> dict:
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            with open(os.path.join(d, n), "rb") as f:
+                out[os.path.relpath(os.path.join(d, n), root)] = f.read()
+    return out
+
+
+def _truth_checks(what, stats, report, truth):
+    for h in ("Maternal", "Paternal"):
+        check(stats[h] == truth[h], f"{what}: {h} statistics {stats[h]} "
+              f"differ from the planted {truth[h]}")
+        check(all(v > 0 for v in stats[h].values()),
+              f"{what}: a {h} statistic is 0")
+    check(report == truth["report"], f"{what}: report {report} differs from "
+          f"the planted {truth['report']}")
+    check(all(v > 0 for v in report.values()), f"{what}: a report entry is 0")
+
+
+def filter_check(dev):
+    """Filtering at FILTER_CHECK_RECORDS per haplotype, on the card and on
+    the CPU, from the same chunk beds: statistics and report equal to the
+    draw's planted truth and to each other, every output file byte for
+    byte; the card's peak device memory at this size."""
+    from hichap_master_tpu_torch.testing.synthetic import (HG19, HG19_NAMES,
+                                                           record_beds)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_filter_check_")
+    try:
+        raw = os.path.join(tmp, "raw")
+        truth = record_beds(raw, FILTER_CELL, HG19, HG19_NAMES,
+                            FILTER_CHECK_RECORDS, FILTER_CHUNKS, FILTER_SEED,
+                            device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        card = _filter_functions(raw, os.path.join(tmp, "card"), dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        cpu = _filter_functions(raw, os.path.join(tmp, "cpu"),
+                                torch.device("cpu"))
+        cpu_wall = time.perf_counter() - t0
+        _truth_checks("filter check (card)", *card, truth)
+        check(card == cpu, "filter check: the card's statistics differ from "
+              "the CPU's")
+        a, b = _tree_bytes(os.path.join(tmp, "card")), _tree_bytes(
+            os.path.join(tmp, "cpu"))
+        check(sorted(a) == sorted(b) and len(a) == 7,
+              f"filter check: output files {sorted(a)} vs {sorted(b)}")
+        differ = [k for k in a if a[k] != b[k]]
+        check(not differ, f"filter check: {differ} differ between the card "
+              "and the CPU")
+        n_bytes = sum(len(v) for v in a.values())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"filter check ({2 * FILTER_CHECK_RECORDS:,} records): card "
+        f"{wall:.3f} s, CPU {cpu_wall:.3f} s (host clock); the seven "
+        f"statistics of each haplotype and the 16 report entries equal the "
+        f"planted truth on both; the 7 output files ({n_bytes / 1e6:.1f} MB) "
+        f"identical byte for byte; peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB")
+    return peak
+
+
+def filter_phase(dev):
+    """The front of the user path on the card: chunk beds drawn
+    (``testing.synthetic.record_beds``, FILTER_RECORDS per haplotype in
+    FILTER_CHUNKS files), ``hichap-torch filtering`` (the default device),
+    then ``hichap-torch matrix`` on its Allelic_Bed at whole 500 kb + 10 kb
+    and local 40 kb.  Returns the phase's state for ``filter_checks``."""
+    from hichap_master_tpu_torch.core import Genome
+    from hichap_master_tpu_torch.testing.synthetic import (HG19, HG19_NAMES,
+                                                           record_beds)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_filter_")
+    ws = os.path.join(tmp, "ws")
+    raw = os.path.join(ws, "UniqRawBed")
+    sizes = os.path.join(tmp, "hg19.sizes")
+    Genome(dict(zip(HG19_NAMES, HG19))).write(sizes)
+    walls = {}
+    truth = _timed(walls, "draw", lambda: record_beds(
+        raw, FILTER_CELL, HG19, HG19_NAMES, FILTER_RECORDS, FILTER_CHUNKS,
+        FILTER_SEED, device=dev))
+    raw_mb = sum(_mb(os.path.join(raw, f)) for f in os.listdir(raw))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with _Reports() as rep:
+        _timed(walls, "filtering", lambda: _cli(["filtering", "-w", ws]))
+    peak = torch.cuda.max_memory_allocated()
+    alle = os.path.join(ws, "Allelic_Bed")
+    shutil.rmtree(os.path.join(ws, "Filtered_Bed"))       # disk
+    out = os.path.join(tmp, "out")
+    torch.cuda.empty_cache()
+    _timed(walls, "matrix", lambda: _cli([
+        "matrix", "-w", ws, "-b", alle, "-o", out, "-gs", sizes,
+        "-wR", *DIPLOID_WHOLE, "-lR", *DIPLOID_LOCAL,
+        "-region", DIPLOID_VOTE["imputation_region"],
+        "-min", DIPLOID_VOTE["imputation_min"],
+        "-ratio", DIPLOID_VOTE["imputation_ratio"]]))
+    return dict(tmp=tmp, ws=ws, sizes=sizes, alle=alle, out=out, walls=walls,
+                truth=truth, raw_mb=raw_mb, peak=peak, stats=rep.stats,
+                reports=rep.reports)
+
+
+def filter_checks(fl, peak_check, dev):
+    """The filtering phase's checks and report: the logged statistics and
+    report against the planted truth; the five allelic beds' pairs as the
+    matrix stage's reader parses them equal to their line counts; the
+    Traditional table at each resolution sums to what those pairs give by
+    its rule; the walls and rates of the metrics JSON; peak device memory
+    at both sizes and its slope."""
+    from hichap_master_tpu_torch.core import Genome
+    from hichap_master_tpu_torch.io.bedio import (ALLELIC_CLASSES,
+                                                  allelic_classes)
+    from hichap_master_tpu_torch.io.cooler import CoolerReader
+
+    check(sorted(fl["stats"]) == ["Maternal", "Paternal"]
+          and len(fl["reports"]) == 1, "filtering: the stage logged "
+          f"statistics of {sorted(fl['stats'])} and {len(fl['reports'])} "
+          "reports")
+    _truth_checks("filtering", fl["stats"], fl["reports"][0], fl["truth"])
+    lines = {}
+    for k in ALLELIC_CLASSES:
+        with open(os.path.join(fl["alle"], f"{FILTER_CELL}_Valid_{k}.bed"),
+                  "rb") as f:
+            lines[k] = sum(block.count(b"\n") for block in
+                           iter(lambda: f.read(1 << 26), b""))
+    genome = Genome.from_file(fl["sizes"], ("#", "X"))
+    classes = allelic_classes(fl["alle"], genome, device=dev)
+    for k in ALLELIC_CLASSES:
+        check(classes[k][0].numel() == lines[k], f"filtering: {k} has "
+              f"{lines[k]} lines, {classes[k][0].numel()} pairs parsed")
+    want = _pair_totals(classes, genome, dev)
+    trad = os.path.join(fl["out"], "Cooler",
+                        f"{FILTER_CELL}_Traditional_Multi.cool")
+    for res in DIPLOID_WHOLE + DIPLOID_LOCAL:
+        b1, b2, v = CoolerReader(trad, res).pixels_coo()
+        total = 2 * int(v.sum()) - int(v[b1 == b2].sum())
+        check(total == want[("Tradition", res)], f"filtering: Traditional "
+              f"{res} sums to {total}, its pairs give "
+              f"{want[('Tradition', res)]}")
+    del classes
+    with open(os.path.join(fl["ws"], "Metrics", "filtering.json")) as f:
+        m = json.load(f)
+    n = 2 * FILTER_RECORDS
+    steps = {}
+    for key, v in m.items():
+        if key != "filtering.total":
+            steps.setdefault(key.split(".")[-1], 0.0)
+            steps[key.split(".")[-1]] += v
+    walls = fl["walls"]
+    log(f"filtering: draw of {n:,} records in {2 * FILTER_CHUNKS} chunk "
+        f"beds {walls['draw']:.3f} s ({fl['raw_mb']:.1f} MB); "
+        f"`hichap-torch filtering` {walls['filtering']:.3f} s (metrics JSON "
+        f"total {m['filtering.total']:.3f} s), "
+        f"{n / m['filtering.total'] / 1e6:.3f} M records/s; "
+        f"`hichap-torch matrix` on its Allelic_Bed {walls['matrix']:.3f} s")
+    log("filtering:   walls by step (both hic_filtering calls and "
+        "allelic_filtering summed, synchronised): " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in steps.items()))
+    log("filtering:   metrics JSON: " + ", ".join(
+        f"{k[len('filtering.'):]} {v:.3f}" for k, v in sorted(m.items())
+        if k != "filtering.total"))
+    slope = (fl["peak"] - peak_check) / (n - 2 * FILTER_CHECK_RECORDS)
+    log(f"filtering:   peak device memory (torch.cuda.max_memory_allocated) "
+        f"{fl['peak'] / 2 ** 30:.3f} GiB at {n:,} records, "
+        f"{peak_check / 2 ** 30:.3f} GiB at {2 * FILTER_CHECK_RECORDS:,}: "
+        f"{slope:.1f} bytes per record")
+    log(f"filtering:   checks: statistics and report equal the planted "
+        f"truth; the five allelic beds' {sum(lines.values()):,} lines all "
+        f"parsed by the matrix stage's reader "
+        + str({k: lines[k] for k in ALLELIC_CLASSES})
+        + "; the Traditional table sums to those pairs at "
+        + ", ".join(str(r) for r in DIPLOID_WHOLE + DIPLOID_LOCAL))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device visible")
@@ -2388,9 +2638,24 @@ def main() -> None:
     finally:
         shutil.rmtree(st["tmp"], ignore_errors=True)
     torch.cuda.empty_cache()
+    # the front of the user path: chunk beds through `hichap-torch
+    # filtering` on the card, then `matrix` on its allelic beds; first
+    # the card against the CPU at a quarter of the size
+    peak_check = filter_check(dev)
+    torch.cuda.empty_cache()
+    reset()
+    fl = filter_phase(dev)
+    filter_l = read("filtering", ("ice_sweep", "sparse_marginal",
+                                  "impute_vote", "segment_marginal"))
+    try:
+        filter_checks(fl, peak_check, dev)
+    finally:
+        shutil.rmtree(fl["tmp"], ignore_errors=True)
+    torch.cuda.empty_cache()
 
     paths = {"analysis": analysis, "diploid": diploid_l,
-             "allelic": allelic_l, "files": files_l, "cli": cli_l}
+             "allelic": allelic_l, "files": files_l, "cli": cli_l,
+             "filtering": filter_l}
     kernels = [dict(name=k, launches=sum(p[k] for p in paths.values()),
                     launches_by_path={n: p[k] for n, p in paths.items()},
                     **results[k]) for k in counters]

@@ -2,7 +2,10 @@
 
 What is ported: the analysis suite (dense per-chromosome ICE, genome-wide
 block-sparse ICE, HICCUPS loop calling, the two-step correction,
-compartments and TADs) and the contact-matrix stage that feeds it
+compartments and TADs), the filtering stage (``pipeline.filtering``:
+duplicate removal, Hi-C noise classes and the maternal/paternal
+assignment, chunk beds in, allelic beds out) and the contact-matrix stage
+that feeds on it
 (``pipeline.matrix``: binning of valid or allelic pairs, the haplotype
 imputation vote, the genome-wide and local corrections and the ICE weights,
 with the hybrid tile + scattered-COO balance past the dense cap).  Plain
@@ -19,8 +22,8 @@ drivers (``pipeline.matrix.haplotype_matrix_files`` /
 write coolers through ``io`` (a host C++ bed scanner and a minimal HDF5
 writer and reader in numpy: no pandas, no h5py; the reader also reads the
 ``cooler`` package's chunked, compressed files).  The command line
-``hichap-torch`` (``cli``) runs the analysis sub-commands of the JAX
-package's ``hichap-tpu`` on them.  The package never imports ``jax``, nor
+``hichap-torch`` (``cli``) runs the sub-commands of the JAX package's
+``hichap-tpu`` from ``filtering`` on.  The package never imports ``jax``, nor
 anything of the JAX package.
 """
 

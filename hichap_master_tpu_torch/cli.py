@@ -1,22 +1,30 @@
-"""hichap-torch command line: the analysis sub-commands of ``hichap-tpu``
-on the port.
+"""hichap-torch command line: the sub-commands of ``hichap-tpu`` from
+``filtering`` on, on the port.
 
-The sub-commands ``matrix``, ``compartment``, ``tads``, ``loops`` and
-``specificity`` take the JAX package's flags and defaults
+The sub-commands ``filtering``, ``matrix``, ``compartment``, ``tads``,
+``loops`` and ``specificity`` take the JAX package's flags and defaults
 (``hichap_master_tpu/cli.py``), with one flag more: ``--device`` (default
 ``cuda``), the device every driver runs on.  With ``--device cuda`` and no
 card visible the command fails; it never falls back to the CPU.
 
-The front of the pipeline (``rebuildG`` .. ``filtering``) is not part of the
-port: those sub-commands are refused by name.  ``-r/--resume`` is accepted
-and, as in the JAX CLI for these five sub-commands, skips nothing (only the
-front stages write a completion marker).
+The front of the pipeline before ``filtering`` (``rebuildG`` ..
+``bamProcess``) is not part of the port: those sub-commands are refused by
+name.  ``-r/--resume`` is accepted and, as in the JAX CLI for these
+sub-commands, skips nothing (only the front stages write a completion
+marker).
+
+``filtering`` reads the chunk beds of ``<workspace>/UniqRawBed`` (``-b``)
+and writes ``<workspace>/Filtered_Bed`` (the valid beds) and, unless
+``-N``, ``<workspace>/Allelic_Bed`` (``-o``: the five allelic beds that
+``matrix -b`` reads).
 
 Each command writes ``<workspace>/Metrics/<command>.json``: the command's
-wall seconds under ``<command>.total`` and, for ``matrix``, the seconds of
-each step its driver times, under ``<command>.<step>``.
+wall seconds under ``<command>.total`` and the seconds of each step its
+drivers time, under ``<command>.<step>`` (``filtering.<haplotype>.<step>``
+for each ``hic_filtering`` call and ``filtering.allelic.<step>``).
 
-    hichap-torch matrix -b Allelic_Bed -o out -gs genomeSize -wR 500000
+    hichap-torch filtering -w ws
+    hichap-torch matrix -b ws/Allelic_Bed -o out -gs genomeSize -wR 500000
     hichap-torch compartment -c out/Cooler/X_Traditional_Multi.cool -R 500000 -o T
 """
 
@@ -33,7 +41,10 @@ from .utils.logging import get_logger, setup_logging
 log = get_logger("hichap_master_tpu_torch.cli")
 
 FRONT = ("rebuildG", "rebuildF", "GlobalMapping", "Rescue", "ReMapping",
-         "bamProcess", "filtering")
+         "bamProcess")
+# the workspace directories of hichap-tpu that these sub-commands use
+WS_DIRS = {"rawbed": "UniqRawBed", "filtered": "Filtered_Bed",
+           "allelic": "Allelic_Bed"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -54,6 +65,14 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_argument("--device", default="cuda",
                         help="torch device of every driver (default cuda; "
                              "no fallback to the CPU)")
+
+    p = sub.add_parser("filtering", parents=[common],
+                       help="HiC noise filtering + allelic assignment")
+    p.add_argument("-b", "--bed", default=None)
+    p.add_argument("-uc", "--unclean", action="store_true", default=False)
+    p.add_argument("-N", "--NonAllelic", action="store_true", default=False)
+    p.add_argument("-t", "--threads", type=int, default=1)
+    p.add_argument("-o", "--out", default=None)
 
     p = sub.add_parser("matrix", parents=[common],
                        help="contact matrices + correction + cooler output")
@@ -117,6 +136,40 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _ws(args, key: str) -> str:
+    """``<workspace>/<WS_DIRS[key]>``, made if missing."""
+    d = os.path.join(args.workspace, WS_DIRS[key])
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def _filtering(args, dev, walls) -> None:
+    """``hic_filtering`` of the chunk beds (NonAllelic, or Maternal and
+    Paternal), then ``allelic_filtering`` of the two valid beds, as the JAX
+    CLI runs them."""
+    from .pipeline.filtering import allelic_filtering, hic_filtering
+
+    def run(fn, name, *a, **kw):
+        steps = {}
+        fn(*a, **kw, device=dev, walls=steps)
+        walls.update({f"{name}.{k}": v for k, v in steps.items()})
+
+    bed = args.bed or _ws(args, "rawbed")
+    if args.NonAllelic:
+        out = args.out or _ws(args, "filtered")
+        run(hic_filtering, "NonAllelic", bed, out, "NonAllelic",
+            clean=not args.unclean)
+        return
+    filt = _ws(args, "filtered")
+    for hap in ("Maternal", "Paternal"):
+        run(hic_filtering, hap, bed, filt, hap, clean=not args.unclean)
+    m_bed, p_bed = (next(os.path.join(filt, f) for f in sorted(
+        os.listdir(filt)) if f"{hap}_Valid" in f)
+        for hap in ("Maternal", "Paternal"))
+    run(allelic_filtering, "allelic", m_bed, p_bed,
+        args.out or _ws(args, "allelic"))
+
+
 def _device(parser, name: str):
     """The torch device ``name``; a CUDA device that is not visible is an
     error."""
@@ -158,7 +211,10 @@ def run(argv=None) -> int:
     allelic = (False if getattr(args, "allelic", "False") == "False"
                else args.allelic)
 
-    if args.command == "matrix":
+    if args.command == "filtering":
+        _filtering(args, dev, walls)
+
+    elif args.command == "matrix":
         from .pipeline.matrix import (haplotype_matrix_files,
                                       traditional_matrix_files)
         if not os.path.exists(args.genomeSize):

@@ -64,7 +64,9 @@ SIGNATURES = {
 
 
 # host C entry points (csrc/bedparse.cpp) -> argument types; each returns
-# the number of rows kept (long)
+# a long: the rows kept (bedparse_valid, bedparse_allelic), the rows
+# scanned or -1 for a full intern table (bedparse_record), the bytes
+# written (bedparse_gather, bedparse_format; -1 for a full buffer)
 _L = ctypes.c_long
 _S = ctypes.POINTER(ctypes.c_char_p)
 HOST_SOURCE = CSRC_DIR / "bedparse.cpp"
@@ -73,6 +75,10 @@ HOST_SIGNATURES = {
     "bedparse_valid": [ctypes.c_char_p, _L, _S, _I, _P, _P, _P, _P],
     "bedparse_allelic": [ctypes.c_char_p, _L, _S, _I, _I, _P, _P, _P, _P,
                          _P],
+    "bedparse_record": [ctypes.c_char_p, _L, _L, _L, _P, _L, _P, _P, _I, _P,
+                        _P, _P, _P, _P, _P, _P, _P, _P],
+    "bedparse_gather": [_P, _P, _P, _P, _L, _P],
+    "bedparse_format": [_L, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _L],
 }
 
 

@@ -313,7 +313,7 @@ def call_compartments(inputs: Mapping, res: int, allelic, device,
     return tracks
 
 
-NO_PLOTS = ("plots are not ported (ROADMAP.md Queue 1 item 1): pass "
+NO_PLOTS = ("plots are not ported (ROADMAP.md Queue 1 item 3): pass "
             "plot=False")
 
 

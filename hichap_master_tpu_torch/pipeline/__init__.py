@@ -1,1 +1,2 @@
-"""Pipeline stages of the port (contact-matrix construction)."""
+"""Pipeline stages of the port (filtering and allelic assignment,
+contact-matrix construction)."""

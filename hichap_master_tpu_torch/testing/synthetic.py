@@ -3,7 +3,8 @@
 Counterparts of the generators in ``scripts/perf_sparse_gw.py`` (hg19
 lengths, genome-wide tile coordinates and values) and
 ``scripts/perf_hg19.py`` (dense per-chromosome batches, loop-calling band
-COO, and COO with planted TADs or A/B compartments).  The numpy
+COO, and COO with planted TADs or A/B compartments), and the filtering
+stage's chunk beds with their planted truth (``record_beds``).  The numpy
 generators take a seeded ``numpy.random.Generator``; the tensor generators
 draw on the target device from a seeded
 ``torch.Generator``, so no hg19-scale array crosses the host link.
@@ -13,6 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..io.bedio import TAG_WORDS, _format_rows, _table
 
 # hg19 / GRCh37 chromosome lengths, chr1..22 + X (the reference's default
 # chromosome set)
@@ -330,60 +333,6 @@ def ab_coo(rng: np.random.Generator, n: int, block: int = 10, band=None):
 
 
 # ------------------------------------------------------------- bed writers
-_BED_CHUNK = 1 << 20   # rows formatted at a time
-_TAGS = (b"Both", b"R1", b"R2")
-
-
-def _table(words) -> tuple:
-    """([K, W] uint8 bytes, [K] lengths) of byte strings."""
-    out = np.zeros((len(words), max([len(w) for w in words] + [1])),
-                   np.uint8)
-    for i, w in enumerate(words):
-        out[i, :len(w)] = np.frombuffer(w, np.uint8)
-    return out, np.asarray([len(w) for w in words], np.int64)
-
-
-def _part(part, s: int, e: int) -> tuple:
-    """(bytes [rows, W], kept [rows, W]) of one part of a field for rows
-    s..e: ``("word", table, lengths, index)``, ``("int", values)`` (non-
-    negative decimal) or ``("const", bytes)``."""
-    if part[0] == "word":
-        _, tab, lens, idx = part
-        i = np.asarray(idx[s:e], np.int64)
-        return tab[i], np.arange(tab.shape[1]) < lens[i][:, None]
-    if part[0] == "int":
-        v = np.asarray(part[1][s:e], np.int64)
-        if v.size and int(v.min()) < 0:
-            raise ValueError("bed positions must be non-negative")
-        W = len(str(int(v.max()))) if v.size else 1
-        d = v[:, None] // 10 ** np.arange(W - 1, -1, -1, dtype=np.int64) % 10
-        width = np.where(v == 0, 1, W - np.argmax(d != 0, axis=1))
-        return ((d + ord("0")).astype(np.uint8),
-                np.arange(W) >= (W - width)[:, None])
-    c = np.frombuffer(part[1], np.uint8)
-    return (np.broadcast_to(c, (e - s, c.size)),
-            np.ones((e - s, c.size), bool))
-
-
-def _format_rows(fields, n: int, f) -> None:
-    """Write ``n`` lines of tab-separated ``fields`` (each a list of parts,
-    see ``_part``, written one after the other) to the binary file ``f``,
-    a chunk of rows at a time, with no Python loop per row."""
-    for s in range(0, n, _BED_CHUNK):
-        e = min(n, s + _BED_CHUNK)
-        blocks, keeps = [], []
-        for k, parts in enumerate(fields):
-            for part in parts:
-                b, m = _part(part, s, e)
-                blocks.append(b)
-                keeps.append(m)
-            blocks.append(np.full((e - s, 1), 10 if k == len(fields) - 1
-                                  else 9, np.uint8))
-            keeps.append(np.ones((e - s, 1), bool))
-        f.write(np.concatenate(blocks, 1)[np.concatenate(keeps, 1)]
-                .tobytes())
-
-
 def _host(a) -> np.ndarray:
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
@@ -397,7 +346,7 @@ def write_allelic_beds(dirpath: str, prefix: str, classes, labels) -> dict:
 
     os.makedirs(dirpath, exist_ok=True)
     tab, lens = _table([str(l).encode() for l in labels])
-    tags = _table(list(_TAGS))
+    tags = _table(list(TAG_WORDS))
     out = {}
     for cls, cols in classes.items():
         c1, p1, c2, p2, *tag = (_host(a) for a in cols)
@@ -430,3 +379,329 @@ def write_valid_bed(path: str, pairs, labels) -> str:
     with open(path, "wb") as f:
         _format_rows(fields, len(c1), f)
     return path
+
+
+# ------------------------------------------------------------ chunk beds
+# record_beds: each side's records are RECORD_DUP_SHARE exact-key copies
+# (under new names, each after its original in (file, line) order) and
+# originals; of the originals, RECORD_NOISE are the four kinds of Hi-C
+# noise, and of the valid rest RECORD_BOTH_SHARE are pairs mapped in both
+# beds (routes by RECORD_ROUTES), the others mapped in one bed only
+# (scenarios by RECORD_SPECIFIC).
+RECORD_DUP_SHARE = 0.05
+RECORD_NOISE = (("SelfCircle", 0.01), ("DanglingEnds", 0.02),
+                ("UnknownMechanism", 0.005), ("ExtraDanglingEnds", 0.01))
+RECORD_BOTH_SHARE = 0.7
+# final marks (mate 1, mate 2) by code 3 * m1 + m2 (0 N, 1 M, 2 P):
+# NN NM NP MN MM MP PN PM PP
+RECORD_ROUTES = (0.55, 0.05, 0.05, 0.05, 0.1, 0.025, 0.05, 0.025, 0.1)
+# share of both-mapped pairs whose M or P mark comes through a candidate
+# retry (where the marks allow one), and share carrying an unusable one
+RECORD_CAND_SHARE = 0.08
+# one-bed scenarios: Both; R1; R1 + usable R2 candidate (-> Both); R2;
+# R2 + usable R1 candidate (-> Both); N; N + usable R1 candidate (-> R1);
+# N + usable R2 candidate (-> R2); N + a candidate that changes nothing
+# (another fragment, or no SNP)
+RECORD_SPECIFIC = (0.15, 0.2, 0.03, 0.2, 0.03, 0.3, 0.03, 0.03, 0.03)
+RECORD_FRAG = 500          # fragment width of the fragment-mid columns
+RECORD_INTRA = 0.8         # intra-chromosomal share of the valid pairs
+RECORD_NAME = b"SRR1658570."
+_SPEC_TAG = (0, 1, 0, 2, 0, -1, 1, 2, -1)   # final tag (-1 N) by scenario
+
+
+def _ints(g, lo, hi, n, device):
+    return torch.randint(lo, hi, (n,), generator=g, device=device)
+
+
+def _pick(g, weights, n, device):
+    return torch.multinomial(torch.tensor(weights, dtype=torch.float64,
+                                          device=device), n, True,
+                             generator=g)
+
+
+def _frag(pos):
+    return pos // RECORD_FRAG * RECORD_FRAG + RECORD_FRAG // 2
+
+
+def record_beds(dirpath: str, cell: str, lengths, labels, n_records: int,
+                n_chunks: int = 4, seed: int = 0, *, device) -> dict:
+    """Chunk beds as the JAX package's bamProcess writes them, for both
+    haplotypes, drawn on ``device`` from ``seed``:
+    ``<cell>_chunk<k>_Maternal.bed`` and ``<cell>_chunk<k>_Paternal.bed``
+    (k < ``n_chunks``, ``n_records`` lines per haplotype in equal parts),
+    15 columns, or 23 where a candidate mate follows.  Chromosome i is
+    ``labels[i]`` of length ``lengths[i]`` (hg19's names order ``10``
+    before ``2`` as strings).
+
+    Each haplotype's lines are 5% exact-key copies of an earlier line under
+    a new read name, some in a later chunk file (RECORD_DUP_SHARE), and
+    originals: 1% self-circles, 2% dangling ends, 0.5% unknown-mechanism
+    pairs (strands 0/0, 16/16, 256/16, 0/272) and 1% extra dangling ends
+    (RECORD_NOISE), and valid pairs (80% intra-chromosomal, 1 kb to 10 Mb
+    log-uniform).  70% of the valid pairs are mapped in both haplotypes
+    under one name, their SNP counts, scores and positions (within 5 bp,
+    or 20-40 bp apart) giving the final marks NN 55%, NM, NP, MN 5% each,
+    MM 10%, MP 2.5%, PN 5%, PM 2.5%, PP 10% (RECORD_ROUTES); 8% of those
+    reach an M or P mark through a candidate retry (maternal R1,
+    paternal R2, or both R1: the reference's three cases) where their
+    marks allow, and another 8% carry a candidate that changes nothing.
+    The other 30% are mapped in one haplotype only, each side alike, in
+    the nine scenarios of RECORD_SPECIFIC (every branch of the reference's
+    ``_specific_mapping``: Both 15%, R1 20%, R1 upgraded to Both by an R2
+    candidate 3%, R2 20%, R2 upgraded 3%, N 30%, N rescued to R1 3%, to R2
+    3%, N with a candidate that changes nothing 3%).  Read names are
+    ``SRR1658570.<id>``, so name order is not numeric order.
+
+    Returns the truth: ``{"Maternal": stats, "Paternal": stats, "report":
+    report}``, the seven statistics of ``hic_filtering`` per haplotype and
+    the sixteen entries of ``allelic_filtering``'s report, with the
+    port's tie-break (the first line of a key in (file, line) order)."""
+    import os
+
+    os.makedirs(dirpath, exist_ok=True)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    K = len(lengths)
+    n_dup = int(round(n_records * RECORD_DUP_SHARE))
+    n = n_records - n_dup                        # originals per side
+    n_noise = [int(round(n * s)) for _, s in RECORD_NOISE]
+    n_valid = n - sum(n_noise)
+    n_both = int(round(n_valid * RECORD_BOTH_SHARE))
+    lengths_t = torch.tensor(lengths, dtype=torch.int64, device=device)
+
+    # slots: index i of either side sits at a slot of its own, spaced S
+    # apart on its chromosome, so that (chrom1, pos1) is unique per side
+    per = torch.floor(lengths_t.double() / lengths_t.sum() * n).long()
+    per[torch.argmax(lengths_t)] += n - int(per.sum())
+    S = (lengths_t - 2000) // per.clamp(min=1)
+    if int(S[per > 0].min()) < 64:
+        raise ValueError("record_beds: too many records for the genome")
+    slot = torch.randperm(n, generator=g, device=device)
+    c1 = torch.searchsorted(torch.cumsum(per, 0), slot, right=True)
+    local = slot - (torch.cumsum(per, 0) - per)[c1]
+    base = 1000 + local * S[c1]
+    u = (torch.rand(n, generator=g, device=device, dtype=torch.float64)
+         * (S[c1] // 4).double()).long()
+    p1 = base + u
+
+    # the pairs' other end, shared by both sides
+    intra = torch.rand(n, generator=g, device=device) < RECORD_INTRA
+    dmax = min(10_000_000, min(lengths) // 2 - 100)
+    d = torch.exp(torch.rand(n, generator=g, device=device,
+                             dtype=torch.float64)
+                  * np.log(dmax / 1000.0)).mul(1000.0).long()
+    up = p1 + d < lengths_t[c1] - 50
+    c2 = torch.where(intra, c1, (c1 + 1 + _ints(g, 0, max(K - 1, 1), n,
+                                                device)) % K)
+    far = (torch.rand(n, generator=g, device=device, dtype=torch.float64)
+           * (lengths_t[c2] - 100).double()).long() + 50
+    p2 = torch.where(intra, torch.where(up, p1 + d, p1 - d), far)
+    strand = torch.tensor([0, 16, 256, 272], device=device)
+    s1 = strand[_pick(g, (0.49, 0.49, 0.01, 0.01), n, device)]
+    s2 = strand[_pick(g, (0.49, 0.49, 0.01, 0.01), n, device)]
+
+    # the noise (the first indices, the same on both sides; unique names)
+    kind = torch.full((n,), -1, dtype=torch.int64, device=device)
+    edges = np.cumsum([0] + n_noise)
+    for k in range(4):
+        kind[edges[k]:edges[k + 1]] = k
+    noisy = kind >= 0
+    e = _ints(g, 1, 501, n, device)
+    fwd = torch.rand(n, generator=g, device=device) < 0.5   # p1 < p2
+    c2 = torch.where(noisy, c1, c2)
+    p2 = torch.where(noisy, torch.where(fwd, p1 + e, p1 - e), p2)
+    f1 = _frag(p1)
+    f2 = torch.where(noisy, f1, _frag(p2))
+    f2 = torch.where(kind == 3, f1 + RECORD_FRAG, f2)          # ED
+    facing_1 = torch.where(fwd, 0, 16)                          # DE, ED
+    um = torch.tensor([[0, 0], [16, 16], [256, 16], [0, 272]],
+                      device=device)[_ints(g, 0, 4, n, device)]
+    s1 = torch.where(kind == 0, 16 - facing_1, s1)              # SC
+    s2 = torch.where(kind == 0, facing_1, s2)
+    s1 = torch.where((kind == 1) | (kind == 3), facing_1, s1)   # DE, ED
+    s2 = torch.where((kind == 1) | (kind == 3), 16 - facing_1, s2)
+    s1 = torch.where(kind == 2, um[:, 0], s1)                   # UM
+    s2 = torch.where(kind == 2, um[:, 1], s2)
+
+    # valid pairs: in both beds, then in one bed only
+    i = torch.arange(n, device=device)
+    both = (i >= edges[4]) & (i < edges[4] + n_both)
+    spec = i >= edges[4] + n_both
+    route = _pick(g, RECORD_ROUTES, n, device)
+    m1, m2 = route // 3, route % 3
+    uc = torch.rand(n, generator=g, device=device)
+    cand_a = both & (m1 == 1) & (uc < RECORD_CAND_SHARE)
+    cand_b = both & ~cand_a & (m2 == 2) & (uc < RECORD_CAND_SHARE)
+    cand_c = both & ~cand_a & ~cand_b & (m1 == 2) & (uc < RECORD_CAND_SHARE)
+    cand_x = both & ~(cand_a | cand_b | cand_c) & (
+        uc >= RECORD_CAND_SHARE) & (uc < 2 * RECORD_CAND_SHARE)
+    b1 = torch.where(cand_a | cand_c, 0, m1)                    # base marks
+    b2 = torch.where(cand_b, 0, m2)
+
+    def mate(base_mark, forced_same):
+        """(P's offset from M's position, M's and P's scores and SNPs) of
+        one mate whose base mark is ``base_mark``."""
+        same = forced_same | (torch.rand(n, generator=g, device=device)
+                              < 0.5)
+        delta = torch.where(same, _ints(g, -5, 6, n, device),
+                            _ints(g, 20, 41, n, device))
+        q, r = _ints(g, 0, 2, n, device), _ints(g, 0, 3, n, device)
+        s = _ints(g, 0, 3, n, device)
+        hi = torch.where(same, 2 * q + 1 + r, 2 * q + r.clamp(max=1))
+        msnp = torch.where(base_mark == 1, hi, torch.where(
+            base_mark == 2, q, s))
+        psnp = torch.where(base_mark == 2, hi, torch.where(
+            base_mark == 1, q, s))
+        low = _ints(g, -50, -27, n, device)
+        gap = 18 + _ints(g, 0, 10, n, device)
+        msc = torch.where(~same & (base_mark == 1), low + gap, low)
+        psc = torch.where(~same & (base_mark == 2), low + gap, low)
+        return delta, msc, msnp, psc, psnp
+
+    d1, msc1, msnp1, psc1, psnp1 = mate(b1, cand_a | cand_c)
+    d2, msc2, msnp2, psc2, psnp2 = mate(b2, cand_b)
+
+    # one-bed scenarios, drawn for each side
+    scen = {h: _pick(g, RECORD_SPECIFIC, n, device) for h in "MP"}
+
+    def side(h):
+        """Columns of side ``h`` (originals), with the candidate columns
+        (has, c15, s16, p17, sc19, f20, snp21, tag)."""
+        is_p = h == "P"
+        q1 = p1 + torch.where(both & is_p, d1, 0)
+        q2 = p2 + torch.where(both & is_p, d2, 0)
+        g1, g2 = _frag(q1), _frag(q2)
+        g1 = torch.where(noisy, f1, g1)
+        g2 = torch.where(noisy, f2, g2)
+        sc = _ints(g, -30, 1, n, device)
+        sc1 = torch.where(both, psc1 if is_p else msc1, sc)
+        sc2 = torch.where(both, psc2 if is_p else msc2, sc)
+        sn = scen[h]
+        lo = _ints(g, 1, 4, n, device)
+        hi = _ints(g, 1, 4, n, device)
+        # mate 1 carries SNPs in scenarios 0-2, mate 2 in 0, 3 and 4
+        snp1 = torch.where(both, psnp1 if is_p else msnp1,
+                           torch.where(spec & (sn <= 2), lo, 0))
+        snp2 = torch.where(both, psnp2 if is_p else msnp2, torch.where(
+            spec & ((sn == 0) | (sn == 3) | (sn == 4)), hi, 0))
+        # candidates: the mate the tag names, its chromosome and fragment
+        # (another fragment where unusable), SNPs that decide the retry
+        tag = torch.zeros(n, dtype=torch.int64, device=device)
+        usable = torch.ones(n, dtype=torch.bool, device=device)
+        csnp = _ints(g, 1, 4, n, device)
+        if not is_p:
+            tag = torch.where(cand_a | cand_c | cand_x, 1, tag)
+            usable = ~cand_x
+            csnp = torch.where(cand_a, 2 * msnp1 + 1, csnp)
+            csnp = torch.where(cand_c, 0, csnp)
+        else:
+            tag = torch.where(cand_b, 2, torch.where(cand_c, 1, tag))
+            csnp = torch.where(cand_b, 2 * psnp2 + 1, csnp)
+            csnp = torch.where(cand_c, 3, csnp)
+        tag = torch.where(spec & ((sn == 2) | (sn == 7)), 2, tag)
+        tag = torch.where(spec & ((sn == 4) | (sn == 6)), 1, tag)
+        last = spec & (sn == 8)
+        tag = torch.where(last, 1 + _ints(g, 0, 2, n, device), tag)
+        zero = last & (torch.rand(n, generator=g, device=device) < 0.5)
+        usable = torch.where(last, zero, usable)
+        csnp = torch.where(zero, 0, csnp)
+        has = tag > 0
+        on1 = tag == 1
+        c15 = torch.where(on1, c1, c2)
+        p17 = torch.where(on1, q1, q2)
+        f20 = torch.where(on1, g1, g2) + torch.where(usable, 0,
+                                                     RECORD_FRAG)
+        s16 = strand[_ints(g, 0, 2, n, device)]
+        sc19 = _ints(g, -30, 1, n, device)
+        return [q1, sc1, g1, snp1, q2, sc2, g2, snp2, has, c15, s16, p17,
+                sc19, f20, csnp, tag]
+
+    name = {"M": torch.where(both, i, n + i),
+            "P": torch.where(both, i, 2 * n + i)}
+    truth = {}
+    for h, hap in (("M", "Maternal"), ("P", "Paternal")):
+        q1, sc1, g1, snp1, q2, sc2, g2, snp2, has, c15, s16, p17, sc19, \
+            f20, csnp, tag = side(h)
+        cols = [name[h], c1, s1, q1, sc1, g1, snp1, c2, s2, q2, sc2, g2,
+                snp2, has, c15, s16, p17, sc19, f20, csnp, tag]
+        # copies: a random original each, new names, after it in line order
+        src = _ints(g, 0, n, n_dup, device)
+        key = torch.rand(n, generator=g, device=device, dtype=torch.float64)
+        dkey = key[src] + (1 - key[src]) * torch.rand(
+            n_dup, generator=g, device=device, dtype=torch.float64)
+        cols = [torch.cat([a, a[src]]) for a in cols]
+        cols[0][n:] = 3 * n + (n_dup if h == "P" else 0) + torch.arange(
+            n_dup, device=device)
+        order = torch.sort(torch.cat([key, dkey]), stable=True).indices
+        _write_record_chunks(dirpath, cell, hap, [a[order] for a in cols],
+                             labels, n_chunks)
+        truth[hap] = dict(Total=n_records, Duplicates=n_dup, Valid=n_valid,
+                          **{k: c for (k, _), c in zip(RECORD_NOISE,
+                                                       n_noise)})
+    truth["report"] = _record_report(route, both, spec, scen)
+    return truth
+
+
+def _record_report(route, both, spec, scen) -> dict:
+    """The sixteen entries of ``allelic_filtering``'s report that the
+    planted marks give."""
+    codes = torch.bincount(route[both], minlength=9).tolist()
+    tags = torch.tensor(_SPEC_TAG, device=route.device)
+    sp = {}
+    for h in "MP":
+        t = tags[scen[h][spec]]
+        sp[h] = (int((t < 0).sum()), int((t == 0).sum()), int((t > 0).sum()))
+    single_m = codes[1] + codes[3] + sp["M"][2]
+    single_p = codes[2] + codes[6] + sp["P"][2]
+    both_m, both_p = codes[4] + sp["M"][1], codes[8] + sp["P"][1]
+    total = int(both.sum()) + 2 * int(spec.sum())
+    return {
+        "Total_valid_pairs": total,
+        "Bi_Allelic_pairs": codes[0] + sp["M"][0] + sp["P"][0],
+        "Maternal_Allelic_pairs": both_m + single_m,
+        "Paternal_Allelic_pairs": both_p + single_p,
+        "Maternal_both_sides_pairs": both_m,
+        "Paternal_both_sides_pairs": both_p,
+        "Maternal_single_side_pairs": single_m,
+        "Paternal_single_side_pairs": single_p,
+        "Speci_Maternal_Mapping_pairs": int(spec.sum()),
+        "Speci_Paternal_Mapping_pairs": int(spec.sum()),
+        "Speci_Maternal_both_sides_pairs": sp["M"][1],
+        "Speci_Paternal_both_sides_pairs": sp["P"][1],
+        "Speci_Maternal_single_sides_pairs": sp["M"][2],
+        "Speci_Paternal_single_sides_pairs": sp["P"][2],
+        "Recombination_pairs": codes[5] + codes[7],
+        "Allelic_Ratio": (both_m + both_p + single_m + single_p) / total
+        if total else 0.0,
+    }
+
+
+def _write_record_chunks(dirpath, cell, hap, cols, labels, n_chunks):
+    """The lines of ``cols`` (see ``record_beds``) in ``n_chunks`` files of
+    equal parts."""
+    import os
+
+    tab, lens = _table([str(l).encode() for l in labels])
+    tags = _table([b"", b"R1", b"R2"])
+    n = len(cols[0])
+    for k in range(n_chunks):
+        s, e = n * k // n_chunks, n * (k + 1) // n_chunks
+        (name, c1, s1, p1, sc1, f1, snp1, c2, s2, p2, sc2, f2, snp2, has,
+         c15, s16, p17, sc19, f20, csnp, tag) = (
+            a[s:e].cpu().numpy() for a in cols)
+
+        def word(idx):
+            return [("word", tab, lens, idx)]
+
+        def num(v):
+            return [("int", v)]
+
+        const = [("const", b"100")]
+        fields = [[("const", RECORD_NAME), ("int", name)], word(c1), num(s1),
+                  num(p1), const, num(sc1), num(f1), num(snp1), word(c2),
+                  num(s2), num(p2), const, num(sc2), num(f2), num(snp2),
+                  word(np.where(has, c15, 0)), num(s16), num(p17), const,
+                  num(sc19), num(f20), num(csnp), [("word", *tags, tag)]]
+        path = os.path.join(dirpath, f"{cell}_chunk{k}_{hap}.bed")
+        with open(path, "wb") as f:
+            _format_rows(fields, e - s, f, tail=15, tail_rows=has)

@@ -244,3 +244,166 @@ def test_host_build_raises_with_the_compilers_output(tmp_path, monkeypatch):
         _build.build_host(tmp_path / "lib.so")
     assert _build.host_library_path().parent == _build.BUILD_DIR
     assert _build.HOST_SOURCE.name not in {p.name for p in _build.sources()}
+
+
+# ------------------------------------------------- records (filtering stage)
+RECORD_CHROMS = ["1", "chr1", "10", "chr10", "2", "chrUn_gl000220", "X",
+                 "HLA-A*01:01"]
+
+
+def _record_text(seed=7, n=500):
+    """15/23-column records: ``chr`` prefixes and chromosomes no genome
+    names, negative scores, markers other than R1/R2."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        f = [f"r{i}x" + "y" * int(rng.integers(0, 20))]
+        for _ in range(2):
+            f += [RECORD_CHROMS[rng.integers(0, len(RECORD_CHROMS))],
+                  str(rng.choice([0, 16, 256, 272])),
+                  str(rng.integers(0, 10**8)), "100",
+                  str(-rng.integers(0, 60)), str(rng.integers(0, 10**8)),
+                  str(rng.integers(0, 4))]
+        if rng.random() < 0.3:
+            f += [RECORD_CHROMS[rng.integers(0, len(RECORD_CHROMS))], "0",
+                  str(rng.integers(0, 10**8)), "30",
+                  str(-rng.integers(0, 60)), str(rng.integers(0, 10**8)),
+                  str(rng.integers(0, 4)), str(rng.choice(["R1", "R2",
+                                                           "R3"]))]
+        out.append("\t".join(f))
+    return out
+
+
+@pytest.mark.parametrize("case", ["lf", "crlf", "no_final_newline",
+                                  "small_blocks"])
+def test_record_scanner_matches_its_plain_version(tmp_path, case):
+    lines = _record_text()
+    end = "\r\n" if case == "crlf" else "\n"
+    text = end.join(lines) + ("" if case == "no_final_newline" else end)
+    p = tmp_path / "c_chunk0.bed"
+    p.write_bytes(text.encode())
+    read_bytes = 700 if case == "small_blocks" else 1 << 20
+    table, plain, base, parts = PB._Labels(16, 2), [], 0, []
+    for buf in PB._iter_line_blocks(str(p), read_bytes):
+        got = PB._parse_record(buf, base, table)
+        want = PB._parse_record_plain(buf, base, plain)
+        _same(got, want)
+        parts.append(got)
+        base += len(buf)
+    assert table.strings() == plain
+    assert len(parts) > (5 if case == "small_blocks" else 0)
+    rec = PB.read_records([str(p)], read_bytes)
+    assert rec.labels == plain
+    assert set(plain) == {c.encode() for c in RECORD_CHROMS}
+    np.testing.assert_array_equal(rec.off, np.concatenate(
+        [q[0] for q in parts]))
+    np.testing.assert_array_equal(rec.chrom, np.concatenate(
+        [q[3] for q in parts], 1))
+    # the columns as Python parses the lines
+    assert rec.text.tobytes() == text.encode() and len(rec) == len(lines)
+    for i, ln in enumerate(lines):
+        f = ln.split("\t")
+        assert rec.text[rec.off[i]:rec.off[i] + rec.length[i]].tobytes() \
+            == ln.encode()
+        assert rec.name_len[i] == len(f[0].encode())
+        assert [rec.labels[c].decode() if c >= 0 else None
+                for c in rec.chrom[:, i]] == [
+            f[1], f[8], f[15] if len(f) > 15 else None]
+        for c in PB.RECORD_INTS:
+            assert rec.col(c)[i] == (int(f[c]) if c < len(f) else 0)
+        assert rec.cand[i] == (
+            {"R1": 1, "R2": 2}.get(f[22], 0) if len(f) > 22 else 0)
+
+
+@pytest.mark.parametrize("bad,fields", [
+    ("r\t1\t0\t5\t100\t-5\t0\t0\t2\t16\t9\t100\t-7\t0", "14 fields"),
+    ("r\t1\t0\t5\t100\t-5\t0\t0\t2\t16\t9\t100\t-7\t0\t0\t1", "16 fields"),
+    ("r\t1\t0\t5\t100\t-5\t0\t0\t2\t16\t9e3\t100\t-7\t0\t0",
+     "no integer"),
+    ("r\t1\t0\t5\t100\t-5\t0\t0\t2\t16\t9\t100\t-7\t0\t0\t1\t0\t5\t30\t-3"
+     "\t0\t-\tR1", "no integer"),
+    ("", "1 fields")])
+def test_read_records_refuses_malformed_rows(tmp_path, bad, fields):
+    good = "r\t1\t0\t5\t100\t-5\t0\t0\t2\t16\t9\t100\t-7\t0\t0"
+    p = tmp_path / "x.bed"
+    p.write_text("\n".join([good, good, bad, good]) + "\n")
+    with pytest.raises(ValueError, match=f"x.bed:3: .*{fields}"):
+        PB.read_records([str(p)])
+
+
+def test_read_records_of_several_files_and_empty_ones(tmp_path):
+    lines = _record_text(seed=8, n=60)
+    paths = []
+    for k, part in enumerate((lines[:25], [], lines[25:])):
+        p = tmp_path / f"f{k}.bed"
+        p.write_text("".join(ln + "\n" for ln in part))
+        paths.append(str(p))
+    rec = PB.read_records(paths, 300)
+    assert len(rec) == 60
+    assert [rec.text[o:o + n].tobytes().decode()
+            for o, n in zip(rec.off, rec.length)] == lines
+    empty = PB.read_records([paths[1]])
+    assert len(empty) == 0 and empty.chrom.shape == (3, 0)
+
+
+def test_write_lines_writes_chosen_lines_verbatim(tmp_path):
+    lines = _record_text(seed=9, n=300)
+    p = tmp_path / "x.bed"
+    p.write_bytes(("\r\n".join(lines[:150]) + "\n"
+                   + "\n".join(lines[150:])).encode())     # no final newline
+    rec = PB.read_records([str(p)], 500)
+    rows = np.random.default_rng(0).permutation(300)[:200]
+    monkey = PB.WRITE_ROWS
+    try:
+        PB.WRITE_ROWS = 64                  # several chunks
+        with open(tmp_path / "out.bed", "wb") as f:
+            PB.write_lines(f, rec.text, rec.off, rec.length, rows)
+    finally:
+        PB.WRITE_ROWS = monkey
+    got = (tmp_path / "out.bed").read_bytes()
+    assert got == "".join(lines[i] + "\n" for i in rows).encode()
+    assert got == PB._gather_plain(rec.text, rec.off, rec.length, rows)
+    with pytest.raises(IndexError):
+        PB.write_lines(None, rec.text, rec.off, rec.length, np.array([300]))
+
+
+@pytest.mark.parametrize("fmt", ["_format_rows", "_format_rows_plain"])
+def test_format_rows_negative_integers_and_short_rows(tmp_path, fmt):
+    """The host formatter and its numpy twin write the lines Python's
+    ``str`` formatting gives."""
+    rng = np.random.default_rng(2)
+    n = 500
+    v = rng.integers(-10**6, 10**6, n)
+    v[:3] = [0, -1, 10**15]
+    names = rng.integers(0, 3, n)
+    tail = rng.random(n) < 0.4
+    tab, lens = PB._table([b"chr1", b"10", b"X"])
+    text = np.frombuffer(b"abcdefgh", np.uint8)
+    off, ln = rng.integers(0, 4, n), rng.integers(1, 5, n)
+    fields = [[("text", text, off, ln)], [("word", tab, lens, names)],
+              [("int", v)], [("const", b"Both")], [("int", -v)]]
+    monkey = PB.WRITE_ROWS
+    try:
+        PB.WRITE_ROWS = 128
+        with open(tmp_path / "f.bed", "wb") as f:
+            getattr(PB, fmt)(fields, n, f, tail=4, tail_rows=tail)
+    finally:
+        PB.WRITE_ROWS = monkey
+    words = ["chr1", "10", "X"]
+    want = "".join(
+        "\t".join([b"abcdefgh"[off[i]:off[i] + ln[i]].decode(),
+                   words[names[i]], str(v[i]), "Both"]
+                  + ([str(-v[i])] if tail[i] else [])) + "\n"
+        for i in range(n))
+    assert (tmp_path / "f.bed").read_text() == want
+
+
+def test_format_rows_refuses_indices_outside_its_tables(tmp_path):
+    tab, lens = PB._table([b"a", b"b"])
+    text = np.frombuffer(b"abc", np.uint8)
+    with open(tmp_path / "f.bed", "wb") as f:
+        with pytest.raises(IndexError, match="word"):
+            PB._format_rows([[("word", tab, lens, np.array([0, 2]))]], 2, f)
+        with pytest.raises(IndexError, match="slice"):
+            PB._format_rows([[("text", text, np.array([1]), np.array([3]))]],
+                            1, f)

@@ -1,10 +1,17 @@
 """The port's command line (hichap_master_tpu_torch.cli) against the JAX
 package's (hichap_master_tpu.cli).
 
-Parser: the five analysis sub-commands take the same option strings,
-defaults, choices, types, ``nargs`` and ``required`` flags, with
-``--device`` the only extra; the front sub-commands are refused by name;
-``--device cuda`` with no card visible fails.
+Parser: ``filtering`` and the five analysis sub-commands take the same
+option strings, defaults, choices, types, ``nargs`` and ``required`` flags,
+with ``--device`` the only extra; the front sub-commands are refused by
+name; ``--device cuda`` with no card visible fails.
+
+``filtering`` through both CLIs on copies of one workspace of chunk beds
+(``testing.synthetic.record_beds``, its duplicates under their first
+line's name and differing only in column 4, which no stage reads): the
+valid beds line for line but column 4, the allelic beds as multisets of
+lines (tests/test_torch_filtering.py holds the functions to the full
+rule).
 
 Chains on the CPU (``--device cpu``): the same beds (an allelic draw with
 planted loops and domains, ``testing.synthetic.allelic_pairs``, and its
@@ -28,6 +35,7 @@ to ~3e-6 (the traditional tracks, on more pairs, stay within 1e-6)."""
 import json
 import logging
 import os
+import shutil
 import subprocess
 import sys
 
@@ -45,13 +53,15 @@ from hichap_master_tpu_torch.ops import pca as PCA
 from hichap_master_tpu_torch.testing.parity import assert_close_nan
 from hichap_master_tpu_torch.testing.synthetic import (allelic_pairs,
                                                        planted_loops,
+                                                       record_beds,
                                                        write_allelic_beds,
                                                        write_valid_bed)
 
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-COMMANDS = ("matrix", "compartment", "tads", "loops", "specificity")
+COMMANDS = ("filtering", "matrix", "compartment", "tads", "loops",
+            "specificity")
 LENGTHS = {"1": 12_010_000, "2": 10_030_000}
 COUNTS = {"Bi_Allelic": 60_000, "M_M": 30_000, "P_P": 30_000,
           "M_P": 3_000, "P_M": 3_000}
@@ -117,6 +127,73 @@ def test_a_cuda_device_that_is_not_visible_fails(tmp_path, capsys,
     assert e.value.code == 2
     assert "--device cuda" in capsys.readouterr().err
     assert not (tmp_path / "ws").exists()
+
+
+def _masked_lines(path):
+    """The lines of ``path`` with column 4 blanked."""
+    out = []
+    with open(path, "rb") as f:
+        for ln in f.read().splitlines():
+            cols = ln.split(b"\t")
+            cols[4] = b""
+            out.append(b"\t".join(cols))
+    return out
+
+
+@pytest.mark.parametrize("mode", ["allelic", "NonAllelic"])
+def test_filtering_command_matches_the_jax_cli(tmp_path, mode):
+    raw = tmp_path / "raw"
+    record_beds(str(raw), "cell", [3_000_000, 2_000_000], ["1", "10"], 3000,
+                3, seed=4, device="cpu")
+    for hap in ("Maternal", "Paternal"):
+        first = {}
+        for name in sorted(os.listdir(raw)):
+            if hap not in name:
+                continue
+            lines = (raw / name).read_bytes().splitlines(keepends=True)
+            out = []
+            for ln in lines:
+                f = ln.split(b"\t")
+                key = tuple(f[i] for i in (1, 2, 3, 8, 9, 10))
+                if key in first:
+                    f[0], f[4] = first[key], b"99"
+                first.setdefault(key, f[0])
+                out.append(b"\t".join(f))
+            (raw / name).write_bytes(b"".join(out))
+    if mode == "NonAllelic":      # one haplotype's chunk beds: a library
+        for name in os.listdir(raw):
+            if "Paternal" in name:
+                os.remove(raw / name)
+    argv = ["filtering"] + (["-N", "-uc"] if mode == "NonAllelic" else [])
+    for side in ("j", "p"):
+        shutil.copytree(raw, tmp_path / f"w{side}" / "UniqRawBed")
+        args = argv + ["-w", str(tmp_path / f"w{side}")]
+        cli = JCLI if side == "j" else PCLI
+        assert _run(cli, args + ([] if side == "j" else ["--device", "cpu"])
+                    ) == 0
+    wj, wp = tmp_path / "wj", tmp_path / "wp"
+    names = sorted(os.listdir(wp / "Filtered_Bed"))
+    assert names == sorted(os.listdir(wj / "Filtered_Bed")) == (
+        ["cell_Valid.bed"] if mode == "NonAllelic" else
+        ["cell_Maternal_Valid.bed", "cell_Paternal_Valid.bed"])
+    for name in names:
+        got = _masked_lines(wp / "Filtered_Bed" / name)
+        assert got and got == _masked_lines(wj / "Filtered_Bed" / name)
+    assert sorted(os.listdir(wp / "UniqRawBed")) == sorted(
+        os.listdir(wj / "UniqRawBed")) == (
+        sorted(os.listdir(raw)) if mode == "NonAllelic" else [])
+    m = _metrics(tmp_path, "filtering")
+    if mode == "NonAllelic":
+        assert not (wp / "Allelic_Bed").exists()
+        assert {"filtering.total", "filtering.NonAllelic.sort"} <= set(m)
+        return
+    for k in ("Bi_Allelic", "M_M", "P_P", "M_P", "P_M"):
+        name = f"cell_Valid_{k}.bed"
+        got = sorted(_lines(str(wp / "Allelic_Bed" / name)))
+        assert got and got == sorted(_lines(str(wj / "Allelic_Bed" / name)))
+    assert {"filtering.total", "filtering.Maternal.scan",
+            "filtering.Paternal.write", "filtering.allelic.join",
+            "filtering.allelic.assign"} <= set(m)
 
 
 def test_matrix_names_a_missing_genome_size_file(tmp_path):
