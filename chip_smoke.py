@@ -103,12 +103,26 @@ Phases, each printed on its own line, any failure raising:
    rule at each resolution; printed: the draw, the command walls and
    M records/s, each step's wall, the peak device memory at both sizes
    and its slope in bytes per record;
-8. the launch counters of each path, each kernel of the path > 0, and one
+8. the alignments before the chunk beds: first ``bam_extract`` at
+   BAM_CHECK_PAIRS read pairs per haplotype (one chunk drawn by
+   ``testing.synthetic.alignment_chunks`` as SAM and again as BAM) on the
+   card, on the CPU and from the BAM, the chunk beds identical byte for
+   byte and the reports and rows equal to the planted truth; then, with
+   its own counters, one chunk of BAM_PAIRS per haplotype (~7.5 GB of
+   SAM; BAM_CUT_PAIRS where the temporary disk cannot hold it) through
+   ``hichap-torch bamProcess`` and ``hichap-torch filtering``; checks:
+   the logged report and the rows equal the planted truth, filtering's
+   Total per haplotype equals the rows written, the five allelic beds are
+   non-empty; printed: the draw, the step walls, M groups/s (on the
+   draw's invented mix), the read's MB/s and the peak device memory at
+   both sizes with its slope per record;
+9. the launch counters of each path, each kernel of the path > 0, and one
    JSON line with the per-kernel results (``launches_by_path``: analysis,
-   diploid, allelic, files, cli, filtering).
+   diploid, allelic, files, cli, filtering, bamprocess; the last launches
+   no kernel).
 
-The diploid, files, CLI and filtering paths each report their peak device
-memory (``torch.cuda.max_memory_allocated``).
+The diploid, files, CLI, filtering and bamProcess paths each report their
+peak device memory (``torch.cuda.max_memory_allocated``).
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
 every phase passed.
@@ -2512,6 +2526,238 @@ def filter_checks(fl, peak_check, dev):
         + ", ".join(str(r) for r in DIPLOID_WHOLE + DIPLOID_LOCAL))
 
 
+# the bamProcess phase: read pairs per haplotype of one chunk at full size
+# (rebuildF -c's default chunk) and of the card-against-CPU check; the
+# cut the phase makes where the temporary disk cannot hold its SAM text
+BAM_PAIRS = 4_000_000
+BAM_CUT_PAIRS = 2_000_000
+BAM_CHECK_PAIRS = 500_000
+BAM_CELL = "GM12878_R1"
+BAM_SEED = 17
+SAM_BYTES_PER_PAIR = 1_900     # both haplotypes (the draw writes ~1,864)
+
+
+class _BamReports:
+    """The reports that ``bam_extract`` logs (``log.log(21, "bamProcess
+    stats: %s", report)``: one mapping argument, kept as ``record.args``)."""
+
+    def __init__(self):
+        import logging
+
+        self.handler = logging.Handler(level=0)
+        self.handler.emit = lambda r: self.reports.append(r.args)
+        self.logger = logging.getLogger(
+            "hichap_master_tpu_torch.pipeline.bam_process")
+        self.reports = []
+
+    def __enter__(self):
+        self.level = self.logger.level
+        self.logger.setLevel(21)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
+def _bed_rows(bed_dir) -> dict:
+    """Per haplotype, the rows of the chunk beds of ``bed_dir`` as the
+    draw's truth counts them (15 and 23 fields, ``_1``/``_2`` names, the
+    SNP columns summed)."""
+    out = {}
+    for hap in ("Maternal", "Paternal"):
+        acc = dict(rows15=0, rows23=0, suffixed=0, snps=0)
+        for name in sorted(os.listdir(bed_dir)):
+            if hap not in name or not name.endswith(".bed"):
+                continue
+            with open(os.path.join(bed_dir, name), "rb") as f:
+                for line in f:
+                    x = line.rstrip(b"\n").split(b"\t")
+                    acc["rows23" if len(x) == 23 else "rows15"] += 1
+                    acc["suffixed"] += x[0][-2:] in (b"_1", b"_2")
+                    acc["snps"] += sum(int(x[c]) for c in (
+                        (7, 14, 21) if len(x) == 23 else (7, 14)))
+        out[hap] = acc
+    return out
+
+
+def _bam_truth_checks(what, report, rows, truth):
+    want = {h: truth[h] for h in ("Maternal", "Paternal")}
+    check(report == want, f"{what}: report {report} differs from the "
+          f"planted {want}")
+    check(rows == truth["rows"], f"{what}: rows {rows} differ from the "
+          f"planted {truth['rows']}")
+    check(min(truth["hits"]) > 0, f"{what}: a template was not drawn")
+
+
+def bam_check(dev):
+    """bamProcess at BAM_CHECK_PAIRS per haplotype: one draw written as SAM
+    and once more as BAM (same seed), ``bam_extract`` of the SAM on the
+    card and on the CPU and of the BAM on the card: the chunk beds
+    identical byte for byte, the reports and rows equal to the planted
+    truth.  Returns the card's peak device memory and records."""
+    from hichap_master_tpu_torch.pipeline.bam_process import bam_extract
+    from hichap_master_tpu_torch.testing.synthetic import (HG19, HG19_NAMES,
+                                                           alignment_chunks)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bam_check_")
+    try:
+        walls, truths = {}, {}
+        for fmt in ("sam", "bam"):
+            ws = os.path.join(tmp, fmt)
+            truths[fmt] = _timed(walls, f"draw {fmt}", lambda: alignment_chunks(
+                os.path.join(ws, "Global_bams"), os.path.join(ws, "ReMap_bams"),
+                BAM_CELL, HG19, HG19_NAMES, BAM_CHECK_PAIRS, 1, BAM_SEED,
+                fmt=fmt, device=dev))
+        truth = truths["sam"]
+        keys = ("Maternal", "Paternal", "rows", "hits", "records")
+        check(all(truths["bam"][k] == truth[k] for k in keys),
+              "bam check: the BAM draw's truth differs from the SAM draw's")
+        mb = {fmt: sum(_mb(os.path.join(tmp, fmt, d, f))
+                       for d in ("Global_bams", "ReMap_bams")
+                       for f in os.listdir(os.path.join(tmp, fmt, d)))
+              for fmt in ("sam", "bam")}
+        runs = {}
+        for name, fmt, device in (("card", "sam", dev),
+                                  ("cpu", "sam", torch.device("cpu")),
+                                  ("card bam", "bam", dev)):
+            ws = os.path.join(tmp, fmt)
+            out = os.path.join(tmp, name.replace(" ", "_"))
+            if name == "card":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            report = _timed(walls, name, lambda: bam_extract(
+                os.path.join(ws, "Global_bams"), os.path.join(ws, "ReMap_bams"),
+                out, truth["fragments"], truth["snps"], device=device))
+            if name == "card":
+                peak = torch.cuda.max_memory_allocated()
+            _bam_truth_checks(f"bam check ({name})", report, _bed_rows(out),
+                              truth)
+            runs[name] = _tree_bytes(out)
+        a = runs["card"]
+        check(len(a) == 2 and all(a.values()), f"bam check: beds {sorted(a)}")
+        for name in ("cpu", "card bam"):
+            differ = sorted(k for k in set(a) | set(runs[name])
+                            if a.get(k) != runs[name].get(k))
+            check(not differ, f"bam check: {differ} differ between the card "
+                  f"(SAM) and {name}")
+        n_bytes = sum(len(v) for v in a.values())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n_rec = truth["records"]
+    log(f"bam check ({BAM_CHECK_PAIRS:,} pairs, {n_rec:,} records a "
+        f"haplotype): draws SAM {walls['draw sam']:.3f} s ({mb['sam']:.1f} "
+        f"MB), BAM {walls['draw bam']:.3f} s ({mb['bam']:.1f} MB); "
+        f"bam_extract card {walls['card']:.3f} s, CPU {walls['cpu']:.3f} s, "
+        f"card on BAM {walls['card bam']:.3f} s (host clock); reports and "
+        f"rows equal the planted truth on all three; the chunk beds "
+        f"({n_bytes / 1e6:.1f} MB) identical byte for byte; peak device "
+        f"memory {peak / 2 ** 30:.3f} GiB")
+    return peak, 2 * n_rec
+
+
+def bam_phase(dev):
+    """One chunk of BAM_PAIRS read pairs per haplotype through
+    ``hichap-torch bamProcess`` (the default device) into UniqRawBed, then
+    ``hichap-torch filtering`` on it.  Returns the phase's state for
+    ``bam_checks``."""
+    from hichap_master_tpu_torch.testing.synthetic import (HG19, HG19_NAMES,
+                                                           alignment_chunks)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bam_")
+    pairs, cut = BAM_PAIRS, None
+    free = shutil.disk_usage(tmp).free
+    if free < 1.5 * SAM_BYTES_PER_PAIR * BAM_PAIRS:
+        pairs = BAM_CUT_PAIRS
+        cut = (f"cut to {pairs:,} pairs: {free / 1e9:.1f} GB free on the "
+               f"temporary disk")
+        log(f"bamProcess: {cut}")
+    ws = os.path.join(tmp, "ws")
+    walls = {}
+    truth = _timed(walls, "draw", lambda: alignment_chunks(
+        os.path.join(ws, "Global_bams"), os.path.join(ws, "ReMap_bams"),
+        BAM_CELL, HG19, HG19_NAMES, pairs, 1, BAM_SEED + 1, device=dev))
+    sam_mb = sum(_mb(os.path.join(ws, d, f))
+                 for d in ("Global_bams", "ReMap_bams")
+                 for f in os.listdir(os.path.join(ws, d)))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with _BamReports() as rep:
+        _timed(walls, "bamProcess", lambda: _cli([
+            "bamProcess", "-w", ws, "-f", *truth["fragments"],
+            "-s", truth["snps"]]))
+    peak = torch.cuda.max_memory_allocated()
+    raw = os.path.join(ws, "UniqRawBed")
+    rows = _bed_rows(raw)
+    for d in ("Global_bams", "ReMap_bams"):
+        shutil.rmtree(os.path.join(ws, d))                 # disk
+    torch.cuda.empty_cache()
+    with _Reports() as filt:
+        _timed(walls, "filtering", lambda: _cli(["filtering", "-w", ws]))
+    return dict(tmp=tmp, ws=ws, walls=walls, truth=truth, pairs=pairs,
+                cut=cut, sam_mb=sam_mb, peak=peak, rows=rows,
+                reports=rep.reports, stats=filt.stats)
+
+
+def bam_checks(bp, peak_check, records_check):
+    """The bamProcess phase's checks and report: the logged report and the
+    rows against the planted truth; filtering's Total per haplotype equal
+    to the rows written; the five allelic beds non-empty; the walls, M
+    groups/s and the peak device memory at both sizes and its slope."""
+    from hichap_master_tpu_torch.io.bedio import ALLELIC_CLASSES
+
+    truth = bp["truth"]
+    check(len(bp["reports"]) == 1, f"bamProcess logged "
+          f"{len(bp['reports'])} reports")
+    _bam_truth_checks("bamProcess", bp["reports"][0], bp["rows"], truth)
+    for h in ("Maternal", "Paternal"):
+        written = bp["rows"][h]["rows15"] + bp["rows"][h]["rows23"]
+        check(bp["stats"].get(h, {}).get("Total") == written,
+              f"bamProcess: filtering's {h} Total "
+              f"{bp['stats'].get(h, {}).get('Total')} differs from the "
+              f"{written} rows written")
+    alle = os.path.join(bp["ws"], "Allelic_Bed")
+    sizes = {k: os.path.getsize(os.path.join(alle, f"{BAM_CELL}_Valid_{k}"
+                                             f".bed"))
+             for k in ALLELIC_CLASSES}
+    check(all(sizes.values()), f"bamProcess: an allelic bed is empty "
+          f"{sizes}")
+    with open(os.path.join(bp["ws"], "Metrics", "bamProcess.json")) as f:
+        m = json.load(f)
+    steps = {}
+    for key, v in m.items():
+        if key != "bamProcess.total":
+            steps.setdefault(key.split(".")[-1], 0.0)
+            steps[key.split(".")[-1]] += v
+    walls, pairs = bp["walls"], bp["pairs"]
+    n_rec = 2 * truth["records"]
+    log(f"bamProcess: draw of {pairs:,} pairs a haplotype ({n_rec:,} "
+        f"records, {bp['sam_mb']:.1f} MB of SAM) {walls['draw']:.3f} s; "
+        f"`hichap-torch bamProcess` {walls['bamProcess']:.3f} s (metrics "
+        f"JSON total {m['bamProcess.total']:.3f} s), "
+        f"{2 * pairs / m['bamProcess.total'] / 1e6:.3f} M groups/s on the "
+        f"draw's invented mix of read groups; then "
+        f"`hichap-torch filtering` {walls['filtering']:.3f} s"
+        + (f"; {bp['cut']}" if bp["cut"] else ""))
+    log("bamProcess:   walls by step (both haplotypes summed, "
+        "synchronised): " + ", ".join(f"{k} {v:.3f} s"
+                                     for k, v in steps.items())
+        + f"; read {bp['sam_mb'] / steps['read']:.1f} MB of SAM/s, tables "
+          "included")
+    log("bamProcess:   metrics JSON: " + ", ".join(
+        f"{k[len('bamProcess.'):]} {v:.3f}" for k, v in sorted(m.items())
+        if k != "bamProcess.total"))
+    slope = (bp["peak"] - peak_check) / (n_rec - records_check)
+    log(f"bamProcess:   peak device memory (torch.cuda.max_memory_allocated)"
+        f" {bp['peak'] / 2 ** 30:.3f} GiB at {n_rec:,} records, "
+        f"{peak_check / 2 ** 30:.3f} GiB at {records_check:,}: {slope:.1f} "
+        f"bytes per record")
+    log(f"bamProcess:   checks: report and rows equal the planted truth "
+        f"{bp['rows']}; filtering's Total equals the rows written; the five "
+        f"allelic beds non-empty " + str(sizes))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device visible")
@@ -2652,10 +2898,23 @@ def main() -> None:
     finally:
         shutil.rmtree(fl["tmp"], ignore_errors=True)
     torch.cuda.empty_cache()
+    # the alignments before it: `hichap-torch bamProcess` on one chunk,
+    # chained into `filtering`; first the card against the CPU and SAM
+    # against BAM at an eighth of the size
+    peak_check, records_check = bam_check(dev)
+    torch.cuda.empty_cache()
+    reset()
+    bp = bam_phase(dev)
+    bam_l = read("bamprocess", ())
+    try:
+        bam_checks(bp, peak_check, records_check)
+    finally:
+        shutil.rmtree(bp["tmp"], ignore_errors=True)
+    torch.cuda.empty_cache()
 
     paths = {"analysis": analysis, "diploid": diploid_l,
              "allelic": allelic_l, "files": files_l, "cli": cli_l,
-             "filtering": filter_l}
+             "filtering": filter_l, "bamprocess": bam_l}
     kernels = [dict(name=k, launches=sum(p[k] for p in paths.values()),
                     launches_by_path={n: p[k] for n, p in paths.items()},
                     **results[k]) for k in counters]

@@ -1,18 +1,24 @@
 """hichap-torch command line: the sub-commands of ``hichap-tpu`` from
-``filtering`` on, on the port.
+``bamProcess`` on, on the port.
 
-The sub-commands ``filtering``, ``matrix``, ``compartment``, ``tads``,
-``loops`` and ``specificity`` take the JAX package's flags and defaults
-(``hichap_master_tpu/cli.py``), with one flag more: ``--device`` (default
-``cuda``), the device every driver runs on.  With ``--device cuda`` and no
-card visible the command fails; it never falls back to the CPU.
+The sub-commands ``bamProcess``, ``filtering``, ``matrix``,
+``compartment``, ``tads``, ``loops`` and ``specificity`` take the JAX
+package's flags and defaults (``hichap_master_tpu/cli.py``), with one flag
+more: ``--device`` (default ``cuda``), the device every driver runs on.
+With ``--device cuda`` and no card visible the command fails; it never
+falls back to the CPU.
 
-The front of the pipeline before ``filtering`` (``rebuildG`` ..
-``bamProcess``) is not part of the port: those sub-commands are refused by
-name.  ``-r/--resume`` is accepted and, as in the JAX CLI for these
-sub-commands, skips nothing (only the front stages write a completion
-marker).
+The front of the pipeline before ``bamProcess`` (``rebuildG`` ..
+``ReMapping``) is not part of the port: those sub-commands are refused by
+name.  ``-r/--resume`` behaves as in the JAX CLI: ``bamProcess`` writes a
+completion marker (``.hichap_stage_done``) into its output directory and,
+with ``-r``, is skipped when the marker is there; the later sub-commands
+write none and skip nothing.
 
+``bamProcess`` reads the chunk alignments of ``<workspace>/Global_bams``
+(``-gb``) and ``<workspace>/ReMap_bams`` (``-rb``) with the fragment
+tables (``-f``, Maternal then Paternal; one with ``-N``) and the SNP table
+(``-s``), and writes the chunk beds to ``<workspace>/UniqRawBed`` (``-o``).
 ``filtering`` reads the chunk beds of ``<workspace>/UniqRawBed`` (``-b``)
 and writes ``<workspace>/Filtered_Bed`` (the valid beds) and, unless
 ``-N``, ``<workspace>/Allelic_Bed`` (``-o``: the five allelic beds that
@@ -20,9 +26,11 @@ and writes ``<workspace>/Filtered_Bed`` (the valid beds) and, unless
 
 Each command writes ``<workspace>/Metrics/<command>.json``: the command's
 wall seconds under ``<command>.total`` and the seconds of each step its
-drivers time, under ``<command>.<step>`` (``filtering.<haplotype>.<step>``
-for each ``hic_filtering`` call and ``filtering.allelic.<step>``).
+drivers time, under ``<command>.<step>`` (``bamProcess.<haplotype>.<step>``,
+``filtering.<haplotype>.<step>`` for each ``hic_filtering`` call and
+``filtering.allelic.<step>``).
 
+    hichap-torch bamProcess -w ws -f M_fragments.txt P_fragments.txt -s snps.npz
     hichap-torch filtering -w ws
     hichap-torch matrix -b ws/Allelic_Bed -o out -gs genomeSize -wR 500000
     hichap-torch compartment -c out/Cooler/X_Traditional_Multi.cool -R 500000 -o T
@@ -40,11 +48,13 @@ from .utils.logging import get_logger, setup_logging
 
 log = get_logger("hichap_master_tpu_torch.cli")
 
-FRONT = ("rebuildG", "rebuildF", "GlobalMapping", "Rescue", "ReMapping",
-         "bamProcess")
+FRONT = ("rebuildG", "rebuildF", "GlobalMapping", "Rescue", "ReMapping")
 # the workspace directories of hichap-tpu that these sub-commands use
-WS_DIRS = {"rawbed": "UniqRawBed", "filtered": "Filtered_Bed",
+WS_DIRS = {"global": "Global_bams", "remap": "ReMap_bams",
+           "rawbed": "UniqRawBed", "filtered": "Filtered_Bed",
            "allelic": "Allelic_Bed"}
+# hichap-tpu's completion marker of the resumable stages
+_DONE_MARK = ".hichap_stage_done"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -59,12 +69,26 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_argument("-log", "--logfile", default="HiCHap.log")
     common.add_argument("-w", "--workspace", default="hichap_workspace")
     common.add_argument("-r", "--resume", action="store_true", default=False,
-                        help="accepted for hichap-tpu's flags; these "
-                             "sub-commands write no completion marker, so "
-                             "nothing is skipped")
+                        help="skip bamProcess when its output directory "
+                             "holds its completion marker (the other "
+                             "sub-commands write none and skip nothing)")
     common.add_argument("--device", default="cuda",
                         help="torch device of every driver (default cuda; "
                              "no fallback to the CPU)")
+
+    p = sub.add_parser("bamProcess", parents=[common],
+                       help="integrate alignments into bed records")
+    p.add_argument("-N", "--NonAllelic", action="store_true", default=False)
+    p.add_argument("-gb", "--Globalbam", default=None)
+    p.add_argument("-rb", "--Rebam", default=None)
+    p.add_argument("-f", "--fragments", nargs="+", required=True)
+    p.add_argument("-s", "--snp", default=None)
+    p.add_argument("-o", "--out", default=None)
+    p.add_argument("-t", "--threads", type=int, default=1)
+    p.add_argument("--rfo", action="store_true", default=False,
+                   help="relaxed uniqueness: keep best-scoring multireads")
+    p.add_argument("--readlen", type=int, default=150,
+                   help="uncut-mate read length sentinel")
 
     p = sub.add_parser("filtering", parents=[common],
                        help="HiC noise filtering + allelic assignment")
@@ -143,6 +167,19 @@ def _ws(args, key: str) -> str:
     return d
 
 
+def _bam_process(args, dev, walls) -> None:
+    """``bam_extract`` of the workspace's chunk alignments, as the JAX CLI
+    runs it (``-rfo``: level 2)."""
+    from .pipeline.bam_process import bam_extract
+
+    bam_extract(args.Globalbam or _ws(args, "global"),
+                args.Rebam or _ws(args, "remap"),
+                args.out or _ws(args, "rawbed"), args.fragments, args.snp,
+                threads=args.threads, level=2 if args.rfo else 1,
+                allelic=not args.NonAllelic, read_len=args.readlen,
+                device=dev, walls=walls)
+
+
 def _filtering(args, dev, walls) -> None:
     """``hic_filtering`` of the chunk beds (NonAllelic, or Maternal and
     Paternal), then ``allelic_filtering`` of the two valid beds, as the JAX
@@ -205,13 +242,25 @@ def run(argv=None) -> int:
     os.makedirs(args.workspace, exist_ok=True)
     setup_logging(os.path.join(args.workspace, args.logfile))
     log.log(21, "hichap-torch %s args: %s", args.command, vars(args))
+    stage_dir = None
+    if args.command == "bamProcess":
+        stage_dir = args.out or os.path.join(args.workspace,
+                                             WS_DIRS["rawbed"])
+        if args.resume and os.path.exists(os.path.join(stage_dir,
+                                                       _DONE_MARK)):
+            log.log(21, "resume: stage completed previously under %s — "
+                    "skipping", stage_dir)
+            return 0
     profiling.reset_metrics()
     walls = {}
     t_start = time.perf_counter()
     allelic = (False if getattr(args, "allelic", "False") == "False"
                else args.allelic)
 
-    if args.command == "filtering":
+    if args.command == "bamProcess":
+        _bam_process(args, dev, walls)
+
+    elif args.command == "filtering":
         _filtering(args, dev, walls)
 
     elif args.command == "matrix":
@@ -275,6 +324,9 @@ def run(argv=None) -> int:
                 args.input[0], args.input[1], args.resolution, device=dev)
         test.run(args.out)
 
+    if stage_dir and os.path.isdir(stage_dir):
+        with open(os.path.join(stage_dir, _DONE_MARK), "w") as f:
+            f.write(args.command + "\n")
     for step, seconds in walls.items():
         profiling.add(f"{args.command}.{step}", seconds)
     _dump_stage_metrics(args, time.perf_counter() - t_start)

@@ -1,0 +1,200 @@
+"""BAM (BGZF) alignments into columns, and columns out as BAM, without
+pysam.
+
+Counterpart of ``hichap_master_tpu/io/bam.py``.  BGZF is a series of gzip
+members, inflated here by Python's ``zlib`` (``io.sam.inflate``); the
+records of the inflated stream parse in host C++ (``samparse_bam`` in
+``csrc/samparse.cpp``) into the ``io.sam.Alignments`` that SAM text gives.
+Records may span BGZF blocks: each step parses the records it holds whole
+and carries the rest.  As ``read_bam`` of the JAX package
+(``hichap_master_tpu/io/bam.py:41-137``): of the tags only the integer
+types ``cCsSiI`` of AS and XS count (the last of each winning); ``A``,
+``f``, ``Z``, ``H`` and ``B`` arrays (by their count) are skipped and an
+unknown type ends the scan; a refID outside the header's references is no
+reference; ``l_seq`` 0 gives query length 0 (SAM's ``*`` gives 1).
+
+``write_bam`` encodes columns as the JAX package's ``_encode_record`` does
+(records in C++, ``samparse_bam_encode``) into BGZF blocks of at most
+60,000 payload bytes, deflated at level ``LEVEL`` on a few threads, and the
+canonical end-of-file block.  Its bytes differ from the JAX package's
+(another deflate level); its records do not.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional
+
+import numpy as np
+
+from .bedio import _ptr
+from .sam import (ZLIB_THREADS, Alignments, _block_args, _empty_block,
+                  _trim, concat, inflate)
+
+BGZF_EOF = bytes.fromhex(
+    "1f8b08040000000000ff0600424302001b0003000000000000000000")
+PAYLOAD = 60_000          # uncompressed bytes per BGZF block
+LEVEL = 1                 # deflate level of write_bam
+WRITE_RECORDS = 1 << 18   # records encoded at a time
+
+
+def _header(buf: bytes):
+    """(reference names, bytes of the header) when ``buf`` holds the whole
+    header, else None."""
+    if len(buf) < 12:
+        return None
+    if buf[:4] != b"BAM\x01":
+        raise ValueError("not a BAM stream (bad magic)")
+    (l_text,) = struct.unpack_from("<i", buf, 4)
+    at = 8 + l_text
+    if len(buf) < at + 4:
+        return None
+    (n_ref,) = struct.unpack_from("<i", buf, at)
+    at += 4
+    refs = []
+    for _ in range(n_ref):
+        if len(buf) < at + 4:
+            return None
+        (l_name,) = struct.unpack_from("<i", buf, at)
+        if len(buf) < at + 8 + l_name:
+            return None
+        refs.append(buf[at + 4:at + 3 + l_name])
+        at += 8 + l_name
+    return refs, at
+
+
+def _parse_records(buf, start: int):
+    """The records of ``buf[start:]`` that it holds whole: (their columns,
+    the bytes they take)."""
+    from ..kernels._build import load_host
+
+    view = memoryview(buf)[start:]
+    n_bytes = len(view)
+    b = _empty_block(n_bytes // 36 + 1, n_bytes)
+    consumed, bad = np.zeros(1, np.int64), np.zeros(1, np.int64)
+    src = np.frombuffer(view, np.uint8) if n_bytes else np.zeros(1, np.uint8)
+    n = load_host().samparse_bam(_ptr(src), n_bytes, *_block_args(b),
+                                 _ptr(consumed), _ptr(bad))
+    if n == -2:
+        raise ValueError(f"BAM record {int(bad[0])} of this block is "
+                         "malformed (its fields overrun it, or its tags "
+                         "are truncated)")
+    return _trim(b, n), int(consumed[0])
+
+
+def read_bam(path: str) -> Alignments:
+    """The records of a BGZF BAM file as columns (the fields
+    ``pipeline.pairs`` reads; ``hichap_master_tpu/io/bam.py:96-137``)."""
+    blocks, refs = [], None
+    carry = b""
+    for out in inflate(path):
+        buf = carry + out
+        at = 0
+        if refs is None:
+            head = _header(buf)
+            if head is None:
+                carry = buf
+                continue
+            refs, at = head
+        block, used = _parse_records(buf, at)
+        blocks.append(block)
+        carry = buf[at + used:]
+    if refs is None:
+        raise EOFError(f"{path}: truncated BAM header")
+    if carry:
+        raise EOFError(f"{path}: truncated BAM record")
+    for b in blocks:          # a refID outside the header: no reference
+        b["ref"] = np.where((b["ref"] < 0) | (b["ref"] >= len(refs)), -1,
+                            b["ref"]).astype(np.int32)
+    return concat(blocks, refs)
+
+
+def _bgzf_block(payload: bytes, level: int = LEVEL) -> bytes:
+    co = zlib.compressobj(level, zlib.DEFLATED, -15)
+    comp = co.compress(payload) + co.flush()
+    head = (b"\x1f\x8b\x08\x04" + b"\x00" * 6 + struct.pack("<H", 6)
+            + b"BC" + struct.pack("<H", 2)
+            + struct.pack("<H", 18 + len(comp) + 8 - 1))
+    return (head + comp + struct.pack("<I", zlib.crc32(payload))
+            + struct.pack("<I", len(payload) & 0xFFFFFFFF))
+
+
+def _encode(a: Alignments, s: int, e: int, ref_ids: np.ndarray,
+            mapq: np.ndarray, qual) -> bytes:
+    """Records s..e of ``a`` as BAM bytes (``samparse_bam_encode``)."""
+    from ..kernels._build import load_host
+
+    n = e - s
+    cols = {k: np.ascontiguousarray(getattr(a, k)[s:e]) for k in (
+        "name_off", "name_len", "flag", "pos", "seq_off", "seq_len",
+        "tag_as", "tag_xs", "has")}
+    ref = np.ascontiguousarray(ref_ids[a.ref[s:e] + 1], np.int32)
+    mq = np.ascontiguousarray(mapq[s:e], np.int32)
+    cap = int((36 + cols["name_len"].astype(np.int64) + 1
+               + 2 * cols["seq_len"] + 14).sum())
+    out = np.empty(max(cap, 1), np.uint8)
+    if qual is None:
+        q_arrays = []
+        q = (None, None, None)
+    else:
+        buf, off, ln = qual
+        q_arrays = [np.ascontiguousarray(buf, np.uint8),
+                    np.ascontiguousarray(off[s:e], np.int64),
+                    np.ascontiguousarray(ln[s:e], np.int32)]
+        q = tuple(_ptr(x) for x in q_arrays)
+    m = load_host().samparse_bam_encode(
+        n, _ptr(a.names), _ptr(cols["name_off"]), _ptr(cols["name_len"]),
+        _ptr(cols["flag"]), _ptr(ref), _ptr(cols["pos"]), _ptr(mq),
+        _ptr(a.seqs), _ptr(cols["seq_off"]), _ptr(cols["seq_len"]), *q,
+        _ptr(cols["tag_as"]), _ptr(cols["tag_xs"]), _ptr(cols["has"]),
+        _ptr(out), cap)
+    if m < 0:
+        raise RuntimeError("samparse_bam_encode: the buffer is short")
+    return out[:m].tobytes()
+
+
+def write_bam(path: str, records: Alignments, references: Dict[str, int],
+              header_text: str = "", *, mapq: Optional[np.ndarray] = None,
+              qual=None) -> None:
+    """``records`` as a BGZF BAM file (``hichap_master_tpu/io/bam.py:
+    171-208``): the header (``header_text`` verbatim, then
+    ``references`` in order), the records in order, the EOF block.
+    ``mapq`` (default 255 each) and ``qual`` (``(bytes, offsets,
+    lengths)``, default none: 0xff per base) are the columns that
+    ``Alignments`` does not keep.  A record's reference must be one of
+    ``references`` (``KeyError`` otherwise)."""
+    names = list(references)
+    index = {n.encode(): i for i, n in enumerate(names)}
+    ref_ids = np.asarray([-1] + [index.get(w, -2) for w in records.refs],
+                         np.int32)           # by ref + 1; -2: not in it
+    missing = [records.refs[i] for i in np.unique(records.ref)
+               if i >= 0 and ref_ids[i + 1] == -2]
+    if missing:
+        raise KeyError(f"references {missing} are not in the header")
+    if mapq is None:
+        mapq = np.full(len(records), 255, np.int32)
+    text = header_text.encode()
+    head = b"BAM\x01" + struct.pack("<i", len(text)) + text + struct.pack(
+        "<i", len(names))
+    for name, length in references.items():
+        nb = name.encode() + b"\x00"
+        head += struct.pack("<i", len(nb)) + nb + struct.pack("<i", length)
+    pending = bytearray(head)
+    with open(path, "wb") as f, ThreadPoolExecutor(ZLIB_THREADS) as ex:
+        def flush(final: bool) -> None:
+            cut = len(pending) if final else (
+                len(pending) // PAYLOAD * PAYLOAD)
+            parts = [bytes(pending[i:i + PAYLOAD])
+                     for i in range(0, cut, PAYLOAD)]
+            for block in ex.map(_bgzf_block, parts):
+                f.write(block)
+            del pending[:cut]
+
+        for s in range(0, len(records), WRITE_RECORDS):
+            e = min(len(records), s + WRITE_RECORDS)
+            pending += _encode(records, s, e, ref_ids, mapq, qual)
+            flush(False)
+        flush(True)
+        f.write(BGZF_EOF)

@@ -450,13 +450,14 @@ def _part(part, s: int, e: int) -> tuple:
 
 
 def _format_rows(fields, n: int, f, tail: int | None = None,
-                 tail_rows=None) -> None:
+                 tail_rows=None, row_fields=None) -> None:
     """Write ``n`` lines of tab-separated ``fields`` (each a list of parts,
     see ``_part``, written one after the other) to the binary file ``f``,
     ``WRITE_ROWS`` lines at a time through the host C++ formatter
     (``bedparse_format``).  With ``tail``, the fields from index ``tail``
     on are written only on the rows where the boolean array ``tail_rows``
-    holds (the others end before them)."""
+    holds (the others end before them); with ``row_fields`` (integers),
+    row r ends after its first ``row_fields[r]`` fields."""
     from ..kernels._build import load_host
 
     kinds = {"int": 0, "word": 1, "const": 2, "text": 3}
@@ -520,6 +521,8 @@ def _format_rows(fields, n: int, f, tail: int | None = None,
         rows = None if tail is None else np.where(
             np.asarray(tail_rows[s:e], bool), len(fields), tail).astype(
             np.int8)
+        if row_fields is not None:
+            rows = np.clip(row_fields[s:e], 0, len(fields)).astype(np.int8)
         out = np.empty(cap, np.uint8)
         hold = []
         m = lib.bedparse_format(e - s, len(parts), _ptr(kind), _ptr(field),

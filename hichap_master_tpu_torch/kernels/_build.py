@@ -12,10 +12,10 @@ source compiles in its own ``nvcc`` process, all started together, and the
 objects are linked into one library.  A failed build raises with the
 compiler's output.
 
-The host scanners of ``csrc/bedparse.cpp`` are not CUDA: they build with
-the host compiler (``$CXX`` or ``g++``) into a library of their own
-(``host_library_path``), so that they build and load where there is no
-``nvcc``, and bind under ``HOST_SIGNATURES``.
+The host scanners of ``csrc/bedparse.cpp`` and ``csrc/samparse.cpp`` are
+not CUDA: they build with the host compiler (``$CXX`` or ``g++``) into a
+library of their own (``host_library_path``), so that they build and load
+where there is no ``nvcc``, and bind under ``HOST_SIGNATURES``.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -63,13 +64,17 @@ SIGNATURES = {
 }
 
 
-# host C entry points (csrc/bedparse.cpp) -> argument types; each returns
-# a long: the rows kept (bedparse_valid, bedparse_allelic), the rows
-# scanned or -1 for a full intern table (bedparse_record), the bytes
-# written (bedparse_gather, bedparse_format; -1 for a full buffer)
+# host C entry points (csrc/bedparse.cpp, csrc/samparse.cpp) -> argument
+# types; each returns a long: the rows kept (bedparse_valid,
+# bedparse_allelic), the rows scanned or -1 for a full intern table
+# (bedparse_record; samparse_sam, samparse_fragments, which give -2 for a
+# line that fails), the records parsed or -2 (samparse_bam), the bytes
+# written (bedparse_gather, bedparse_format, samparse_bam_encode; -1 for a
+# full buffer)
 _L = ctypes.c_long
 _S = ctypes.POINTER(ctypes.c_char_p)
 HOST_SOURCE = CSRC_DIR / "bedparse.cpp"
+HOST_SOURCES = (HOST_SOURCE, CSRC_DIR / "samparse.cpp")
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 HOST_SIGNATURES = {
     "bedparse_valid": [ctypes.c_char_p, _L, _S, _I, _P, _P, _P, _P],
@@ -79,6 +84,11 @@ HOST_SIGNATURES = {
                         _P, _P, _P, _P, _P, _P, _P, _P],
     "bedparse_gather": [_P, _P, _P, _P, _L, _P],
     "bedparse_format": [_L, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _L],
+    "samparse_sam": [ctypes.c_char_p, _L, _P, _L, _P, _P, _I, _P] + [_P] * 17,
+    "samparse_bam": [_P, _L] + [_P] * 18,
+    "samparse_bam_encode": [_L] + [_P] * 17 + [_L],
+    "samparse_fragments": [ctypes.c_char_p, _L, _P, _L, _P, _P, _I, _P, _P,
+                           _P, _P],
 }
 
 
@@ -170,17 +180,18 @@ def stream_ptr(device) -> int:
 
 def host_library_path() -> Path:
     h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
-    h.update(HOST_SOURCE.read_bytes())
+    for src in HOST_SOURCES:
+        h.update(src.read_bytes())
     return BUILD_DIR / f"libhichap_host_{h.hexdigest()[:16]}.so"
 
 
 def build_host(path: Path) -> str:
-    """Compile ``csrc/bedparse.cpp`` with the host compiler into ``path``.
+    """Compile ``HOST_SOURCES`` with the host compiler into ``path``.
     Raises with the compiler's output if it fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
     cmd = [os.environ.get("CXX", "g++"), *HOST_FLAGS, "-o", str(tmp),
-           str(HOST_SOURCE)]
+           *(str(src) for src in HOST_SOURCES)]
     try:
         r = subprocess.run(cmd, capture_output=True, text=True)
     except OSError as e:
@@ -193,9 +204,19 @@ def build_host(path: Path) -> str:
     return r.stdout + r.stderr
 
 
-@functools.lru_cache(maxsize=None)
+_HOST_LOCK = threading.Lock()
+
+
 def load_host() -> ctypes.CDLL:
-    """The host scanner library, built on first call."""
+    """The host scanner library, built on first call.  Scanners run on
+    several host threads (``bamProcess -t``): the first call builds once
+    while the others wait."""
+    with _HOST_LOCK:
+        return _load_host()
+
+
+@functools.lru_cache(maxsize=None)
+def _load_host() -> ctypes.CDLL:
     path = host_library_path()
     if not path.exists():
         build_host(path)

@@ -67,7 +67,7 @@ import torch
 from ..io.bedio import (ALLELIC_CLASSES, TAG_WORDS, Records, _format_rows,
                         _table, read_records, write_lines)
 from ..utils.logging import get_logger
-from .matrix import _step
+from .columns import lex_order, name_words, step, upload
 
 log = get_logger(__name__)
 
@@ -96,20 +96,6 @@ def chunk_beds(bed_dir: str, allelic: str = "NonAllelic") -> List[str]:
             and (allelic == "NonAllelic" or allelic in f)]
 
 
-def _lex_order(keys: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The permutation that sorts rows by ``keys`` (most significant
-    first), ties kept in row order: stable sorts chained from the last
-    key."""
-    perm = torch.arange(len(keys[0]), device=keys[0].device)
-    for k in reversed(keys):
-        perm = perm[torch.sort(k[perm], stable=True).indices]
-    return perm
-
-
-def _up(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-
 def _byte_rank(labels: Sequence[bytes]) -> np.ndarray:
     """Each label's rank in byte order."""
     rank = np.empty(len(labels), np.int64)
@@ -136,16 +122,16 @@ def hic_filtering(bed_dir: str, out_dir: str, allelic: str = "NonAllelic",
     out_bed = os.path.join(out_dir, f"{prefix}Valid.bed"
                            if allelic == "NonAllelic"
                            else f"{prefix}{allelic}_Valid.bed")
-    with _step(walls, "scan", device):
+    with step(walls, "scan", device):
         rec = read_records(files)
-    with _step(walls, "sort", device):
-        rank = _up(_byte_rank(rec.labels), device)
-        c1, c2 = (rank[_up(rec.chrom[k], device).long()] for k in (0, 1))
-        s1, p1, s2, p2 = (_up(rec.col(c), device) for c in (2, 3, 9, 10))
-        order = _lex_order([c1, s1, p1, c2, s2, p2])
-    with _step(walls, "classify", device):
+    with step(walls, "sort", device):
+        rank = upload(_byte_rank(rec.labels), device)
+        c1, c2 = (rank[upload(rec.chrom[k], device).long()] for k in (0, 1))
+        s1, p1, s2, p2 = (upload(rec.col(c), device) for c in (2, 3, 9, 10))
+        order = lex_order([c1, s1, p1, c2, s2, p2])
+    with step(walls, "classify", device):
         c1, s1, p1, c2, s2, p2 = (a[order] for a in (c1, s1, p1, c2, s2, p2))
-        f1, f2 = (_up(rec.col(c), device)[order] for c in (6, 13))
+        f1, f2 = (upload(rec.col(c), device)[order] for c in (6, 13))
         first = torch.ones(len(rec), dtype=torch.bool, device=device)
         first[1:] = ~((c1[1:] == c1[:-1]) & (s1[1:] == s1[:-1])
                       & (p1[1:] == p1[:-1]) & (c2[1:] == c2[:-1])
@@ -166,7 +152,7 @@ def hic_filtering(bed_dir: str, out_dir: str, allelic: str = "NonAllelic",
                               (ed & first).sum()]).tolist()
         rows = order[valid].cpu().numpy()
     stats = dict(zip(STATS, [len(rec)] + counts))
-    with _step(walls, "write", device):
+    with step(walls, "write", device):
         with open(out_bed, "wb") as f:
             write_lines(f, rec.text, rec.off, rec.length, rows)
     log.log(21, "HiC filtering (%s): %s", allelic, stats)
@@ -409,11 +395,11 @@ class _Side:
     ``cand`` the candidate marker (0 none, 1 R1, 2 R2)."""
 
     def __init__(self, rec: Records, chrom_map: np.ndarray, device):
-        chrom = _up(chrom_map[rec.chrom], device)      # -1 stays -1
-        self.mate = [(chrom[c],) + tuple(_up(rec.col(i), device)
+        chrom = upload(chrom_map[rec.chrom], device)      # -1 stays -1
+        self.mate = [(chrom[c],) + tuple(upload(rec.col(i), device)
                                          for i in ints)
                      for c, *ints in _MATE_COLS]
-        self.cand = _up(rec.cand, device).long()
+        self.cand = upload(rec.cand, device).long()
 
     def cand_ok(self) -> torch.Tensor:
         """``_candidate_ok``: the candidate shares chromosome and fragment
@@ -507,20 +493,12 @@ def _join(m: Records, p: Records, device):
     W = (longest + 7) // 8
     words = []
     for rec in (m, p):
-        text, off, nlen = (_up(a, device) for a in (rec.text, rec.off,
+        text, off, nlen = (upload(a, device) for a in (rec.text, rec.off,
                                                     rec.name_len))
-        w = torch.zeros((W, len(rec)), dtype=torch.int64, device=device)
-        last = max(text.numel() - 1, 0)
-        for j in range(8 * W):
-            b = torch.where(j < nlen, text[(off + j).clamp(max=last)], 0)
-            k, r = divmod(j, 8)
-            # big-endian, sign bit flipped: signed order = byte order
-            w[k] += (b.long() - 128) * (1 << 56) if r == 0 else \
-                b.long() << (8 * (7 - r))
-        words.append(w)
+        words.append(torch.stack(name_words(text, off, nlen, W)))
         del text
     keys = torch.cat(words, 1)
-    order = _lex_order(list(keys))
+    order = lex_order(list(keys))
     ks = keys[:, order]
     eq = (ks[:, 1:] == ks[:, :-1]).all(0)
     is_p = order >= len(m)
@@ -646,15 +624,15 @@ def allelic_filtering(maternal_bed: str, paternal_bed: str, out_dir: str,
     prefix = os.path.split(maternal_bed)[-1].split("Maternal")[0] + "Valid"
     paths = {k: os.path.join(out_dir, f"{prefix}_{k}.bed")
              for k in ALLELIC_CLASSES}
-    with _step(walls, "scan", device):
+    with step(walls, "scan", device):
         m, p = read_records([maternal_bed]), read_records([paternal_bed])
-    with _step(walls, "join", device):
+    with step(walls, "join", device):
         joined = _join(m, p, device)
     if joined is None:
         log.log(21, "allelic filtering: a read name repeats within a bed; "
                 "the reference's row-wise merge-join assigns the pairs")
         del m, p
-        with _step(walls, "assign", device):
+        with step(walls, "assign", device):
             outs = {k: open(v, "w") for k, v in paths.items()}
             try:
                 S, total = _rowwise(maternal_bed, paternal_bed, outs, save_id)
@@ -662,10 +640,10 @@ def allelic_filtering(maternal_bed: str, paternal_bed: str, out_dir: str,
                 for f in outs.values():
                     f.close()
     else:
-        with _step(walls, "assign", device):
+        with step(walls, "assign", device):
             cls, tag, lines, name_row, labels, S, total = _assign(
                 m, p, *joined, device)
-        with _step(walls, "write", device):
+        with step(walls, "write", device):
             _write_events(paths, cls, tag, lines, name_row, labels, m, p,
                           save_id)
     report = _report(S, total)

@@ -33,10 +33,8 @@ the reference's P_P and R2 bugs (DIVERGENCES.md):
 
 from __future__ import annotations
 
-import contextlib
 import os
 import shutil
-import time
 from typing import Dict, Mapping, Sequence
 
 import numpy as np
@@ -58,6 +56,7 @@ from ..ops.sparse import bin_sums, genomewide_correction_coo
 from ..ops.sparse_hybrid import hybrid_from_coo, ice_balance_hybrid
 from ..ops.sparse_impute import (SparseU, disk_row_intervals,
                                  sparse_impute_vote_rowptr)
+from .columns import step
 
 DENSE_GW_MAX_BINS = 65_536
 
@@ -252,23 +251,6 @@ def _columns(part, device):
     return tuple(cols)
 
 
-@contextlib.contextmanager
-def _step(walls, name: str, device):
-    """Wall seconds of a step into ``walls[name]`` (synchronising the
-    device before and after) when ``walls`` is a dict."""
-    if walls is None:
-        yield
-        return
-    cuda = torch.device(device).type == "cuda"
-    if cuda:
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    yield
-    if cuda:
-        torch.cuda.synchronize(device)
-    walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
-
-
 def _gw_sparse(genome: Genome, res: int, dense_max_bins: int) -> bool:
     return genome.total_bins(res) > dense_max_bins
 
@@ -322,7 +304,7 @@ def build_haplotype_datasets(
     offs = {res: _offsets(hap, res, device) for res in whole_res}
     stats = {"single_side": {}, "vote_queries": {}, "vote_hits": {}}
 
-    with _step(walls, "pass1", device):
+    with step(walls, "pass1", device):
         twhole = {res: _GWAcc(genome.total_bins(res),
                               _gw_sparse(genome, res, dense_max_bins),
                               device) for res in whole_res}
@@ -338,7 +320,7 @@ def build_haplotype_datasets(
         tradition_whole = {res: twhole[res].finish() for res in whole_res}
         tradition_local = {res: tlocal[res].finish() for res in local_res}
 
-    with _step(walls, "pass2", device):
+    with step(walls, "pass2", device):
         sparse = {res: _gw_sparse(hap, res, dense_max_bins)
                   for res in whole_res}
         S = {res: hap.total_bins(res) for res in whole_res}
@@ -392,7 +374,7 @@ def build_haplotype_datasets(
         for res in whole_res:
             stats["single_side"][res] = float(swhole[res].finish().sum())
 
-    with _step(walls, "vote_setup", device):
+    with step(walls, "vote_setup", device):
         state = {}
         for res in whole_res:
             U = unimp_whole[res]
@@ -419,7 +401,7 @@ def build_haplotype_datasets(
         queries = {res: vote_queries(cols, genome, res, device=device)
                    for res in whole_res if state[res]["L"] is not None}
 
-    with _step(walls, "vote", device):
+    with step(walls, "vote", device):
         imp_whole = {}
         for res in whole_res:
             st = state[res]
@@ -678,12 +660,12 @@ def _tradition_weights(whole, local, genome, whole_res, local_res,
     for res in whole_res:
         kind = ("hybrid" if genome.total_bins(res) > dense_max_bins
                 else "dense")
-        with _step(walls, f"weights_gw_{res}_{kind}", device):
+        with step(walls, f"weights_gw_{res}_{kind}", device):
             weights[res], ice[res] = matrix_weights(
                 whole[res], genome, res, False,
                 dense_max_bins=dense_max_bins)
     for res in local_res:
-        with _step(walls, f"weights_cis_{res}", device):
+        with step(walls, f"weights_cis_{res}", device):
             weights[res], ice[res] = matrix_weights(
                 local[res], genome, res, True)
     return weights, ice
@@ -691,7 +673,7 @@ def _tradition_weights(whole, local, genome, whole_res, local_res,
 
 def _hap_outputs(data, genome, whole_res, local_res, dense_max_bins, walls,
                  device):
-    with _step(walls, "correction", device):
+    with step(walls, "correction", device):
         bw, bl, gaps = correct_haplotype_datasets(data, genome, whole_res,
                                                   local_res)
     weights, ice = _tradition_weights(
@@ -886,7 +868,7 @@ def haplotype_matrix_files(
     for rep in rep_paths:
         prefix = bed_prefix([f for v in discover_allelic_beds(rep).values()
                              for f in v])
-        with _step(walls, "parse", device):
+        with step(walls, "parse", device):
             classes = allelic_classes(rep, genome, device=device)
         if stats is not None:
             stats.setdefault("pairs", {})[prefix] = {
@@ -898,7 +880,7 @@ def haplotype_matrix_files(
         del classes
         res_out = _hap_outputs(data, genome, whole_res, local_res,
                                dense_max_bins, walls, device)
-        with _step(walls, "cooler_write", device):
+        with step(walls, "cooler_write", device):
             out[prefix] = _write_hap_coolers(cooler_dir, prefix, genome,
                                              res_out, whole_res, local_res)
         del res_out
@@ -907,7 +889,7 @@ def haplotype_matrix_files(
     if len(rep_paths) > 1:
         merged = _hap_outputs(total, genome, whole_res, local_res,
                               dense_max_bins, walls, device)
-        with _step(walls, "cooler_write", device):
+        with step(walls, "cooler_write", device):
             out["Merged_"] = _write_hap_coolers(cooler_dir, "Merged_", genome,
                                                 merged, whole_res, local_res)
     return out
@@ -936,20 +918,20 @@ def traditional_matrix_files(
                      if f.endswith("_Valid.bed")]
             if not files:
                 raise FileNotFoundError(f"no *_Valid.bed under {rep}")
-            with _step(walls, "parse", device):
+            with step(walls, "parse", device):
                 pairs = valid_pairs(files, genome, device=device)
-            with _step(walls, "build", device):
+            with step(walls, "build", device):
                 built = build_traditional(pairs, genome, whole_res,
                                           local_res, device=device,
                                           dense_max_bins=dense_max_bins)
             yield bed_prefix(files), built
 
-    with _step(walls, "matrix", device):
+    with step(walls, "matrix", device):
         entries = _traditional(builds(), genome, whole_res, local_res,
                                device, dense_max_bins, balance)
     merged = os.path.join(cooler_dir, "Merged_Multi.cool")
     coolers = []
-    with _step(walls, "cooler_write", device):
+    with step(walls, "cooler_write", device):
         for name, entry in entries.items():
             if name == "Merged_Multi":
                 continue

@@ -3,8 +3,10 @@
 Counterparts of the generators in ``scripts/perf_sparse_gw.py`` (hg19
 lengths, genome-wide tile coordinates and values) and
 ``scripts/perf_hg19.py`` (dense per-chromosome batches, loop-calling band
-COO, and COO with planted TADs or A/B compartments), and the filtering
-stage's chunk beds with their planted truth (``record_beds``).  The numpy
+COO, and COO with planted TADs or A/B compartments), the filtering
+stage's chunk beds with their planted truth (``record_beds``), and the
+bamProcess stage's alignment files with theirs (``alignment_chunks``).
+The numpy
 generators take a seeded ``numpy.random.Generator``; the tensor generators
 draw on the target device from a seeded
 ``torch.Generator``, so no hg19-scale array crosses the host link.
@@ -705,3 +707,466 @@ def _write_record_chunks(dirpath, cell, hap, cols, labels, n_chunks):
         path = os.path.join(dirpath, f"{cell}_chunk{k}_{hap}.bed")
         with open(path, "wb") as f:
             _format_rows(fields, e - s, f, tail=15, tail_rows=has)
+
+
+# ------------------------------------------------------ alignment chunks
+# alignment_chunks: read groups drawn from ALN_TEMPLATES, each a group of
+# records in name order (tag, file g(lobal)/r(escue), kind, fragment
+# letter, length) and the outcome the case tree gives it (level 1):
+#   kinds  U unique, M multi (XS >= AS), W weak multi (AS > XS: multi at
+#          level 1, unique at level 2), A mapped without AS, N unmapped,
+#          S a scaffold hit;
+#   letters a-f: records with one letter share a fragment, different
+#          letters lie in different fragments (x: not placed);
+#   lengths F read_len, s shorter;
+#   outcome U unmapped, M multi, E "" (unknown tag set), "R a b [c mark]"
+#          one row of those slots, "P row / row" the _1/_2 pair.
+# The weights (the first field) are invented, as are ALN_ANCHOR,
+# ALN_SPECIFIC and ALN_CIS below: no published mapping statistic stands
+# behind them.  They make plain unique pairs most of the groups and give
+# every branch of the case tree enough groups to test; a user's chunk
+# mixes group sizes and outcomes otherwise, so groups/s, rows and the
+# walls of the resolve step measured on this draw hold for this mix only.
+# Only the sizes are sourced: the chunk (rebuildF -c's default), the
+# read length, the fragment widths and the SNP density.
+ALN_TEMPLATES = (
+    (700, "1gUaF 2gUbF", "R 0 1"),
+    (12, "1gNxF 2gUbF", "U"),
+    (12, "1gUaF 2gNxF", "U"),
+    (8, "1gUaF 2gSbF", "U"),
+    (12, "1gMaF 2gUbF", "M"),
+    (8, "1gUaF 2gWbF", "M"),
+    (4, "1gMaF 2gNxF", "M"),
+    (4, "1gNxF 2gMbF", "U"),
+    (4, "1gAaF 2gUbF", "M"),
+    (2, "11rUas 12rUbs", "R 0 1"),
+    (10, "1gUaF 2gNxF 2rUbs", "R 0 2"),
+    (6, "1gUaF 2gUcF 2rUbs", "R 0 2"),
+    (4, "1gUaF 2gMcF 2rUbs", "R 0 2"),
+    (4, "1gMaF 2gUcF 2rUbs", "R 0 2"),
+    (3, "1gNxF 2gNxF 2rUbs", "U"),
+    (3, "1gMaF 2gNxF 2rUbs", "M"),
+    (3, "1gNxF 2gUaF 2rUbs", "U"),
+    (3, "1gUaF 2gUbF 21rUcs", "R 2 1"),
+    (3, "11rUas 12rUbs 2gUcF", "R 0 2"),
+    (6, "1gNxF 11rUas 12rUbs 2gUbF", "R 1 3 2 R2"),
+    (6, "1gNxF 11rUas 12rUas 2gUbF", "R 1 3 2 R1"),
+    (6, "1gUdF 11rUas 12rUbs 2gUcF", "P 1 2 / 2 3"),
+    (3, "1gNxF 11rMas 12rUbs 2gUbF", "U"),
+    (3, "1gNxF 11rMas 12rUbs 2gUcF", "R 2 3"),
+    (3, "1gNxF 11rUas 12rMbs 2gUcF", "R 1 3"),
+    (2, "1gNxF 11rUas 12rUbs 2gNxF", "U"),
+    (2, "1gNxF 11rNxs 12rNxs 2gUcF", "U"),
+    (2, "1gNxF 11rUas 12rUbs 2gMcF", "M"),
+    (2, "1gNxF 11rMas 12rNxs 2gUcF", "M"),
+    (6, "1gUaF 2gNxF 21rUbs 22rUbs", "R 0 2 3 R2"),
+    (6, "1gUaF 2gNxF 21rUbs 22rUas", "R 0 2 3 R1"),
+    (6, "1gUaF 2gUdF 21rUbs 22rUcs", "P 0 3 / 3 2"),
+    (3, "1gUaF 2gNxF 21rMbs 22rUas", "U"),
+    (3, "1gUaF 2gNxF 21rMbs 22rUcs", "R 0 3"),
+    (3, "1gUaF 2gNxF 21rUbs 22rMcs", "R 0 2"),
+    (2, "1gNxF 2gNxF 21rUbs 22rUcs", "U"),
+    (2, "1gMaF 2gNxF 21rUbs 22rUcs", "M"),
+    (6, "1gNxF 1rUas 2gNxF 2rUbs", "R 1 3"),
+    (2, "1gNxF 1rMas 2gNxF 2rUbs", "M"),
+    (2, "1gNxF 1rUas 2gNxF 2rNxs", "U"),
+    (2, "1gNxF 1rMas 2gNxF 2rNxs", "M"),
+    (2, "1gNxF 1rNxs 2gNxF 2rMbs", "U"),
+    (2, "1gNxF 1rUaF 2gNxF 2rUbs", "U"),
+    (2, "1gUcF 1rUas 2gUdF 2rUbs", "R 1 3"),
+    (4, "1gNxF 11rUas 12rUbs 2gNxF 2rUbs", "R 1 4 2 R2"),
+    (4, "1gNxF 11rUas 12rUas 2gNxF 2rUcs", "R 1 4 2 R1"),
+    (4, "1gNxF 11rUas 12rUbs 2gNxF 2rUcs", "P 1 2 / 2 4"),
+    (2, "1gNxF 11rUas 12rUbs 2gUcF 2rUdF", "U"),
+    (2, "1gNxF 11rMas 12rUbs 2gNxF 2rUcs", "R 2 4"),
+    (4, "1gNxF 1rUas 2gNxF 21rUbs 22rUbs", "R 1 3 4 R2"),
+    (4, "1gNxF 1rUas 2gNxF 21rUbs 22rUas", "R 1 3 4 R1"),
+    (4, "1gNxF 1rUas 2gNxF 21rUbs 22rUcs", "P 1 4 / 4 3"),
+    (2, "1gUdF 1rUaF 2gNxF 21rUbs 22rUcs", "U"),
+    (2, "1gNxF 1rUas 2gNxF 21rUbs 22rMcs", "R 1 3"),
+    (3, "1gNxF 11rUas 12rUas 2gNxF 21rUbs 22rUbs", "R 1 4 5 R2"),
+    (3, "1gNxF 11rUas 12rUas 2gNxF 21rUbs 22rUcs",
+     "P 1 5 2 R1 / 2 4 2 R1"),
+    (3, "1gNxF 11rUas 12rUbs 2gNxF 21rUcs 22rUcs",
+     "P 1 4 5 R2 / 2 4 5 R2"),
+    (3, "1gNxF 11rUas 12rUbs 2gNxF 21rUcs 22rUbs",
+     "P 1 5 2 R2 / 2 4 5 R1"),
+    (3, "1gNxF 11rUas 12rUbs 2gNxF 21rUcs 22rUds", "P 1 2 / 5 4"),
+    (2, "1gNxF 11rMas 12rUbs 2gNxF 21rUcs 22rUds", "P 2 5 / 5 4"),
+    (2, "1gNxF 11rMas 12rUbs 2gNxF 21rUcs 22rMds", "R 2 4"),
+    (2, "1gNxF 11rMas 12rUbs 2gNxF 21rMcs 22rUds", "R 2 5"),
+    (2, "1gNxF 11rUas 12rUbs 2gNxF 21rMcs 22rUbs", "R 1 5 2 R2"),
+    (2, "1gNxF 11rNxs 12rNxs 2gNxF 21rUcs 22rUds", "U"),
+    (2, "1gNxF 11rUas 12rUbs 2gNxF 21rMcs 22rMds", "M"),
+    (2, "1gNxF 11rMas 12rUbs 2gNxF 21rUcs 22rUcs", "R 2 4 5 R2"),
+    (6, "1gUaF", "E"),
+    (2, "2gUaF", "E"),
+    (2, "1gUaF 2gUbF 2rUcs 2rUds", "E"),
+    (2, "1gNxF 11rUas 12rUbs 2gUcF 21rUds", "E"),
+    (2, "1gNxF 11rUas 12rUbs 2gUcF 2rUds 21rUes", "E"),
+    (2, "1gNxF 1rUas 11rUbs 12rUcs 2gUdF 21rUes 22rUfs", "E"),
+)
+ALN_NAME = b"SRR1658570."
+ALN_SCAFFOLD = "chrUn_gl000220"
+ALN_FRAG_GAP = (40, 841)      # fragment widths: MboI-like, ~440 bp
+ALN_SNP_GAP = (1, 3000)       # heterozygous SNP spacing: ~1 per 1.5 kb
+ALN_ANCHOR = 0.3              # share of 2/3-read mates over a SNP (invented)
+ALN_SPECIFIC = (0.9, 0.05, 0.05)  # mapped in both, M only, P only (invented)
+ALN_CIS = 0.8                 # intra-chromosomal 2/3-read groups (invented)
+ALN_SPREAD = 20               # fragments between letters of a 4+ group
+ALN_SLOTS = 7
+_ALN_KINDS = "UMWANS"
+_ALN_TAGS = ("", "1", "2", "11", "12", "21", "22")
+_ALN_OUT = {"E": 0, "U": 1, "M": 2, "R": 3, "P": 4}   # pipeline.pairs codes
+_ALN_TAIL = (b"XN:i:0", b"XM:i:0", b"XO:i:0", b"XG:i:0", b"NM:i:0",
+             b"YT:Z:UU")
+
+
+def _aln_templates():
+    """ALN_TEMPLATES as arrays: weights [T], sizes [T], per slot [T, 7]
+    (tag code, file 0-3 = global R1, global R2, rescue R1, rescue R2,
+    kind, letter (-1 unplaced), short), outcome [T] and rows [T, 2, 4]
+    (slots of mates a, b, c and the marker; -1 none)."""
+    import re
+
+    T = len(ALN_TEMPLATES)
+    slot = np.full((5, T, ALN_SLOTS), -1, np.int64)
+    rows = np.full((T, 2, 4), -1, np.int64)
+    size, out = np.zeros(T, np.int64), np.zeros(T, np.int64)
+    for t, (_, recs, res) in enumerate(ALN_TEMPLATES):
+        keys = []
+        for j, r in enumerate(recs.split()):
+            tag, where, kind, letter, ln = re.fullmatch(
+                r"(\d+)([gr])([UMWANS])([a-fx])([Fs])", r).groups()
+            f = (0 if where == "g" else 2) + (tag[0] == "2")
+            slot[:, t, j] = (_ALN_TAGS.index(tag), f, _ALN_KINDS.index(kind),
+                             "abcdefx".index(letter) if letter != "x" else -1,
+                             ln == "s")
+            keys.append((tag, f))
+        if keys != sorted(keys):
+            raise ValueError(f"template {recs!r} is not in name order")
+        size[t] = len(keys)
+        out[t] = _ALN_OUT[res[0]]
+        for k, part in enumerate(res[1:].split("/") if res[0] in "RP"
+                                 else []):
+            v = part.split()
+            rows[t, k, :len(v) if len(v) < 4 else 3] = [int(x) for x in
+                                                        v[:3]]
+            if len(v) == 4:
+                rows[t, k, 3] = 1 if v[3] == "R1" else 2
+    weights = np.asarray([w for w, _, _ in ALN_TEMPLATES], np.float64)
+    return weights, size, slot, out, rows
+
+
+def _aln_genome(g, lengths, device):
+    """Fragment ends and SNPs per chromosome: (ends list, snp positions
+    list, m / p alleles (codes 0-3) lists)."""
+    ends, snps, m_all, p_all = [], [], [], []
+    for L in lengths:
+        n = int(L / 400) + 16
+        gap = torch.randint(*ALN_FRAG_GAP, (n,), generator=g, device=device)
+        e = torch.cumsum(gap, 0)
+        e = torch.cat([e[e < L], torch.tensor([L], device=device)])
+        ends.append(e)
+        n = int(L / 1400) + 16
+        gap = torch.randint(*ALN_SNP_GAP, (n,), generator=g, device=device)
+        s = torch.cumsum(gap, 0)
+        s = s[s < L]
+        ref = torch.randint(0, 4, s.shape, generator=g, device=device)
+        alt = (ref + torch.randint(1, 4, s.shape, generator=g,
+                                   device=device)) % 4
+        m_is_ref = torch.rand(s.shape, generator=g, device=device) < 0.5
+        snps.append(s)
+        m_all.append(torch.where(m_is_ref, ref, alt))
+        p_all.append(torch.where(m_is_ref, alt, ref))
+    return ends, snps, m_all, p_all
+
+
+def _aln_write_genome(gdir, labels, ends, snps, m_all, p_all):
+    """The fragment table of each haplotype (``MboI_<hap>_fragments.txt``,
+    ``chrom start end`` lines, as ``rebuildG`` writes them) and the SNP
+    npz (``Snps.npz``, ``<chrom>/{pos,ref,m_alt,p_alt}``)."""
+    import os
+
+    os.makedirs(gdir, exist_ok=True)
+    tab, lens = _table([str(l).encode() for l in labels])
+    c = np.concatenate([np.full(len(e), i) for i, e in enumerate(ends)])
+    e = np.concatenate([_host(x) for x in ends])
+    s = np.concatenate([np.concatenate([[0], _host(x)[:-1]]) for x in ends])
+    frags = []
+    for hap in ("Maternal", "Paternal"):
+        path = os.path.join(gdir, f"MboI_{hap}_fragments.txt")
+        with open(path, "wb") as f:
+            _format_rows([[("word", tab, lens, c)], [("int", s)],
+                          [("int", e)]], len(c), f)
+        frags.append(path)
+    base = np.array(list("ACGT"))
+    flat = {}
+    for l, pos, m, p in zip(labels, snps, m_all, p_all):
+        m, p = _host(m), _host(p)
+        flat[f"{l}/pos"] = _host(pos).astype(np.int64)
+        # the reference allele is one of the two (heterozygous SNPs)
+        flat[f"{l}/ref"] = base[np.minimum(m, p)].astype("U1")
+        flat[f"{l}/m_alt"] = base[m].astype("U1")
+        flat[f"{l}/p_alt"] = base[p].astype("U1")
+    snp_path = os.path.join(gdir, "Snps.npz")
+    np.savez(snp_path, **flat)
+    return frags, snp_path
+
+
+def alignment_chunks(aln_dir: str, re_dir: str, cell: str, lengths, labels,
+                     n_pairs: int, chunks: int, seed: int = 0,
+                     read_len: int = 150, fmt: str = "sam", *,
+                     device) -> dict:
+    """Alignment files of ``n_pairs`` read groups in ``chunks`` chunks as
+    the mapping stages write them (``<cell>_chunk<i>_<1|2>_<hap>.<fmt>``
+    in ``aln_dir`` for the global mapping and in ``re_dir`` for the rescue
+    mapping, ``fmt`` one of ``sam``, ``sam.gz``, ``bam``), with the genome
+    files they need in ``<parent of aln_dir>/genome``: a fragment table per
+    haplotype (MboI-like widths, ~7 M fragments on hg19) and a SNP npz
+    (one heterozygous SNP per ~1.5 kb).  Groups follow ALN_TEMPLATES, an
+    invented mix (see its comment; every template at least once when
+    ``n_pairs`` allows); reads carry their source haplotype's allele at
+    every SNP they cover, so a read
+    counts its SNPs in its source haplotype's files and none in the
+    other's; ALN_SPECIFIC of the groups are unmapped in one haplotype.
+    Returns the planted truth: per haplotype the report of
+    ``bam_extract`` (level 1) and ``rows`` (``rows15``, ``rows23``,
+    ``suffixed`` (``_1``/``_2`` rows), ``snps`` (the SNP columns summed)),
+    ``hits`` (groups per template), ``records`` (per haplotype),
+    ``fragments`` and ``snps`` (paths)."""
+    import gzip
+    import os
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    ends, snps, m_all, p_all = _aln_genome(g, lengths, dev)
+    frags, snp_path = _aln_write_genome(
+        os.path.join(os.path.dirname(os.path.abspath(aln_dir)), "genome"),
+        labels, ends, snps, m_all, p_all)
+    C = len(lengths)
+    # the fragment arrays as the loader builds them ([1, ends...]) and the
+    # SNPs, concatenated, with each chromosome's offset
+    arr = torch.cat([torch.cat([torch.ones(1, dtype=torch.int64,
+                                           device=dev), e]) for e in ends])
+    n_frag = torch.tensor([len(e) for e in ends], device=dev)
+    arr_off = torch.cumsum(n_frag + 1, 0) - (n_frag + 1)
+    snp_pos = torch.cat(snps)
+    n_snp = torch.tensor([len(s) for s in snps], device=dev)
+    snp_off = torch.cumsum(n_snp, 0) - n_snp
+    snp_key = torch.cat([(i << 40) | s for i, s in enumerate(snps)])
+    allele = torch.stack([torch.cat(m_all), torch.cat(p_all)])   # [2, S]
+
+    weights, size, slot, out, rows = (torch.from_numpy(a).to(dev) for a in
+                                      _aln_templates())
+    T, G = len(weights), n_pairs
+    t = torch.multinomial(weights, G, True, generator=g)
+    t[:min(T, G)] = torch.arange(min(T, G), device=dev)
+    n = size[t]
+    start = torch.cumsum(n, 0) - n
+    R = int(n.sum())
+    rg = torch.repeat_interleave(torch.arange(G, device=dev), n)
+    rj = torch.arange(R, device=dev) - start[rg]
+    rt = t[rg]
+    tag, file, kind, letter, short = (slot[k, rt, rj] for k in range(5))
+    side = (file % 2 == 1).long()
+    spec = _pick(g, ALN_SPECIFIC, G, dev)
+    src = torch.randint(0, 2, (G, 2), generator=g, device=dev)[rg, side]
+
+    # placement: a chromosome per side, fragments by letter
+    wlen = torch.tensor(lengths, dtype=torch.float64, device=dev)
+    chrom_a = torch.multinomial(wlen, G, True, generator=g)
+    chrom_b = torch.where(
+        torch.rand(G, generator=g, device=dev) < ALN_CIS, chrom_a,
+        torch.multinomial(wlen, G, True, generator=g))
+    big = n >= 4
+    chrom_b = torch.where(big, chrom_a, chrom_b)
+    chrom = torch.where(letter <= 0, chrom_a[rg], chrom_b[rg])
+    nf = n_frag[chrom]
+    span = (n_frag[chrom_a] - 6 * ALN_SPREAD - 1).clamp(min=1)
+    i0 = 1 + (torch.rand(G, generator=g, device=dev) * span).long()
+    step = torch.randint(1, ALN_SPREAD + 1, (G,), generator=g, device=dev)
+    free = 1 + (torch.rand(R, generator=g, device=dev) * nf).long()
+    fi = torch.where(big[rg], i0[rg] + letter.clamp(min=0) * step[rg], free)
+    fi = torch.minimum(fi.clamp(min=1), nf)
+    lo, hi = arr[arr_off[chrom] + fi - 1], arr[arr_off[chrom] + fi]
+    pos1 = lo + 1 + (torch.rand(R, generator=g, device=dev, dtype=torch.float64)
+                     * (hi - lo)).long().clamp(max=hi - lo - 1)
+    qlen = torch.where(short.bool(), torch.randint(
+        read_len // 4, read_len - 4, (R,), generator=g, device=dev),
+        read_len)
+    anchor = (~big[rg] & (letter >= 0) & (n_snp[chrom] > 0)
+              & (torch.rand(R, generator=g, device=dev) < ALN_ANCHOR))
+    pick = snp_off[chrom] + (torch.rand(R, generator=g, device=dev)
+                             * n_snp[chrom]).long().clamp(
+        max=(n_snp[chrom] - 1).clamp(min=0))
+    back = (torch.rand(R, generator=g, device=dev) * qlen).long()
+    pos1 = torch.where(anchor, (snp_pos[pick.clamp(
+        max=max(len(snp_pos) - 1, 0))] - back).clamp(min=2), pos1)
+
+    # sequences: random bases, each covered SNP carrying the source allele
+    chromosomal = (kind <= _ALN_KINDS.index("A")) & (letter >= 0)
+    c40 = chrom << 40
+    k_lo = torch.searchsorted(snp_key, c40 | pos1)
+    k_hi = torch.searchsorted(snp_key, c40 | (pos1 + qlen))
+    cover = torch.where(chromosomal, k_hi - k_lo, 0)
+    seq = torch.randint(0, 4, (R, read_len), generator=g, device=dev,
+                        dtype=torch.uint8)
+    rep = torch.repeat_interleave(torch.arange(R, device=dev), cover)
+    at = k_lo[rep] + torch.arange(len(rep), device=dev) - (
+        torch.cumsum(cover, 0) - cover)[rep]
+    seq[rep, snp_pos[at] - pos1[rep]] = allele[src[rep], at].to(torch.uint8)
+    # 0 1 2 3 -> A C G T
+    seq = 65 + 2 * seq + 2 * (seq >= 2).to(torch.uint8) + 11 * (
+        seq == 3).to(torch.uint8)
+
+    # per haplotype: kinds (all N where the group is unmapped there), the
+    # outcome of each group and its truth
+    N = _ALN_KINDS.index("N")
+    truth = {"hits": torch.bincount(t, minlength=T).tolist(), "records": R,
+             "fragments": frags, "snps": snp_path}
+    kinds = {}
+    for h, hap in enumerate(("Maternal", "Paternal")):
+        gone = spec == 2 - h
+        kh = torch.where(gone[rg], N, kind)
+        kinds[hap] = kh
+        o = torch.where(gone & (out[t] != 0), 1, out[t])
+        count = torch.where(src == h, cover, 0)
+        r15 = r23 = suffixed = snp_sum = 0
+        for k in range(2):
+            live = (o == 4) if k else (o >= 3)
+            slots = rows[t, k]
+            has_c = slots[:, 2] >= 0
+            r23 += int((live & has_c).sum())
+            r15 += int((live & ~has_c).sum())
+            suffixed += int((live & (o == 4)).sum())
+            for m in range(3):
+                ok = live & (slots[:, m] >= 0)
+                snp_sum += int(count[(start + slots[:, m].clamp(min=0))[ok]]
+                               .sum())
+        unm = int(((o == 0) | (o == 1)).sum())
+        multi = int((o == 2).sum())
+        truth[hap] = {"Total_pairs": G, "Unmapped_pairs": unm,
+                      "Multiple_pairs": multi,
+                      "Unique_pairs": G - unm - multi}
+        truth.setdefault("rows", {})[hap] = dict(
+            rows15=r15, rows23=r23, suffixed=suffixed, snps=snp_sum)
+
+    # the files: host columns, then per chunk, haplotype and file
+    ids = _host(rg + 1)
+    col = {k: _host(v) for k, v in dict(
+        tag=tag, file=file, qlen=qlen, pos1=pos1, chrom=chrom,
+        strand=16 * torch.randint(0, 2, (R,), generator=g, device=dev),
+        score=-torch.randint(0, 31, (R,), generator=g, device=dev),
+        gap=torch.randint(0, 11, (R,), generator=g, device=dev),
+        qual=torch.randint(0, (1 << 16) - read_len, (R,), generator=g,
+                           device=dev)).items()}
+    kinds = {h: _host(v) for h, v in kinds.items()}
+    seq = _host(seq).ravel()
+    qual_pool = _host(torch.randint(33, 75, (1 << 16,), generator=g,
+                                    device=dev, dtype=torch.uint8))
+    refs = ["chr" + str(l) for l in labels] + [ALN_SCAFFOLD]
+    references = dict(zip(refs, [int(x) for x in lengths] + [182896]))
+    header = (b"@HD\tVN:1.0\tSO:unsorted\n" + b"".join(
+        f"@SQ\tSN:{r}\tLN:{v}\n".encode() for r, v in references.items())
+        + b"@PG\tID:bowtie2\tPN:bowtie2\n")
+    rtab = _table([b"*"] + [r.encode() for r in refs])
+    ttab = _table([b"_" + x.encode() if x else b"" for x in _ALN_TAGS])
+    cig = [b"%dM" % q for q in range(read_len + 1)] + [b"*"]
+    cig_buf = np.frombuffer(b"".join(cig), np.uint8)
+    cig_off = np.cumsum([0] + [len(x) for x in cig[:-1]])
+    cig_len = np.asarray([len(x) for x in cig])
+    gb = np.asarray([0, 0, 1, 1])       # file -> global (0) / rescue (1)
+    for k in range(chunks):
+        g0, g1 = G * k // chunks, G * (k + 1) // chunks
+        r0 = int(_host(start[g0])) if g0 < G else R
+        r1 = int(_host(start[g1])) if g1 < G else R
+        for hap in ("Maternal", "Paternal"):
+            kh = kinds[hap]
+            for f in range(4):
+                sel = r0 + np.flatnonzero(col["file"][r0:r1] == f)
+                d = (aln_dir, re_dir)[gb[f]]
+                os.makedirs(d, exist_ok=True)
+                path = os.path.join(
+                    d, f"{cell}_chunk{k}_{f % 2 + 1}_{hap}.{fmt}")
+                kk = kh[sel]
+                unm = kk == N
+                cols = dict(
+                    ids=ids[sel], tag=col["tag"][sel],
+                    flag=np.where(unm, 4, col["strand"][sel]),
+                    ref=np.where(unm, 0, np.where(
+                        kk == _ALN_KINDS.index("S"), len(refs),
+                        1 + col["chrom"][sel])),
+                    pos=np.where(unm, 0, col["pos1"][sel]),
+                    mapq=np.where(unm, 0, np.where((kk == 1) | (kk == 2),
+                                                   1, 42)),
+                    cigar=np.where(unm, read_len + 1, col["qlen"][sel]),
+                    seq_off=sel * read_len, qlen=col["qlen"][sel],
+                    qual=col["qual"][sel],
+                    has_as=(kk != N) & (kk != _ALN_KINDS.index("A")),
+                    tag_as=col["score"][sel],
+                    has_xs=(kk == 1) | (kk == 2),
+                    tag_xs=col["score"][sel] + np.where(
+                        kk == 1, col["gap"][sel], -1 - col["gap"][sel]))
+                if fmt == "bam":
+                    _aln_bam(path, cols, ttab, refs, references, seq,
+                             qual_pool)
+                    continue
+                fields = [
+                    [("const", ALN_NAME), ("int", cols["ids"]),
+                     ("word", *ttab, cols["tag"])],
+                    [("int", cols["flag"])], [("word", *rtab, cols["ref"])],
+                    [("int", cols["pos"])], [("int", cols["mapq"])],
+                    [("text", cig_buf, cig_off[cols["cigar"]],
+                      cig_len[cols["cigar"]])],
+                    [("const", b"*")], [("const", b"0")], [("const", b"0")],
+                    [("text", seq, cols["seq_off"], cols["qlen"])],
+                    [("text", qual_pool, cols["qual"], cols["qlen"])]] + [
+                    [("const", x)] for x in _ALN_TAIL] + [
+                    [("const", b"AS:i:"), ("int", cols["tag_as"])],
+                    [("const", b"XS:i:"), ("int", cols["tag_xs"])]]
+                nf = (11 + len(_ALN_TAIL) + cols["has_as"]
+                      + (cols["has_as"] & cols["has_xs"]))
+                opener = (gzip.open(path, "wb", compresslevel=1)
+                          if fmt == "sam.gz" else open(path, "wb"))
+                with opener as fh:
+                    fh.write(header)
+                    _format_rows(fields, len(sel), fh, row_fields=nf)
+    return truth
+
+
+def _aln_bam(path, cols, ttab, refs, references, seq, qual_pool):
+    """One alignment file of ``alignment_chunks`` as BAM (``io.bam.
+    write_bam``)."""
+    import io
+
+    from ..io.bam import write_bam
+    from ..io.sam import Alignments
+
+    n = len(cols["ids"])
+    buf = io.BytesIO()
+    _format_rows([[("const", ALN_NAME), ("int", cols["ids"]),
+                   ("word", *ttab, cols["tag"])]], n, buf)
+    names = np.frombuffer(buf.getvalue(), np.uint8)
+    stop = np.flatnonzero(names == 10)
+    first = np.concatenate([[0], stop[:-1] + 1]).astype(np.int64)
+    zeros = np.zeros(n, np.int32)
+    has = (cols["has_as"].astype(np.int8)
+           | (2 * (cols["has_as"] & cols["has_xs"])).astype(np.int8))
+    aln = Alignments(
+        names=names, name_off=first, name_len=(stop - first).astype(np.int32),
+        base_len=zeros, tag=zeros.astype(np.int8), last=zeros.astype(np.int8),
+        flag=cols["flag"].astype(np.int32),
+        ref=(cols["ref"] - 1).astype(np.int32),
+        pos=(cols["pos"] - 1).astype(np.int64),
+        qlen=cols["qlen"].astype(np.int32), seqs=seq,
+        seq_off=cols["seq_off"].astype(np.int64),
+        seq_len=cols["qlen"].astype(np.int32),
+        tag_as=cols["tag_as"].astype(np.int64),
+        tag_xs=cols["tag_xs"].astype(np.int64), has=has,
+        refs=[r.encode() for r in refs])
+    write_bam(path, aln, references, "@HD\tVN:1.0\tSO:unsorted\n",
+              mapq=cols["mapq"].astype(np.int32),
+              qual=(qual_pool, cols["qual"].astype(np.int64),
+                    cols["qlen"].astype(np.int32)))

@@ -1,10 +1,16 @@
 """The port's command line (hichap_master_tpu_torch.cli) against the JAX
 package's (hichap_master_tpu.cli).
 
-Parser: ``filtering`` and the five analysis sub-commands take the same
-option strings, defaults, choices, types, ``nargs`` and ``required`` flags,
-with ``--device`` the only extra; the front sub-commands are refused by
-name; ``--device cuda`` with no card visible fails.
+Parser: ``bamProcess``, ``filtering`` and the five analysis sub-commands
+take the same option strings, defaults, choices, types, ``nargs`` and
+``required`` flags, with ``--device`` the only extra; the front
+sub-commands before ``bamProcess`` are refused by name; ``--device cuda``
+with no card visible fails.
+
+``bamProcess`` through both CLIs on copies of one workspace of alignment
+files (``testing.synthetic.alignment_chunks``), allelic and ``-N``: the
+output directories byte for byte, completion marker included, and ``-r``
+skipping the stage in both once the marker is there.
 
 ``filtering`` through both CLIs on copies of one workspace of chunk beds
 (``testing.synthetic.record_beds``, its duplicates under their first
@@ -51,7 +57,8 @@ from hichap_master_tpu_torch import cli as PCLI
 from hichap_master_tpu_torch.core import Genome
 from hichap_master_tpu_torch.ops import pca as PCA
 from hichap_master_tpu_torch.testing.parity import assert_close_nan
-from hichap_master_tpu_torch.testing.synthetic import (allelic_pairs,
+from hichap_master_tpu_torch.testing.synthetic import (alignment_chunks,
+                                                       allelic_pairs,
                                                        planted_loops,
                                                        record_beds,
                                                        write_allelic_beds,
@@ -60,8 +67,8 @@ from hichap_master_tpu_torch.testing.synthetic import (allelic_pairs,
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-COMMANDS = ("filtering", "matrix", "compartment", "tads", "loops",
-            "specificity")
+COMMANDS = ("bamProcess", "filtering", "matrix", "compartment", "tads",
+            "loops", "specificity")
 LENGTHS = {"1": 12_010_000, "2": 10_030_000}
 COUNTS = {"Bi_Allelic": 60_000, "M_M": 30_000, "P_P": 30_000,
           "M_P": 3_000, "P_M": 3_000}
@@ -112,10 +119,10 @@ def test_module_entry_point_refuses_front_commands():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     r = subprocess.run([sys.executable, "-m", "hichap_master_tpu_torch.cli",
-                        "bamProcess", "-f", "x"], cwd=REPO, env=env,
+                        "Rescue", "-b", "x"], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 2
-    assert "bamProcess is not part of the port" in r.stderr
+    assert "Rescue is not part of the port" in r.stderr
 
 
 def test_a_cuda_device_that_is_not_visible_fails(tmp_path, capsys,
@@ -194,6 +201,45 @@ def test_filtering_command_matches_the_jax_cli(tmp_path, mode):
     assert {"filtering.total", "filtering.Maternal.scan",
             "filtering.Paternal.write", "filtering.allelic.join",
             "filtering.allelic.assign"} <= set(m)
+
+
+@pytest.mark.parametrize("mode", ["allelic", "NonAllelic"])
+def test_bam_process_command_matches_the_jax_cli(tmp_path, mode):
+    raw = tmp_path / "raw"
+    truth = alignment_chunks(str(raw / "Global_bams"),
+                             str(raw / "ReMap_bams"), "cell",
+                             [3_000_000, 2_000_000], ["1", "10"], 1500, 2,
+                             seed=6, device="cpu")
+    argv = (["bamProcess", "-f", *truth["fragments"], "-s", truth["snps"]]
+            if mode == "allelic" else
+            ["bamProcess", "-N", "-f", truth["fragments"][0], "--rfo"])
+    for side, cli in (("j", JCLI), ("p", PCLI)):
+        shutil.copytree(raw, tmp_path / f"w{side}")
+        args = argv + ["-w", str(tmp_path / f"w{side}")]
+        assert _run(cli, args + (["--device", "cpu"] if side == "p" else [])
+                    ) == 0
+    wj, wp = tmp_path / "wj" / "UniqRawBed", tmp_path / "wp" / "UniqRawBed"
+    names = sorted(os.listdir(wp))
+    assert names == sorted(os.listdir(wj))
+    assert ".hichap_stage_done" in names and len(names) == (
+        5 if mode == "allelic" else 3)
+    for name in names:
+        assert (wp / name).read_bytes() == (wj / name).read_bytes(), name
+    m = _metrics(tmp_path, "bamProcess")
+    tags = ("Maternal", "Paternal") if mode == "allelic" else (
+        "NonAllelic",)
+    assert set(m) == {"bamProcess.total"} | {
+        f"bamProcess.{t}.{s}" for t in tags
+        for s in ("read", "sort", "resolve", "write")}
+    # -r: the marker is there, so both CLIs skip the stage
+    for side, cli in (("j", JCLI), ("p", PCLI)):
+        w = tmp_path / f"w{side}"
+        bed = sorted((w / "UniqRawBed").glob("*.bed"))[0]
+        bed.unlink()
+        args = argv + ["-w", str(w), "-r"]
+        assert _run(cli, args + (["--device", "cpu"] if side == "p" else [])
+                    ) == 0
+        assert not bed.exists()
 
 
 def test_matrix_names_a_missing_genome_size_file(tmp_path):
