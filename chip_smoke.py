@@ -105,24 +105,42 @@ Phases, each printed on its own line, any failure raising:
    and its slope in bytes per record;
 8. the alignments before the chunk beds: first ``bam_extract`` at
    BAM_CHECK_PAIRS read pairs per haplotype (one chunk drawn by
-   ``testing.synthetic.alignment_chunks`` as SAM and again as BAM) on the
-   card, on the CPU and from the BAM, the chunk beds identical byte for
-   byte and the reports and rows equal to the planted truth; then, with
-   its own counters, one chunk of BAM_PAIRS per haplotype (~7.5 GB of
-   SAM; BAM_CUT_PAIRS where the temporary disk cannot hold it) through
-   ``hichap-torch bamProcess`` and ``hichap-torch filtering``; checks:
-   the logged report and the rows equal the planted truth, filtering's
-   Total per haplotype equals the rows written, the five allelic beds are
-   non-empty; printed: the draw, the step walls, M groups/s (on the
-   draw's invented mix), the read's MB/s and the peak device memory at
-   both sizes with its slope per record;
-9. the launch counters of each path, each kernel of the path > 0, and one
+   ``testing.synthetic.alignment_chunks`` with planted ligation junctions,
+   as SAM and again as BAM) on the card, on the CPU and from the BAM, the
+   chunk beds identical byte for byte and the reports and rows equal to
+   the planted truth, then ``Rescue`` of its Global_bams on the card, on
+   the CPU and from the BAM, the rescue FASTQs identical byte for byte
+   and equal to the planted junction truth (and the columns that
+   bamProcess reads carry no QUAL); then, with its own counters, one chunk
+   of BAM_PAIRS per haplotype (~7.5 GB of SAM; BAM_CUT_PAIRS where the
+   temporary disk cannot hold it) through ``hichap-torch bamProcess``,
+   ``hichap-torch Rescue`` on its Global_bams and ``hichap-torch
+   filtering``; checks: the logged report and the rows equal the planted
+   truth, the rescue FASTQs' records, split reads and bases equal the
+   planted junctions', filtering's Total per haplotype equals the rows
+   written, the five allelic beds are non-empty; printed: the draw, the
+   step walls, M groups/s (on the draw's invented mix), M reads/s of the
+   rescue, the read's MB/s and the peak device memory (bamProcess at both
+   sizes with its slope per record, and the rescue);
+9. the front, with its own counters: a genome drawn on hg19
+   (``testing.synthetic.genome_draw``: soft-masked and N runs, ~1.92 M
+   SNPs) through ``hichap-torch rebuildG -e MboI`` and ``rebuildG -N``
+   (checks: both haplotype FASTAs read back equal the draw with the SNPs
+   applied, genomeSize the lengths, ``find_sites`` on the card equal to
+   its plain version on chr1 and chr21, every fragment table's rows equal
+   the kept sites plus one per chromosome), then 2 x FASTQ_READS reads
+   (``testing.synthetic.fastq_pair``, gzipped) through ``hichap-torch
+   rebuildF -c FASTQ_CHUNK`` (checks: the chunks, their records and the
+   SHA-256 of their text equal the draw's); printed: the walls by step,
+   MB/s, the fragments and the peak device memory; then the front phase's
+   wall and the run's;
+10. the launch counters of each path, each kernel of the path > 0, and one
    JSON line with the per-kernel results (``launches_by_path``: analysis,
-   diploid, allelic, files, cli, filtering, bamprocess; the last launches
-   no kernel).
+   diploid, allelic, files, cli, filtering, bamprocess, front; the last
+   two launch no kernel).
 
-The diploid, files, CLI, filtering and bamProcess paths each report their
-peak device memory (``torch.cuda.max_memory_allocated``).
+The diploid, files, CLI, filtering, bamProcess, Rescue and rebuildG paths
+each report their peak device memory (``torch.cuda.max_memory_allocated``).
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
 every phase passed.
@@ -138,6 +156,8 @@ import time
 
 import numpy as np
 import torch
+
+T_START = time.perf_counter()
 
 REPS = 5
 # the card's peaks for the bounds (H100 SXM, NVIDIA's data sheet): device
@@ -2609,9 +2629,9 @@ def bam_check(dev):
             truths[fmt] = _timed(walls, f"draw {fmt}", lambda: alignment_chunks(
                 os.path.join(ws, "Global_bams"), os.path.join(ws, "ReMap_bams"),
                 BAM_CELL, HG19, HG19_NAMES, BAM_CHECK_PAIRS, 1, BAM_SEED,
-                fmt=fmt, device=dev))
+                fmt=fmt, device=dev, junctions=True))
         truth = truths["sam"]
-        keys = ("Maternal", "Paternal", "rows", "hits", "records")
+        keys = ("Maternal", "Paternal", "rows", "hits", "records", "rescue")
         check(all(truths["bam"][k] == truth[k] for k in keys),
               "bam check: the BAM draw's truth differs from the SAM draw's")
         mb = {fmt: sum(_mb(os.path.join(tmp, fmt, d, f))
@@ -2643,6 +2663,7 @@ def bam_check(dev):
             check(not differ, f"bam check: {differ} differ between the card "
                   f"(SAM) and {name}")
         n_bytes = sum(len(v) for v in a.values())
+        resc, qual_bytes = rescue_check(tmp, truth, walls, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     n_rec = truth["records"]
@@ -2654,7 +2675,99 @@ def bam_check(dev):
         f"rows equal the planted truth on all three; the chunk beds "
         f"({n_bytes / 1e6:.1f} MB) identical byte for byte; peak device "
         f"memory {peak / 2 ** 30:.3f} GiB")
+    log(f"rescue check ({BAM_CHECK_PAIRS:,} pairs): Rescue card "
+        f"{walls['rescue card']:.3f} s, CPU {walls['rescue cpu']:.3f} s, "
+        f"card on BAM {walls['rescue card bam']:.3f} s (host clock); the "
+        f"rescue FASTQs ({resc / 1e6:.1f} MB) identical byte for byte and "
+        f"their records equal the planted truth {truth['rescue']}; the "
+        f"columns bamProcess reads hold no QUAL (host column bytes "
+        f"{qual_bytes[0] / 1e6:.1f} MB, {qual_bytes[1] / 1e6:.1f} MB with "
+        f"QUAL asked for)")
     return peak, 2 * n_rec
+
+
+def _sam_records(path) -> int:
+    """The records of a SAM file whose header lines all come first."""
+    lines = head = 0
+    with open(path, "rb") as f:
+        first = True
+        while True:
+            buf = f.read(1 << 26)
+            if not buf:
+                break
+            if first:
+                head = sum(ln.startswith(b"@") for ln in buf[:1 << 16]
+                           .split(b"\n")[:-1])
+                first = False
+            lines += buf.count(b"\n")
+    return lines - head
+
+
+def _rescue_counts(out_dir) -> dict:
+    """Per haplotype, the records, split reads and bases of the rescue
+    FASTQs under ``out_dir``, as the draw's truth counts them."""
+    out = {}
+    for hap in ("Maternal", "Paternal"):
+        acc = dict(records=0, split=0, bases=0)
+        for name in sorted(os.listdir(out_dir)):
+            if hap not in name or not name.endswith("_unmapped.fq"):
+                continue
+            with open(os.path.join(out_dir, name), "rb") as f:
+                lines = f.read().split(b"\n")
+            heads, seqs = lines[0:-1:4], lines[1:-1:4]
+            acc["records"] += len(heads)
+            acc["split"] += sum(h[-3:] in (b"_11", b"_21") for h in heads)
+            acc["bases"] += sum(map(len, seqs))
+        out[hap] = acc
+    return out
+
+
+def _rescue_truth_checks(what, got, truth):
+    want = {h: {k: truth["rescue"][h][k] for k in ("records", "split",
+                                                    "bases")}
+            for h in ("Maternal", "Paternal")}
+    check(got == want, f"{what}: rescue FASTQs {got} differ from the "
+          f"planted {want}")
+
+
+def rescue_check(tmp, truth, walls, dev):
+    """``Rescue`` on the bam check's Global_bams (SAM on the card and on
+    the CPU, BAM on the card): the FASTQs identical byte for byte and equal
+    to the planted truth.  Also the QUAL column: absent from what
+    bamProcess reads (``read_alignments`` without ``qual``).  Returns the
+    FASTQ bytes and the host column bytes without and with QUAL."""
+    from dataclasses import fields
+
+    from hichap_master_tpu_torch.io.sam import read_alignments
+    from hichap_master_tpu_torch.pipeline.rescue import \
+        cutting_reads_to_remapping
+
+    runs = {}
+    for name, fmt, device in (("card", "sam", dev),
+                              ("cpu", "sam", torch.device("cpu")),
+                              ("card bam", "bam", dev)):
+        out = os.path.join(tmp, "rescue_" + name.replace(" ", "_"))
+        _timed(walls, f"rescue {name}", lambda: cutting_reads_to_remapping(
+            os.path.join(tmp, fmt, "Global_bams"), out, "MboI",
+            device=device))
+        _rescue_truth_checks(f"rescue check ({name})", _rescue_counts(out),
+                             truth)
+        runs[name] = {k.split(".")[0]: v for k, v in _tree_bytes(out).items()}
+    a = runs["card"]
+    check(len(a) == 4 and all(a.values()), f"rescue check: {sorted(a)}")
+    for name in ("cpu", "card bam"):
+        check(runs[name] == a, f"rescue check: the FASTQs differ between the "
+              f"card (SAM) and {name}")
+    path = os.path.join(tmp, "sam", "Global_bams",
+                        sorted(os.listdir(os.path.join(tmp, "sam",
+                                                       "Global_bams")))[0])
+    size = []
+    for qual in (False, True):
+        aln = read_alignments(path, qual=qual)
+        check((aln.quals is None) != qual, f"rescue check: QUAL {qual}")
+        size.append(sum(getattr(aln, f.name).nbytes for f in fields(aln)
+                        if isinstance(getattr(aln, f.name), np.ndarray)))
+    return sum(len(v) for v in a.values()), size
 
 
 def bam_phase(dev):
@@ -2677,7 +2790,8 @@ def bam_phase(dev):
     walls = {}
     truth = _timed(walls, "draw", lambda: alignment_chunks(
         os.path.join(ws, "Global_bams"), os.path.join(ws, "ReMap_bams"),
-        BAM_CELL, HG19, HG19_NAMES, pairs, 1, BAM_SEED + 1, device=dev))
+        BAM_CELL, HG19, HG19_NAMES, pairs, 1, BAM_SEED + 1, device=dev,
+        junctions=True))
     sam_mb = sum(_mb(os.path.join(ws, d, f))
                  for d in ("Global_bams", "ReMap_bams")
                  for f in os.listdir(os.path.join(ws, d)))
@@ -2690,14 +2804,31 @@ def bam_phase(dev):
     peak = torch.cuda.max_memory_allocated()
     raw = os.path.join(ws, "UniqRawBed")
     rows = _bed_rows(raw)
-    for d in ("Global_bams", "ReMap_bams"):
+    gb = os.path.join(ws, "Global_bams")
+    global_records = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _timed(walls, "Rescue", lambda: _cli(["Rescue", "-w", ws]))
+    rescue_peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(ws, "Metrics", "Rescue.json")) as f:
+        rescue_walls = json.load(f)
+    rescue = _rescue_counts(os.path.join(ws, "RescueFastq"))
+    rescue_mb = sum(_mb(os.path.join(ws, "RescueFastq", f))
+                    for f in os.listdir(os.path.join(ws, "RescueFastq")))
+    global_mb = sum(_mb(os.path.join(gb, f)) for f in os.listdir(gb))
+    for f in os.listdir(gb):
+        global_records += _sam_records(os.path.join(gb, f))
+    for d in ("Global_bams", "ReMap_bams", "RescueFastq"):
         shutil.rmtree(os.path.join(ws, d))                 # disk
     torch.cuda.empty_cache()
     with _Reports() as filt:
         _timed(walls, "filtering", lambda: _cli(["filtering", "-w", ws]))
     return dict(tmp=tmp, ws=ws, walls=walls, truth=truth, pairs=pairs,
                 cut=cut, sam_mb=sam_mb, peak=peak, rows=rows,
-                reports=rep.reports, stats=filt.stats)
+                reports=rep.reports, stats=filt.stats, rescue=rescue,
+                rescue_peak=rescue_peak, rescue_walls=rescue_walls,
+                rescue_mb=rescue_mb, global_mb=global_mb,
+                global_records=global_records)
 
 
 def bam_checks(bp, peak_check, records_check):
@@ -2756,6 +2887,291 @@ def bam_checks(bp, peak_check, records_check):
     log(f"bamProcess:   checks: report and rows equal the planted truth "
         f"{bp['rows']}; filtering's Total equals the rows written; the five "
         f"allelic beds non-empty " + str(sizes))
+    _rescue_truth_checks("Rescue", bp["rescue"], truth)
+    rw = bp["rescue_walls"]
+    rsteps = {}
+    for key, v in rw.items():
+        if key != "Rescue.total":
+            rsteps.setdefault(key.rsplit(".", 1)[-1], 0.0)
+            rsteps[key.rsplit(".", 1)[-1]] += v
+    log(f"Rescue: `hichap-torch Rescue` on the same Global_bams "
+        f"({bp['global_records']:,} records in 4 files, "
+        f"{bp['global_mb']:.1f} MB of SAM) {walls['Rescue']:.3f} s (metrics "
+        f"JSON total {rw['Rescue.total']:.3f} s), "
+        f"{bp['global_records'] / rw['Rescue.total'] / 1e6:.3f} M reads/s; "
+        f"walls by step (files summed, synchronised): " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in rsteps.items())
+        + f"; read {bp['global_mb'] / rsteps['read']:.1f} MB of SAM/s; "
+        f"{bp['rescue_mb']:.1f} MB of rescue FASTQ; peak device memory "
+        f"{bp['rescue_peak'] / 2 ** 30:.3f} GiB; checks: records, split "
+        f"reads and bases equal the planted truth {bp['rescue']}")
+
+
+# the front phase: the genome, the SNP table and the FASTQ pair at a user's
+# size (hg19, ~1.92 M SNPs, 2 x 4 M reads of 150 bp), through `hichap-torch
+# rebuildG` (diploid, then -N) and `hichap-torch rebuildF`
+FRONT_SEED = 19
+FRONT_SCALE = 1                # lengths divided by it (CPU rehearsal)
+FASTQ_READS = 4_000_000
+FASTQ_CHUNK = 1_000_000
+FASTQ_CELL = "GM12878_R1"
+FRONT_DISK = 11e9              # bytes the genome part needs at hg19
+
+
+def _front_lengths():
+    from hichap_master_tpu_torch.testing.synthetic import HG19
+    return [l // FRONT_SCALE for l in HG19]
+
+
+def _line_count(path) -> int:
+    n = 0
+    with open(path, "rb") as f:
+        while True:
+            buf = f.read(1 << 26)
+            if not buf:
+                return n
+            n += buf.count(b"\n")
+
+
+def _kept_sites(seq):
+    """The MboI cuts (GATC, cut 0) that enzyme_fragments keeps for one
+    chromosome: its rule, computed here from find_sites' offsets."""
+    from hichap_master_tpu_torch.io.fasta import find_sites
+
+    s = find_sites(seq, "GATC") + 1
+    return int(((s > 1) & (s <= seq.numel())).sum())
+
+
+def _fragment_rows(seq, chrom) -> bytes:
+    """enzyme_fragments' rows for one chromosome of the MboI genome, built
+    here in numpy from ``find_sites_plain``: cuts at site + 1, kept where
+    above 1 and at most the length L, bounded by 1 and L."""
+    from hichap_master_tpu_torch.io.fasta import find_sites_plain
+
+    L = len(seq)
+    s = find_sites_plain(seq, "GATC") + 1
+    pos = np.concatenate([[1], s[(s > 1) & (s <= L)], [L]])
+    return "".join(f"{chrom}\t{a}\t{b}\n"
+                   for a, b in zip(pos[:-1].tolist(),
+                                   pos[1:].tolist())).encode()
+
+
+def _table_rows(path, chrom) -> bytes:
+    """The lines of one chromosome in a fragment table (they stand
+    together)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    key = chrom.encode() + b"\t"
+    first = 0 if data.startswith(key) else data.find(b"\n" + key) + 1
+    if first == 0 and not data.startswith(key):
+        return b""
+    last = data.rfind(b"\n" + key) + 1
+    return data[first:data.index(b"\n", max(first, last)) + 1]
+
+
+def genome_phase(dev):
+    """The genome drawn on hg19 (``testing.synthetic.genome_draw``), then
+    ``hichap-torch rebuildG -e MboI`` (diploid) and ``rebuildG -N``, each
+    through ``cli.run`` on the default device.  Checks: both haplotype
+    FASTAs read back equal the draw with the SNPs applied (maternal, then
+    paternal), genomeSize the lengths, ``find_sites`` on the card equal to
+    its plain version (``find_sites_plain``, numpy) on chr1 and chr21 of
+    the maternal genome, every fragment table's rows equal the kept sites
+    plus one per chromosome, and the maternal table's chr21 lines equal
+    rows built in numpy from ``find_sites_plain``.  Returns what
+    ``genome_checks`` prints."""
+    from hichap_master_tpu_torch.io.fasta import (find_sites,
+                                                  find_sites_plain,
+                                                  read_fasta_flat)
+    from hichap_master_tpu_torch.testing.synthetic import (HG19_NAMES,
+                                                           genome_draw)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_front_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        lengths, names = _front_lengths(), list(HG19_NAMES)
+        st = {"cut": None}
+        while sum(lengths) * FRONT_DISK / 3.1e9 > free:
+            lengths, names = lengths[:-1], names[:-1]
+            st["cut"] = (f"cut to chr{names[0]}-chr{names[-1]}: "
+                         f"{free / 1e9:.1f} GB free on the temporary disk")
+        check(len(names) >= 21, f"front: {free / 1e9:.1f} GB free")
+        walls = {}
+        fa, snp = os.path.join(tmp, "hg19.fa"), os.path.join(tmp, "snps.txt")
+        draw = _timed(walls, "draw", lambda: genome_draw(
+            fa, snp, lengths, names, FRONT_SEED, device=dev))
+        st["fa_mb"], st["snp_mb"] = _mb(fa), _mb(snp)
+        ws = os.path.join(tmp, "ws")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()         # the draw's genome
+        _timed(walls, "rebuildG", lambda: _cli(
+            ["rebuildG", "-w", ws, "-g", fa, "-S", snp, "-e", "MboI"]))
+        st["peak"] = torch.cuda.max_memory_allocated() - held
+        with open(os.path.join(ws, "Metrics", "rebuildG.json")) as f:
+            st["metrics"] = json.load(f)
+        gdir = os.path.join(ws, "genome")
+        with open(os.path.join(gdir, "genomeSize")) as f:
+            sizes = dict(ln.split() for ln in f)
+        check(sizes == {c: str(l) for c, l in zip(names, lengths)},
+              "front: genomeSize differs from the draw")
+        # the haplotypes read back against the draw with the SNPs applied
+        want = {c: t.clone() for c, t in draw["chroms"].items()}
+        n_sites = {}
+        for hap, k in (("Maternal", 1), ("Paternal", 2)):
+            for c, t in want.items():
+                pos, *alleles = draw["snps"][c]
+                t[pos - 1] = alleles[k - 1]
+            flat, spans = _timed(walls, f"read {hap}", lambda: read_fasta_flat(
+                os.path.join(gdir, hap, f"{hap}.fa")))
+            check(sorted(spans) == sorted(want), f"front: {hap} chromosomes")
+            got = torch.from_numpy(flat).to(dev)
+            for c, t in want.items():
+                b, e = spans[c]
+                check(torch.equal(got[b:e], t), f"front: {hap} chr{c} "
+                      "differs from the draw with the SNPs applied")
+            kept = {c: _kept_sites(got[b:e]) for c, (b, e) in
+                    spans.items()}
+            frag = os.path.join(gdir, hap, f"MboI_{hap}_fragments.txt")
+            rows = _line_count(frag)
+            check(rows == sum(kept.values()) + len(kept), f"front: {hap} "
+                  f"fragments {rows} rows, sites {sum(kept.values())}")
+            n_sites[hap] = rows
+            if hap == "Maternal":
+                plain = {}
+                for c in ("1", "21"):
+                    b, e = spans[c]
+                    t0 = time.perf_counter()
+                    p = find_sites_plain(flat[b:e], "GATC")
+                    plain[c] = time.perf_counter() - t0
+                    d = find_sites(got[b:e], "GATC")
+                    check(np.array_equal(d.cpu().numpy(), p),
+                          f"front: find_sites on the card differs from its "
+                          f"plain version on chr{c}")
+                    st[f"sites_chr{c}"] = len(p)
+                st["plain_s"] = plain
+                b, e = spans["21"]
+                table = _table_rows(frag, "21")
+                check(len(table) > 0 and table == _fragment_rows(
+                    flat[b:e], "21"), "front: the Maternal fragment table's "
+                    "chr21 rows differ from find_sites_plain's")
+                st["chr21_rows"] = table.count(b"\n")
+            del got, flat
+            torch.cuda.empty_cache()
+            shutil.rmtree(os.path.join(gdir, hap))          # disk
+        del want
+        # -N: the genome's own fragment table
+        wn = os.path.join(tmp, "wn")
+        _timed(walls, "rebuildG -N", lambda: _cli(
+            ["rebuildG", "-N", "-w", wn, "-g", fa, "-e", "MboI"]))
+        rows = _line_count(os.path.join(wn, "genome",
+                                          "MboI_hg19_fragments.txt"))
+        kept = sum(_kept_sites(t) for t in draw["chroms"].values())
+        check(rows == kept + len(draw["chroms"]), f"front: -N fragments "
+              f"{rows} rows, sites {kept}")
+        n_sites["NonAllelic"] = rows
+        with open(os.path.join(wn, "Metrics", "rebuildG.json")) as f:
+            st["metrics_n"] = json.load(f)
+        st.update(walls=walls, fragments=n_sites, n_snps=draw["n_snps"])
+        del draw
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return st
+
+
+def genome_checks(st):
+    m, walls = st["metrics"], st["walls"]
+    log(f"rebuildG: draw of hg19 /{FRONT_SCALE} ({st['fa_mb']:.1f} MB FASTA, "
+        f"{st['n_snps']:,} SNPs, {st['snp_mb']:.1f} MB) {walls['draw']:.3f} "
+        f"s; `hichap-torch rebuildG -e MboI` {walls['rebuildG']:.3f} s "
+        f"(metrics JSON total {m['rebuildG.total']:.3f} s); steps: "
+        + ", ".join(f"{k[len('rebuildG.'):]} {v:.3f} s"
+                    for k, v in sorted(m.items()) if k != "rebuildG.total")
+        + f"; read {st['fa_mb'] / m['rebuildG.read']:.1f} MB of FASTA/s "
+        f"(the copy to the card included); peak device memory "
+        f"{st['peak'] / 2 ** 30:.3f} GiB above the draw's genome")
+    mn = st["metrics_n"]
+    log(f"rebuildG:   `rebuildG -N` {walls['rebuildG -N']:.3f} s: " + ", ".join(
+        f"{k[len('rebuildG.'):]} {v:.3f} s" for k, v in sorted(mn.items())))
+    log(f"rebuildG:   checks: Maternal.fa and Paternal.fa (read back in "
+        f"{walls['read Maternal']:.3f} and {walls['read Paternal']:.3f} s) "
+        f"equal the draw with the SNPs applied; genomeSize the lengths; "
+        f"fragment rows = kept sites + 1 per chromosome "
+        f"{st['fragments']}; find_sites on the card equal to its plain "
+        f"version on chr1 ({st['sites_chr1']:,} sites) and chr21 "
+        f"({st['sites_chr21']:,}); the Maternal table's chr21 lines "
+        f"({st['chr21_rows']:,}) equal rows built from find_sites_plain; "
+        f"plain numpy "
+        + ", ".join(f"chr{c} {v:.3f} s" for c, v in st["plain_s"].items())
+        + (f"; {st['cut']}" if st["cut"] else ""))
+
+
+def fastq_phase(dev):
+    """2 x FASTQ_READS reads (``testing.synthetic.fastq_pair``) through
+    ``hichap-torch rebuildF -c FASTQ_CHUNK``.  Checks: FASTQ_READS /
+    FASTQ_CHUNK chunks a mate, each of FASTQ_CHUNK records (newlines / 4),
+    and the SHA-256 of each decompressed chunk equal to the draw's."""
+    import gzip
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hichap_master_tpu_torch.testing.synthetic import fastq_pair
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fastq_")
+    try:
+        walls = {}
+        reads = FASTQ_READS // FRONT_SCALE
+        chunk = FASTQ_CHUNK // FRONT_SCALE
+        fq = _timed(walls, "draw", lambda: fastq_pair(
+            tmp, FASTQ_CELL, reads, chunk, 150, FRONT_SEED, device=dev))
+        gz_mb = sum(_mb(p) for p in fq["fastq"])
+        ws = os.path.join(tmp, "ws")
+        _timed(walls, "rebuildF", lambda: _cli(
+            ["rebuildF", "-w", ws, "-1", fq["fastq"][0], "-2",
+             fq["fastq"][1], "-c", chunk]))
+        with open(os.path.join(ws, "Metrics", "rebuildF.json")) as f:
+            m = json.load(f)
+        out = os.path.join(ws, "fastqchunks")
+        n = -(-reads // chunk)
+        names = [f"{FASTQ_CELL}_chunk{k}_{mate}.fastq.gz"
+                 for mate in (1, 2) for k in range(n)]
+        check(sorted(os.listdir(out)) == sorted(names + [".hichap_stage_done"]),
+              f"rebuildF: chunks {sorted(os.listdir(out))}")
+        out_mb = sum(_mb(os.path.join(out, f)) for f in names)
+
+        def digest(name):
+            with gzip.open(os.path.join(out, name)) as f:
+                data = f.read()
+            tag = b"_" + name.split("_")[-1][0].encode() + b" "
+            return (data.count(b"\n") // 4, data.count(tag),
+                    hashlib.sha256(data).hexdigest())
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as ex:
+            got = dict(zip(names, ex.map(digest, names)))
+        walls["check"] = time.perf_counter() - t0
+        for mate in (1, 2):
+            for k in range(n):
+                recs, tags, h = got[f"{FASTQ_CELL}_chunk{k}_{mate}.fastq.gz"]
+                check(recs == tags == min(chunk, reads - k * chunk),
+                      f"rebuildF: chunk {k} of mate {mate} holds {recs} "
+                      f"records, {tags} tagged _{mate}")
+                check(h == fq["digests"][mate][k], f"rebuildF: chunk {k} of "
+                      f"mate {mate} differs from the draw's text")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    text_mb = sum(fq["bytes"].values()) / 1e6
+    log(f"rebuildF: draw of 2 x {reads:,} reads of 150 bp ({text_mb:.1f} MB "
+        f"of FASTQ, {gz_mb:.1f} MB gzipped) {walls['draw']:.3f} s; "
+        f"`hichap-torch rebuildF -c {chunk}` {walls['rebuildF']:.3f} s "
+        f"(metrics JSON: mate1 {m['rebuildF.mate1']:.3f} s, mate2 "
+        f"{m['rebuildF.mate2']:.3f} s), {text_mb / m['rebuildF.total']:.1f} "
+        f"MB of FASTQ/s ({out_mb:.1f} MB of chunks); checks: {2 * n} chunks, "
+        f"their records, their _1/_2 tags and the SHA-256 of their text "
+        f"equal the draw's "
+        f"(checked in {walls['check']:.3f} s)")
+    return walls
 
 
 def main() -> None:
@@ -2911,10 +3327,23 @@ def main() -> None:
     finally:
         shutil.rmtree(bp["tmp"], ignore_errors=True)
     torch.cuda.empty_cache()
+    # the front: the genome and the reads before the alignments
+    t_front = time.perf_counter()
+    reset()
+    gst = genome_phase(dev)
+    front_l = read("front", ())
+    genome_checks(gst)
+    torch.cuda.empty_cache()
+    reset()
+    fastq_phase(dev)
+    fastq_l = read("fastq", ())
+    front_l = {k: front_l[k] + fastq_l[k] for k in front_l}
+    log(f"front phase: {time.perf_counter() - t_front:.1f} s; whole run "
+        f"{time.perf_counter() - T_START:.1f} s")
 
     paths = {"analysis": analysis, "diploid": diploid_l,
              "allelic": allelic_l, "files": files_l, "cli": cli_l,
-             "filtering": filter_l, "bamprocess": bam_l}
+             "filtering": filter_l, "bamprocess": bam_l, "front": front_l}
     kernels = [dict(name=k, launches=sum(p[k] for p in paths.values()),
                     launches_by_path={n: p[k] for n, p in paths.items()},
                     **results[k]) for k in counters]

@@ -1,19 +1,33 @@
-"""hichap-torch command line: the sub-commands of ``hichap-tpu`` from
-``bamProcess`` on, on the port.
+"""hichap-torch command line: the sub-commands of ``hichap-tpu`` on the
+port, but the two that drive bowtie2.
 
-The sub-commands ``bamProcess``, ``filtering``, ``matrix``,
-``compartment``, ``tads``, ``loops`` and ``specificity`` take the JAX
-package's flags and defaults (``hichap_master_tpu/cli.py``), with one flag
-more: ``--device`` (default ``cuda``), the device every driver runs on.
-With ``--device cuda`` and no card visible the command fails; it never
-falls back to the CPU.
+The sub-commands ``rebuildG``, ``rebuildF``, ``Rescue``, ``bamProcess``,
+``filtering``, ``matrix``, ``compartment``, ``tads``, ``loops`` and
+``specificity`` take the JAX package's flags and defaults
+(``hichap_master_tpu/cli.py``), with one flag more: ``--device`` (default
+``cuda``), the device every driver runs on.  With ``--device cuda`` and no
+card visible the command fails; it never falls back to the CPU.
 
-The front of the pipeline before ``bamProcess`` (``rebuildG`` ..
-``ReMapping``) is not part of the port: those sub-commands are refused by
-name.  ``-r/--resume`` behaves as in the JAX CLI: ``bamProcess`` writes a
-completion marker (``.hichap_stage_done``) into its output directory and,
-with ``-r``, is skipped when the marker is there; the later sub-commands
-write none and skip nothing.
+``GlobalMapping`` and ``ReMapping`` (bowtie2, or the JAX package's
+FakeAligner) are not part of the port yet: they are refused by name.
+``-r/--resume`` behaves as in the JAX CLI: ``rebuildG``, ``rebuildF``,
+``Rescue`` and ``bamProcess`` write a completion marker
+(``.hichap_stage_done``) into their output directory and, with ``-r``, are
+skipped when the marker is there; the later sub-commands write none and
+skip nothing.
+
+``rebuildG`` reads the genome FASTA (``-g``) and, unless ``-N``, the SNP
+table (``-S``), and writes ``<workspace>/genome`` (``-o``): ``Snps.npz``,
+``genomeSize`` and per haplotype ``<hap>/<hap>.fa`` and
+``<hap>/<enzyme>_<hap>_fragments.txt`` (``-N``: the genome's fragment
+table); the substitution and the site search run on the device.
+``rebuildF`` cuts the two FASTQ mates (``-1``, ``-2``) into chunks of
+``-c`` reads under ``<workspace>/fastqchunks``; it runs on the host (it
+has no device work; ``--device`` is checked all the same).  ``Rescue``
+reads the chunk alignments of ``<workspace>/Global_bams`` (``-b``) and
+writes the rescue FASTQs ``<stem>_unmapped.fq`` to
+``<workspace>/RescueFastq`` (``-o``); the junction search runs on the
+device.
 
 ``bamProcess`` reads the chunk alignments of ``<workspace>/Global_bams``
 (``-gb``) and ``<workspace>/ReMap_bams`` (``-rb``) with the fragment
@@ -26,9 +40,16 @@ and writes ``<workspace>/Filtered_Bed`` (the valid beds) and, unless
 
 Each command writes ``<workspace>/Metrics/<command>.json``: the command's
 wall seconds under ``<command>.total`` and the seconds of each step its
-drivers time, under ``<command>.<step>`` (``bamProcess.<haplotype>.<step>``,
+drivers time, under ``<command>.<step>`` (``rebuildG.<step>``: ``snps``,
+``read``, ``substitute``, ``sites``, ``write``, ``index``;
+``rebuildF.mate1`` / ``.mate2``; ``Rescue.<file>.<step>``: ``read``,
+``scan``, ``write``; ``bamProcess.<haplotype>.<step>``,
 ``filtering.<haplotype>.<step>`` for each ``hic_filtering`` call and
 ``filtering.allelic.<step>``).
+
+    hichap-torch rebuildG -w ws -g hg19.fa -S snps.txt -e MboI
+    hichap-torch rebuildF -w ws -1 cell_R1_1.fastq.gz -2 cell_R1_2.fastq.gz
+    hichap-torch Rescue -w ws -e MboI
 
     hichap-torch bamProcess -w ws -f M_fragments.txt P_fragments.txt -s snps.npz
     hichap-torch filtering -w ws
@@ -48,13 +69,17 @@ from .utils.logging import get_logger, setup_logging
 
 log = get_logger("hichap_master_tpu_torch.cli")
 
-FRONT = ("rebuildG", "rebuildF", "GlobalMapping", "Rescue", "ReMapping")
+FRONT = ("GlobalMapping", "ReMapping")
 # the workspace directories of hichap-tpu that these sub-commands use
-WS_DIRS = {"global": "Global_bams", "remap": "ReMap_bams",
-           "rawbed": "UniqRawBed", "filtered": "Filtered_Bed",
-           "allelic": "Allelic_Bed"}
-# hichap-tpu's completion marker of the resumable stages
+WS_DIRS = {"genome": "genome", "chunks": "fastqchunks",
+           "global": "Global_bams", "rescue": "RescueFastq",
+           "remap": "ReMap_bams", "rawbed": "UniqRawBed",
+           "filtered": "Filtered_Bed", "allelic": "Allelic_Bed"}
+# hichap-tpu's completion marker of the resumable stages, and the
+# directory each of them writes by default
 _DONE_MARK = ".hichap_stage_done"
+_STAGE_OUT = {"rebuildG": "genome", "rebuildF": "chunks",
+              "Rescue": "rescue", "bamProcess": "rawbed"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,12 +94,38 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_argument("-log", "--logfile", default="HiCHap.log")
     common.add_argument("-w", "--workspace", default="hichap_workspace")
     common.add_argument("-r", "--resume", action="store_true", default=False,
-                        help="skip bamProcess when its output directory "
-                             "holds its completion marker (the other "
+                        help="skip rebuildG, rebuildF, Rescue or "
+                             "bamProcess when its output directory holds "
+                             "its completion marker (the other "
                              "sub-commands write none and skip nothing)")
     common.add_argument("--device", default="cuda",
                         help="torch device of every driver (default cuda; "
                              "no fallback to the CPU)")
+
+    p = sub.add_parser("rebuildG", parents=[common],
+                       help="rebuild parental genomes from phased SNPs")
+    p.add_argument("-N", "--NonAllelic", action="store_true", default=False)
+    p.add_argument("-g", "--genome", required=True)
+    p.add_argument("-S", "--Snp", default=None)
+    p.add_argument("-e", "--enzyme", default="MboI")
+    p.add_argument("-t", "--threads", type=int, default=1)
+    p.add_argument("-o", "--out", default=None)
+
+    p = sub.add_parser("rebuildF", parents=[common],
+                       help="split FASTQ mates into tagged chunks (host)")
+    p.add_argument("-1", "--fastq1", required=True)
+    p.add_argument("-2", "--fastq2", required=True)
+    p.add_argument("-c", "--chunksize", type=int, default=4_000_000)
+    p.add_argument("-t", "--threads", type=int, default=1)
+    p.add_argument("-o", "--out", default=None)
+
+    p = sub.add_parser("Rescue", parents=[common],
+                       help="cut unmapped reads at ligation junctions")
+    p.add_argument("-b", "--bam", default=None)
+    p.add_argument("-e", "--enzyme", default="MboI")
+    p.add_argument("-t", "--threads", type=int, default=1)
+    p.add_argument("-N", "--NonAllelic", action="store_true", default=False)
+    p.add_argument("-o", "--out", default=None)
 
     p = sub.add_parser("bamProcess", parents=[common],
                        help="integrate alignments into bed records")
@@ -167,6 +218,85 @@ def _ws(args, key: str) -> str:
     return d
 
 
+def _rebuild_genome(parser, args, dev, walls) -> None:
+    """``build_raw_genome`` (``-N``), or ``snps_integration`` then
+    ``rebuild_genome``, as the JAX CLI runs them."""
+    from .pipeline.genome_rebuild import (build_raw_genome, rebuild_genome,
+                                          snps_integration)
+
+    out = args.out or _ws(args, "genome")
+    os.makedirs(out, exist_ok=True)
+    if args.NonAllelic:
+        build_raw_genome(args.genome, args.enzyme, out, args.threads,
+                         device=dev, walls=walls)
+        return
+    if not args.Snp:
+        parser.error("rebuildG needs -S/--Snp unless -N")
+    t0 = time.perf_counter()
+    npz = snps_integration(args.Snp, out)
+    walls["snps"] = time.perf_counter() - t0
+    rebuild_genome(args.genome, npz, args.enzyme, out, args.threads,
+                   device=dev, walls=walls)
+
+
+def _split_fastq(args, walls) -> None:
+    """``split_reads`` of both mates, on the host (the stage has no device
+    work).  The two mates run on two threads at once (each inflates its
+    input on one thread); mate 2 is split into ``<out>/.mate2`` and its
+    chunks are moved into ``<out>`` once mate 1 has ended.  Where mate 1
+    fails they are thrown away, and where mate 2 fails they are moved as
+    far as they go.  So the output directory, after a failure too, is the
+    JAX CLI's, which splits mate 1 and then mate 2."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .pipeline.chunking import chunk_path, split_reads, stale_chunk
+
+    out = args.out or _ws(args, "chunks")
+    stage = os.path.join(out, ".mate2")
+    shutil.rmtree(stage, ignore_errors=True)
+
+    def one(mate, fq, folder):
+        t0 = time.perf_counter()
+        counts = split_reads(fq, folder, args.chunksize, mate)
+        walls[f"mate{mate}"] = time.perf_counter() - t0
+        return counts
+
+    def move():
+        for f in sorted(os.listdir(stage)) if os.path.isdir(stage) else ():
+            os.replace(os.path.join(stage, f), os.path.join(out, f))
+        shutil.rmtree(stage, ignore_errors=True)
+
+    with ThreadPoolExecutor(2) as ex:
+        first = ex.submit(one, 1, args.fastq1, out)
+        second = ex.submit(one, 2, args.fastq2, stage)
+        try:
+            first.result()
+        except BaseException:
+            second.exception()                 # mate 2 has ended
+            shutil.rmtree(stage, ignore_errors=True)
+            raise
+        try:
+            counts = second.result()
+        finally:
+            move()
+    last = chunk_path(args.fastq2, out, len(counts), 2)
+    if stale_chunk(counts, args.chunksize) and os.path.exists(last):
+        os.remove(last)          # as split_reads removes it in its folder
+
+
+def _rescue(args, dev, walls) -> None:
+    """``cutting_reads_to_remapping`` of every chunk alignment; as in the
+    JAX CLI the haplotype mark never narrows the selection, and ``-N`` is
+    accepted and changes nothing."""
+    from .pipeline.rescue import cutting_reads_to_remapping
+
+    cutting_reads_to_remapping(args.bam or _ws(args, "global"),
+                               args.out or _ws(args, "rescue"), args.enzyme,
+                               "NonAllelic", args.threads, device=dev,
+                               walls=walls)
+
+
 def _bam_process(args, dev, walls) -> None:
     """``bam_extract`` of the workspace's chunk alignments, as the JAX CLI
     runs it (``-rfo``: level 2)."""
@@ -243,9 +373,9 @@ def run(argv=None) -> int:
     setup_logging(os.path.join(args.workspace, args.logfile))
     log.log(21, "hichap-torch %s args: %s", args.command, vars(args))
     stage_dir = None
-    if args.command == "bamProcess":
-        stage_dir = args.out or os.path.join(args.workspace,
-                                             WS_DIRS["rawbed"])
+    if args.command in _STAGE_OUT:
+        stage_dir = args.out or os.path.join(
+            args.workspace, WS_DIRS[_STAGE_OUT[args.command]])
         if args.resume and os.path.exists(os.path.join(stage_dir,
                                                        _DONE_MARK)):
             log.log(21, "resume: stage completed previously under %s — "
@@ -257,7 +387,16 @@ def run(argv=None) -> int:
     allelic = (False if getattr(args, "allelic", "False") == "False"
                else args.allelic)
 
-    if args.command == "bamProcess":
+    if args.command == "rebuildG":
+        _rebuild_genome(parser, args, dev, walls)
+
+    elif args.command == "rebuildF":
+        _split_fastq(args, walls)
+
+    elif args.command == "Rescue":
+        _rescue(args, dev, walls)
+
+    elif args.command == "bamProcess":
         _bam_process(args, dev, walls)
 
     elif args.command == "filtering":

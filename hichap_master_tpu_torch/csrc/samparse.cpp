@@ -14,7 +14,9 @@
 //   "*"; BAM: the record's refID as written); pos[r] 0-based; qlen[r];
 //   the sequence bytes appended to `seqs` at seq_off[r], seq_len[r];
 //   as[r], xs[r] the AS and XS integer tags (0 when absent) and has[r]
-//   (bit 0 AS present, bit 1 XS present).
+//   (bit 0 AS present, bit 1 XS present); where `quals` is not null, the
+//   QUAL text (as the JAX package's AlnRecord.qual holds it, UTF-8)
+//   appended to `quals` at qual_off[r], qual_len[r].
 
 #include <cstdint>
 #include <cstring>
@@ -91,8 +93,12 @@ struct Out {
     int64_t* as;
     int64_t* xs;
     int8_t* has;
+    char* quals;
+    int64_t* qual_off;
+    int32_t* qual_len;
     long names_used = 0;
     long seqs_used = 0;
+    long quals_used = 0;
 
     void name(long r, const char* b, long n) {
         std::memcpy(names + names_used, b, static_cast<size_t>(n));
@@ -142,10 +148,12 @@ extern "C" long samparse_sam(const char* buf, long nbytes, char* tab,
                              int32_t* flag, int32_t* ref, int64_t* pos,
                              int32_t* qlen, char* seqs, int64_t* seq_off,
                              int32_t* seq_len, int64_t* as, int64_t* xs,
-                             int8_t* has, long* bad_line) {
+                             int8_t* has, char* quals, int64_t* qual_off,
+                             int32_t* qual_len, long* bad_line) {
     Interner table(tab, tab_cap, tab_off, tab_len, tab_max, n_tab);
     Out o{names, name_off, name_len, base_len, tag, last, flag, ref, pos,
-          qlen, seqs, seq_off, seq_len, as, xs, has};
+          qlen, seqs, seq_off, seq_len, as, xs, has, quals, qual_off,
+          qual_len};
     long r = 0, line = 0;
     const char* p = buf;
     const char* const end = buf + nbytes;
@@ -225,6 +233,14 @@ extern "C" long samparse_sam(const char* buf, long nbytes, char* tab,
         seq_len[r] = static_cast<int32_t>(sl);
         o.seqs_used += sl;
         qlen[r] = static_cast<int32_t>(sl);
+        if (quals) {                    // QUAL: field 11 as written
+            const long ql = fe[10] - fb[10];
+            std::memcpy(quals + o.quals_used, fb[10],
+                        static_cast<size_t>(ql));
+            qual_off[r] = o.quals_used;
+            qual_len[r] = static_cast<int32_t>(ql);
+            o.quals_used += ql;
+        }
         as[r] = v_as;
         xs[r] = v_xs;
         has[r] = h;
@@ -314,18 +330,25 @@ bool bam_tags(const unsigned char* p, const unsigned char* e, int64_t* v_as,
 // that `buf` does not hold whole; *consumed is the bytes parsed.  The name
 // is the read name without its NUL; SEQ's 4-bit codes decode through
 // "=ACMGRSVTWYHKDBN", and qlen = l_seq (0 for an empty SEQ, where SAM's "*"
-// gives 1).  Returns the records, or -2 with *bad_line the index of the
-// record that fails (see bam_tags, or a record shorter than its fields).
+// gives 1).  QUAL, where asked for, is the JAX package's text
+// (hichap_master_tpu/io/bam.py:122-125): "*" when l_seq > 0 and the first
+// byte is 0xff, else chr(q + 33) for every byte q, as UTF-8 (two bytes
+// from q = 95 on); l_seq 0 gives "".  Returns the records, or -2 with
+// *bad_line the index of the record that fails (see bam_tags, or a record
+// shorter than its fields).
 extern "C" long samparse_bam(const char* buf, long nbytes, char* names,
                              int64_t* name_off, int32_t* name_len,
                              int32_t* base_len, int8_t* tag, int8_t* last,
                              int32_t* flag, int32_t* ref, int64_t* pos,
                              int32_t* qlen, char* seqs, int64_t* seq_off,
                              int32_t* seq_len, int64_t* as, int64_t* xs,
-                             int8_t* has, long* consumed, long* bad_line) {
+                             int8_t* has, char* quals, int64_t* qual_off,
+                             int32_t* qual_len, long* consumed,
+                             long* bad_line) {
     static const char kCodes[] = "=ACMGRSVTWYHKDBN";
     Out o{names, name_off, name_len, base_len, tag, last, flag, ref, pos,
-          qlen, seqs, seq_off, seq_len, as, xs, has};
+          qlen, seqs, seq_off, seq_len, as, xs, has, quals, qual_off,
+          qual_len};
     const unsigned char* u = reinterpret_cast<const unsigned char*>(buf);
     long at = 0, r = 0;
     while (at + 4 <= nbytes) {
@@ -368,6 +391,27 @@ extern "C" long samparse_bam(const char* buf, long nbytes, char* names,
         seq_len[r] = l_seq;
         o.seqs_used += l_seq;
         qlen[r] = l_seq;
+        if (quals) {
+            const unsigned char* qs = rec + seq_at + (l_seq + 1) / 2;
+            char* w = quals + o.quals_used;
+            char* const w0 = w;
+            if (l_seq > 0 && qs[0] == 0xff) {
+                *w++ = '*';
+            } else {
+                for (int32_t k = 0; k < l_seq; ++k) {
+                    const int v = qs[k] + 33;
+                    if (v < 0x80) {
+                        *w++ = static_cast<char>(v);
+                    } else {
+                        *w++ = static_cast<char>(0xc0 | (v >> 6));
+                        *w++ = static_cast<char>(0x80 | (v & 0x3f));
+                    }
+                }
+            }
+            qual_off[r] = o.quals_used;
+            qual_len[r] = static_cast<int32_t>(w - w0);
+            o.quals_used += w - w0;
+        }
         as[r] = v_as;
         xs[r] = v_xs;
         has[r] = h;

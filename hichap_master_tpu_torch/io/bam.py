@@ -65,14 +65,14 @@ def _header(buf: bytes):
     return refs, at
 
 
-def _parse_records(buf, start: int):
+def _parse_records(buf, start: int, qual: bool = False):
     """The records of ``buf[start:]`` that it holds whole: (their columns,
     the bytes they take)."""
     from ..kernels._build import load_host
 
     view = memoryview(buf)[start:]
     n_bytes = len(view)
-    b = _empty_block(n_bytes // 36 + 1, n_bytes)
+    b = _empty_block(n_bytes // 36 + 1, n_bytes, 2 * n_bytes if qual else -1)
     consumed, bad = np.zeros(1, np.int64), np.zeros(1, np.int64)
     src = np.frombuffer(view, np.uint8) if n_bytes else np.zeros(1, np.uint8)
     n = load_host().samparse_bam(_ptr(src), n_bytes, *_block_args(b),
@@ -84,9 +84,10 @@ def _parse_records(buf, start: int):
     return _trim(b, n), int(consumed[0])
 
 
-def read_bam(path: str) -> Alignments:
+def read_bam(path: str, qual: bool = False) -> Alignments:
     """The records of a BGZF BAM file as columns (the fields
-    ``pipeline.pairs`` reads; ``hichap_master_tpu/io/bam.py:96-137``)."""
+    ``pipeline.pairs`` reads, and QUAL where ``qual``;
+    ``hichap_master_tpu/io/bam.py:96-137``)."""
     blocks, refs = [], None
     carry = b""
     for out in inflate(path):
@@ -98,7 +99,7 @@ def read_bam(path: str) -> Alignments:
                 carry = buf
                 continue
             refs, at = head
-        block, used = _parse_records(buf, at)
+        block, used = _parse_records(buf, at, qual)
         blocks.append(block)
         carry = buf[at + used:]
     if refs is None:
@@ -108,7 +109,7 @@ def read_bam(path: str) -> Alignments:
     for b in blocks:          # a refID outside the header: no reference
         b["ref"] = np.where((b["ref"] < 0) | (b["ref"] >= len(refs)), -1,
                             b["ref"]).astype(np.int32)
-    return concat(blocks, refs)
+    return concat(blocks, refs, qual=qual)
 
 
 def _bgzf_block(payload: bytes, level: int = LEVEL) -> bytes:

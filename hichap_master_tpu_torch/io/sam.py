@@ -18,6 +18,12 @@ length of SEQ, so a ``*`` SEQ has length 1; of the tags only ``AS:i:`` and
 that is no integer raises ``ValueError`` naming the file and line, where
 the JAX package's ``int()`` raises.  Lengths count bytes (the JAX package
 counts characters; they differ only for non-ASCII text).
+
+QUAL is read only where asked for (``qual=True``): ``pipeline.rescue``
+needs it, ``bamProcess`` does not and allocates nothing for it.  It is the
+text of the JAX package's ``AlnRecord.qual``: SAM's field 11 as written
+(``*`` included); BAM's ``*`` for a missing QUAL (0xff), ``""`` for
+``l_seq`` 0, else ``chr(q + 33)`` per byte, as UTF-8.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from __future__ import annotations
 import struct
 import zlib
 from dataclasses import dataclass, fields
-from typing import Iterator, List, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -54,7 +60,8 @@ class Alignments:
     ``2`` (else 0); ``ref`` an index into ``refs`` (the reference names as
     written) or -1 for none; ``pos`` 0-based; ``qlen`` the query length;
     ``tag_as`` / ``tag_xs`` the AS and XS values where ``has`` has
-    ``HAS_AS`` / ``HAS_XS``."""
+    ``HAS_AS`` / ``HAS_XS``; ``quals`` / ``qual_off`` / ``qual_len`` the
+    QUAL text of each record where it was asked for (else None)."""
 
     names: np.ndarray
     name_off: np.ndarray
@@ -73,6 +80,9 @@ class Alignments:
     tag_xs: np.ndarray
     has: np.ndarray
     refs: List[bytes]
+    quals: Optional[np.ndarray] = None
+    qual_off: Optional[np.ndarray] = None
+    qual_len: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
         return len(self.flag)
@@ -85,18 +95,28 @@ class Alignments:
         o = int(self.seq_off[r])
         return self.seqs[o:o + int(self.seq_len[r])].tobytes()
 
+    def qual(self, r: int) -> bytes:
+        o = int(self.qual_off[r])
+        return self.quals[o:o + int(self.qual_len[r])].tobytes()
+
 
 _COLUMNS = (("name_off", np.int64), ("name_len", np.int32),
             ("base_len", np.int32), ("tag", np.int8), ("last", np.int8),
             ("flag", np.int32), ("ref", np.int32), ("pos", np.int64),
             ("qlen", np.int32), ("seq_off", np.int64), ("seq_len", np.int32),
             ("tag_as", np.int64), ("tag_xs", np.int64), ("has", np.int8))
+_QUAL_COLUMNS = (("qual_off", np.int64), ("qual_len", np.int32))
 
 
-def _empty_block(cap: int, nbytes: int) -> dict:
+def _empty_block(cap: int, nbytes: int, qual_bytes: int = -1) -> dict:
+    """Columns for ``cap`` records and ``nbytes`` of names and of
+    sequences; QUAL columns for ``qual_bytes`` bytes where it is >= 0."""
     out = {k: np.empty(cap, t) for k, t in _COLUMNS}
     out["names"] = np.empty(max(nbytes, 1), np.uint8)
     out["seqs"] = np.empty(max(nbytes, 1), np.uint8)
+    if qual_bytes >= 0:
+        out.update({k: np.empty(cap, t) for k, t in _QUAL_COLUMNS})
+        out["quals"] = np.empty(max(qual_bytes, 1), np.uint8)
     return out
 
 
@@ -104,27 +124,31 @@ def _block_args(b: dict) -> list:
     return [_ptr(b[k]) for k in ("names", "name_off", "name_len", "base_len",
                                  "tag", "last", "flag", "ref", "pos", "qlen",
                                  "seqs", "seq_off", "seq_len", "tag_as",
-                                 "tag_xs", "has")]
+                                 "tag_xs", "has")] + [
+        _ptr(b[k]) if k in b else None
+        for k in ("quals", "qual_off", "qual_len")]
 
 
 def _trim(b: dict, n: int) -> dict:
     """The first ``n`` records of a block, its byte buffers cut to what they
     hold."""
-    out = {k: b[k][:n] for k, _ in _COLUMNS}
+    out = {k: b[k][:n] for k, _ in _COLUMNS + _QUAL_COLUMNS if k in b}
     end = lambda o, l: int(o[n - 1]) + int(l[n - 1]) if n else 0  # noqa: E731
     out["names"] = b["names"][:end(out["name_off"], out["name_len"])]
     out["seqs"] = b["seqs"][:end(out["seq_off"], out["seq_len"])]
+    if "quals" in b:
+        out["quals"] = b["quals"][:end(out["qual_off"], out["qual_len"])]
     return out
 
 
-def _parse_sam(buf: bytes, labels: _Labels):
+def _parse_sam(buf: bytes, labels: _Labels, qual: bool = False):
     """One block of SAM lines through the host scanner: (the block's
     columns, as ``Alignments`` names them, and its number of lines), or
     (None, the index of the line that fails)."""
     from ..kernels._build import load_host
 
     cap = len(buf) // MIN_LINE + 1
-    b = _empty_block(cap, len(buf))
+    b = _empty_block(cap, len(buf), len(buf) if qual else -1)
     bad = np.zeros(1, np.int64)
     while True:
         n = load_host().samparse_sam(
@@ -147,12 +171,13 @@ def _integer(f: bytes) -> int:
     return int(f)
 
 
-def _parse_sam_plain(buf: bytes, labels: List[bytes]) -> dict:
+def _parse_sam_plain(buf: bytes, labels: List[bytes],
+                     qual: bool = False) -> dict:
     """``_parse_sam`` in Python, one line at a time (the tests'
     reference); ``labels`` is the list of interned references, extended in
     place.  Raises ``ValueError`` where the scanner fails."""
-    cols = {k: [] for k, _ in _COLUMNS}
-    names, seqs = bytearray(), bytearray()
+    cols = {k: [] for k, _ in _COLUMNS + _QUAL_COLUMNS}
+    names, seqs, quals = bytearray(), bytearray(), bytearray()
     known = {w: i for i, w in enumerate(labels)}
     for line in buf.splitlines():
         if not line or line.startswith(b"@"):
@@ -189,26 +214,36 @@ def _parse_sam_plain(buf: bytes, labels: List[bytes]) -> dict:
         cols["seq_off"].append(len(seqs))
         cols["seq_len"].append(len(f[9]))
         seqs += f[9]
+        cols["qual_off"].append(len(quals))
+        cols["qual_len"].append(len(f[10]))
+        quals += f[10]
         cols["tag_as"].append(tag_as)
         cols["tag_xs"].append(tag_xs)
         cols["has"].append(has)
     out = {k: np.asarray(cols[k], t) for k, t in _COLUMNS}
     out["names"] = np.frombuffer(bytes(names), np.uint8)
     out["seqs"] = np.frombuffer(bytes(seqs), np.uint8)
+    if qual:
+        out.update({k: np.asarray(cols[k], t) for k, t in _QUAL_COLUMNS})
+        out["quals"] = np.frombuffer(bytes(quals), np.uint8)
     return out
 
 
 def concat(blocks: Sequence[dict], refs: List[bytes],
-           ref_maps: Sequence[np.ndarray] | None = None) -> Alignments:
+           ref_maps: Sequence[np.ndarray] | None = None,
+           qual: bool = False) -> Alignments:
     """Blocks of columns one after the other as one ``Alignments`` whose
     ``refs`` is ``refs``; block i's reference ids map through
-    ``ref_maps[i]`` (index ``ref + 1``, so that -1 stays -1) when given."""
+    ``ref_maps[i]`` (index ``ref + 1``, so that -1 stays -1) when given.
+    No blocks give no records (with empty QUAL columns where ``qual``)."""
     if not blocks:
-        blocks = [_trim(_empty_block(0, 0), 0)]
+        blocks = [_trim(_empty_block(0, 0, 0 if qual else -1), 0)]
+    qual = all(b.get("quals") is not None for b in blocks)
     out = {}
-    for k, _ in _COLUMNS:
+    for k, _ in _COLUMNS + (_QUAL_COLUMNS if qual else ()):
         out[k] = np.concatenate([b[k] for b in blocks])
-    for buf, off in (("names", "name_off"), ("seqs", "seq_off")):
+    for buf, off in (("names", "name_off"), ("seqs", "seq_off")) + (
+            (("quals", "qual_off"),) if qual else ()):
         sizes = [b[buf].size for b in blocks]
         shift = np.repeat(np.cumsum([0] + sizes[:-1]),
                           [len(b[off]) for b in blocks])
@@ -355,23 +390,24 @@ def _line_blocks(path: str) -> Iterator[bytes]:
     yield from _iter_line_blocks(path, READ_BYTES)
 
 
-def read_sam(path: str) -> Alignments:
-    """The records of a SAM file (``.sam.gz``: gzip) as columns."""
+def read_sam(path: str, qual: bool = False) -> Alignments:
+    """The records of a SAM file (``.sam.gz``: gzip) as columns (with
+    QUAL where ``qual``)."""
     labels = _Labels()
     blocks, line = [], 0
     for buf in _line_blocks(path):
-        block, lines = _parse_sam(buf, labels)
+        block, lines = _parse_sam(buf, labels, qual)
         if block is None:
             raise ValueError(f"{path}:{line + lines + 1}: FLAG, POS, MAPQ or "
                              "an AS/XS tag value is no integer")
         blocks.append(block)
         line += lines
-    return concat(blocks, labels.strings())
+    return concat(blocks, labels.strings(), qual=qual)
 
 
-def read_alignments(path: str) -> Alignments:
+def read_alignments(path: str, qual: bool = False) -> Alignments:
     """SAM or BAM by the file's suffix (``.bam``: ``io.bam.read_bam``)."""
     if str(path).endswith(".bam"):
         from .bam import read_bam
-        return read_bam(path)
-    return read_sam(path)
+        return read_bam(path, qual)
+    return read_sam(path, qual)

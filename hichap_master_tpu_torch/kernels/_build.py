@@ -12,8 +12,8 @@ source compiles in its own ``nvcc`` process, all started together, and the
 objects are linked into one library.  A failed build raises with the
 compiler's output.
 
-The host scanners of ``csrc/bedparse.cpp`` and ``csrc/samparse.cpp`` are
-not CUDA: they build with the host compiler (``$CXX`` or ``g++``) into a
+The host scanners of ``csrc/bedparse.cpp``, ``csrc/samparse.cpp`` and
+``csrc/fastaparse.cpp`` are not CUDA: they build with the host compiler (``$CXX`` or ``g++``) into a
 library of their own (``host_library_path``), so that they build and load
 where there is no ``nvcc``, and bind under ``HOST_SIGNATURES``.
 """
@@ -74,7 +74,8 @@ SIGNATURES = {
 _L = ctypes.c_long
 _S = ctypes.POINTER(ctypes.c_char_p)
 HOST_SOURCE = CSRC_DIR / "bedparse.cpp"
-HOST_SOURCES = (HOST_SOURCE, CSRC_DIR / "samparse.cpp")
+HOST_SOURCES = (HOST_SOURCE, CSRC_DIR / "samparse.cpp",
+                CSRC_DIR / "fastaparse.cpp")
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 HOST_SIGNATURES = {
     "bedparse_valid": [ctypes.c_char_p, _L, _S, _I, _P, _P, _P, _P],
@@ -84,11 +85,15 @@ HOST_SIGNATURES = {
                         _P, _P, _P, _P, _P, _P, _P, _P],
     "bedparse_gather": [_P, _P, _P, _P, _L, _P],
     "bedparse_format": [_L, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _L],
-    "samparse_sam": [ctypes.c_char_p, _L, _P, _L, _P, _P, _I, _P] + [_P] * 17,
-    "samparse_bam": [_P, _L] + [_P] * 18,
+    "samparse_sam": [ctypes.c_char_p, _L, _P, _L, _P, _P, _I, _P] + [_P] * 20,
+    "samparse_bam": [_P, _L] + [_P] * 21,
     "samparse_bam_encode": [_L] + [_P] * 17 + [_L],
     "samparse_fragments": [ctypes.c_char_p, _L, _P, _L, _P, _P, _I, _P, _P,
                            _P, _P],
+    "fastaparse_fasta": [_P, _L, _P, _P, _P, _P, _L, _P, _P],
+    "fastaparse_snps": [_P, _L, _P, _L, _P, _P, _I, _P] + [_P] * 7,
+    "fastaparse_fastq": [_P, _L, ctypes.c_char_p, _L, _P, _L, _P, _P, _P,
+                         _P, _P],
 }
 
 

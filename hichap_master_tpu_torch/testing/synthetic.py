@@ -917,7 +917,7 @@ def _aln_write_genome(gdir, labels, ends, snps, m_all, p_all):
 def alignment_chunks(aln_dir: str, re_dir: str, cell: str, lengths, labels,
                      n_pairs: int, chunks: int, seed: int = 0,
                      read_len: int = 150, fmt: str = "sam", *,
-                     device) -> dict:
+                     device, junctions: bool = False) -> dict:
     """Alignment files of ``n_pairs`` read groups in ``chunks`` chunks as
     the mapping stages write them (``<cell>_chunk<i>_<1|2>_<hap>.<fmt>``
     in ``aln_dir`` for the global mapping and in ``re_dir`` for the rescue
@@ -934,7 +934,20 @@ def alignment_chunks(aln_dir: str, re_dir: str, cell: str, lengths, labels,
     ``bam_extract`` (level 1) and ``rows`` (``rows15``, ``rows23``,
     ``suffixed`` (``_1``/``_2`` rows), ``snps`` (the SNP columns summed)),
     ``hits`` (groups per template), ``records`` (per haplotype),
-    ``fragments`` and ``snps`` (paths)."""
+    ``fragments`` and ``snps`` (paths).
+
+    ``junctions=True`` (off by default: the draw is then byte for byte the
+    same as without the option) plants MboI ligation junctions in the
+    global mapping's reads that are unmapped in both haplotypes (template
+    kind N), by ``ALN_JUNCTIONS``, an invented mix: none, one ``GATCGATC``,
+    two apart, or one ``GATCGATCGATC`` (two overlapping matches, one
+    non-overlapping: rescued), at uniform offsets; every other ``GATC`` of
+    the reads' random bases is broken first (its C made an A, never at a
+    SNP), so no read holds a junction by chance.  The bamProcess truth
+    holds unchanged (no stage reads those bases), and ``rescue`` holds the
+    rescue's planted truth per haplotype, both global files and all chunks
+    summed: ``reads`` (unmapped global records), ``records`` (FASTQ records
+    written), ``split`` (reads written as two sub-reads) and ``bases``."""
     import gzip
     import os
 
@@ -1013,6 +1026,10 @@ def alignment_chunks(aln_dir: str, re_dir: str, cell: str, lengths, labels,
     cover = torch.where(chromosomal, k_hi - k_lo, 0)
     seq = torch.randint(0, 4, (R, read_len), generator=g, device=dev,
                         dtype=torch.uint8)
+    if junctions:          # no GATC (codes 2 0 3 1) in the random bases
+        hit = ((seq[:, :-3] == 2) & (seq[:, 1:-2] == 0) & (seq[:, 2:-1] == 3)
+               & (seq[:, 3:] == 1))
+        seq[:, 3:][hit] = 0
     rep = torch.repeat_interleave(torch.arange(R, device=dev), cover)
     at = k_lo[rep] + torch.arange(len(rep), device=dev) - (
         torch.cumsum(cover, 0) - cover)[rep]
@@ -1066,6 +1083,9 @@ def alignment_chunks(aln_dir: str, re_dir: str, cell: str, lengths, labels,
     seq = _host(seq).ravel()
     qual_pool = _host(torch.randint(33, 75, (1 << 16,), generator=g,
                                     device=dev, dtype=torch.uint8))
+    if junctions:
+        truth["rescue"] = _plant_junctions(
+            g, seq, read_len, _host(file), _host(kind), kinds, dev)
     refs = ["chr" + str(l) for l in labels] + [ALN_SCAFFOLD]
     references = dict(zip(refs, [int(x) for x in lengths] + [182896]))
     header = (b"@HD\tVN:1.0\tSO:unsorted\n" + b"".join(
@@ -1136,6 +1156,50 @@ def alignment_chunks(aln_dir: str, re_dir: str, cell: str, lengths, labels,
     return truth
 
 
+# alignment_chunks(junctions=True): the share of the global mapping's
+# reads unmapped in both haplotypes that carry no junction, one GATCGATC,
+# two apart, or one GATCGATCGATC.  Invented, as ALN_TEMPLATES is.
+ALN_JUNCTIONS = (0.55, 0.3, 0.1, 0.05)
+_JUNCTION = b"GATCGATC"
+
+
+def _plant_junctions(g, seq, read_len, file, kind, kinds, dev) -> dict:
+    """Junctions written into the host sequences ``seq`` ([R * read_len]
+    ASCII) of the global records of template kind N, and the rescue's
+    truth per haplotype (see ``alignment_chunks``)."""
+    from ..pipeline.rescue import MIN_LEN
+
+    N = _ALN_KINDS.index("N")
+    target = np.flatnonzero((file <= 1) & (kind == N))
+    T, J, L = len(target), len(_JUNCTION), read_len
+    cls = _host(torch.multinomial(torch.tensor(
+        ALN_JUNCTIONS, dtype=torch.float64, device=dev), max(T, 1), True,
+        generator=g))[:T]
+    u = _host(torch.rand((2, max(T, 1)), generator=g, device=dev,
+                         dtype=torch.float64))[:, :T]
+    span = np.where(cls == 2, L - 2 * J, np.where(cls == 3, L - J - 4,
+                                                  L - J))
+    a = (u[0] * (span + 1)).astype(np.int64)
+    b = a + J + (u[1] * (L - J - a - J + 1)).astype(np.int64)
+    base = target.astype(np.int64) * L
+    for k in range(J):
+        for at, on in ((a, cls >= 1), (b, cls == 2)):
+            seq[(base + at + k)[on]] = _JUNCTION[k]
+        seq[(base + a + J + k)[(cls == 3) & (k < 4)]] = _JUNCTION[k]
+    one = (cls == 1) | (cls == 3)
+    l1, l2 = a, L - a - J
+    k1, k2 = one & (l1 >= MIN_LEN), one & (l2 >= MIN_LEN)
+    out = {}
+    glob = file <= 1
+    for hap, kh in kinds.items():
+        kh = _host(kh) if isinstance(kh, torch.Tensor) else kh
+        out[hap] = dict(
+            reads=int((glob & (kh == N)).sum()),
+            records=int(k1.sum() + k2.sum()), split=int((k1 & k2).sum()),
+            bases=int((l1 * k1).sum() + (l2 * k2).sum()))
+    return out
+
+
 def _aln_bam(path, cols, ttab, refs, references, seq, qual_pool):
     """One alignment file of ``alignment_chunks`` as BAM (``io.bam.
     write_bam``)."""
@@ -1170,3 +1234,188 @@ def _aln_bam(path, cols, ttab, refs, references, seq, qual_pool):
               mapq=cols["mapq"].astype(np.int32),
               qual=(qual_pool, cols["qual"].astype(np.int64),
                     cols["qlen"].astype(np.int32)))
+
+
+# ------------------------------------------------------- genome and reads
+# genome_draw: hg19's layout of N runs, cut to three kinds of rows of the
+# UCSC gap table: the telomeres (10,000 N at each end), a centromere of
+# 3,000,000 N (hg19's centromere rows are 3 Mb; its place, 40% along the
+# chromosome, is invented) and, on the acrocentric chromosomes, the N run
+# before the first called base of hg19 (GENOME_LEAD_N; it includes the
+# telomere and stands in for the short arm).  The soft-masked share
+# (lowercase, RepeatMasker and TRF in the UCSC FASTA) is about half of
+# hg19; its runs here alternate with unmasked runs of the same mean
+# length, GENOME_MASK_RUN, which is invented.  Lines of 50 bases and
+# ">chrN" headers, as the UCSC hg19.fa.
+GENOME_TELOMERE = 10_000
+GENOME_CENTROMERE = 3_000_000
+GENOME_CENTROMERE_AT = 0.4
+GENOME_LEAD_N = {"13": 19_020_000, "14": 19_000_000, "15": 20_000_000,
+                 "21": 9_411_193, "22": 16_050_000}
+GENOME_MASK_RUN = 300
+GENOME_LINE = 50
+
+
+def _ascii_bases(codes: torch.Tensor) -> torch.Tensor:
+    """Codes 0-3 (uint8) as A, C, G, T (65, 67, 71, 84), in place."""
+    g_or_t = (codes >= 2).to(torch.uint8)
+    t = (codes == 3).to(torch.uint8)
+    return codes.mul_(2).add_(65).add_(2 * g_or_t).add_(11 * t)
+
+
+def _genome_chrom(g, L: int, name: str, dev) -> torch.Tensor:
+    """One chromosome of ``genome_draw``: random bases, soft-masked runs,
+    N runs."""
+    seq = _ascii_bases(torch.randint(0, 4, (L,), generator=g, device=dev,
+                                     dtype=torch.uint8))
+    n_runs = 2 * (L // GENOME_MASK_RUN * 9 // 16 + 8)   # ~1.125 L bases
+    runs = torch.randint(1, 2 * GENOME_MASK_RUN, (n_runs,), generator=g,
+                         device=dev)
+    flag = (torch.arange(n_runs, device=dev) % 2 * 32).to(torch.uint8)
+    mask = torch.repeat_interleave(flag, runs)
+    if mask.numel() < L:
+        raise RuntimeError("genome_draw: the masked runs fall short")
+    seq |= mask[:L]
+    lead = GENOME_LEAD_N.get(name, GENOME_TELOMERE)
+    mid = int(L * GENOME_CENTROMERE_AT)
+    for a, b in ((0, lead), (L - GENOME_TELOMERE, L),
+                 (mid, mid + GENOME_CENTROMERE)):
+        seq[max(a, 0):min(b, L)] = ord("N")
+    return seq
+
+
+def genome_draw(fasta: str, snp_file: str, lengths, names, seed: int = 0,
+                *, device) -> dict:
+    """A genome of ``lengths`` (``names`` without ``chr``) drawn on
+    ``device`` and written as a FASTA (``>chr<name>``, 50 bases a line),
+    with a phased SNP table (5 columns: ``chr<name>``, 1-based position,
+    ref, maternal and paternal allele) at ``ALN_SNP_GAP``'s spacing (one
+    heterozygous SNP per ~1.5 kb; none in N runs, so ~1.92 M on hg19; the
+    reference base uppercase, one of the two alleles, the other a different
+    base).  Returns ``chroms`` ({name: uint8 tensor on device}) and
+    ``snps`` ({name: (positions, maternal, paternal), tensors on device,
+    the alleles as ASCII codes})."""
+    import os
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    chroms, snps = {}, {}
+    rows = {k: [] for k in ("chrom", "pos", "ref", "m", "p")}
+    os.makedirs(os.path.dirname(os.path.abspath(fasta)), exist_ok=True)
+    from ..io.fasta import wrap
+
+    with open(fasta, "wb") as f:
+        for i, (name, L) in enumerate(zip(names, lengths)):
+            seq = _genome_chrom(g, int(L), name, dev)
+            chroms[name] = seq
+            f.write(f">chr{name}\n".encode())
+            f.write(wrap(seq, GENOME_LINE).cpu().numpy())
+            n = int(L / 1400) + 16
+            pos = torch.cumsum(torch.randint(*ALN_SNP_GAP, (n,), generator=g,
+                                             device=dev), 0)
+            pos = pos[pos <= L]
+            ref = seq[pos - 1] & 0xDF                      # uppercase
+            pos, ref = pos[ref != ord("N")], ref[ref != ord("N")]
+            code = (ref == 67).long() + 2 * (ref == 71).long() + 3 * (
+                ref == 84).long()
+            alt = (code + torch.randint(1, 4, code.shape, generator=g,
+                                        device=dev)) % 4
+            m_is_ref = torch.rand(code.shape, generator=g, device=dev) < 0.5
+            m = torch.where(m_is_ref, code, alt)
+            p = torch.where(m_is_ref, alt, code)
+            asc = lambda c: _ascii_bases(c.to(torch.uint8))  # noqa: E731
+            snps[name] = (pos, asc(m.clone()), asc(p.clone()))
+            for k, v in (("chrom", torch.full_like(pos, i)), ("pos", pos),
+                         ("ref", code), ("m", m), ("p", p)):
+                rows[k].append(_host(v))
+    cols = {k: np.concatenate(v) for k, v in rows.items()}
+    ntab = _table([f"chr{n}".encode() for n in names])
+    btab = _table([b"A", b"C", b"G", b"T"])
+    with open(snp_file, "wb") as f:
+        _format_rows([[("word", *ntab, cols["chrom"])], [("int", cols["pos"])],
+                      [("word", *btab, cols["ref"])],
+                      [("word", *btab, cols["m"])],
+                      [("word", *btab, cols["p"])]], len(cols["pos"]), f)
+    return dict(chroms=chroms, snps=snps, n_snps=len(cols["pos"]))
+
+
+# fastq_pair: the read name of SRA's fastq-dump ("@<run>.<spot> <spot>
+# length=<n>"), random bases, and Phred+33 qualities of Illumina 1.8+
+# ('#'..'J'), drawn uniformly (invented).  Gzip level 4 (bcl2fastq's
+# default compression level), written as one gzip member per
+# chunking.MEMBER_BYTES, deflated on several threads.
+FASTQ_RUN = b"SRR1658570."
+FASTQ_QUAL = (35, 75)
+FASTQ_BLOCK = 1 << 20         # reads drawn and written at a time
+
+
+def _fastq_block(g, n, start, read_len, dev, mate_tag):
+    """The FASTQ text of reads start .. start + n of one mate, as written
+    (``mate_tag`` None) and as ``split_reads`` rewrites its headers."""
+    import io
+
+    seq = _host(_ascii_bases(torch.randint(0, 4, (n, read_len), generator=g,
+                                           device=dev, dtype=torch.uint8)))
+    qual = _host(torch.randint(*FASTQ_QUAL, (n, read_len), generator=g,
+                               device=dev, dtype=torch.uint8))
+    ids = np.arange(start + 1, start + n + 1, dtype=np.int64)
+    off = np.arange(n, dtype=np.int64) * read_len
+    ln = np.full(n, read_len, np.int64)
+    out = []
+    for tag in (None, mate_tag):
+        head = [("const", b"@" + FASTQ_RUN), ("int", ids)] + (
+            [("const", b"_" + tag)] if tag else [])
+        buf = io.BytesIO()
+        _format_rows([head + [
+            ("const", b" "), ("int", ids),
+            ("const", b" length=%d\n" % read_len),
+            ("text", seq.ravel(), off, ln), ("const", b"\n+\n"),
+            ("text", qual.ravel(), off, ln)]], n, buf)
+        out.append(buf.getvalue())
+    return out
+
+
+def fastq_pair(out_dir: str, cell: str, n_reads: int, chunk: int,
+               read_len: int = 150, seed: int = 0, *, device) -> dict:
+    """Two gzipped FASTQ mates of ``n_reads`` reads, ``<cell>_1.fastq.gz``
+    and ``<cell>_2.fastq.gz`` in ``out_dir``, drawn on ``device``.  Returns
+    the paths (``fastq``), the uncompressed bytes per mate (``bytes``) and,
+    per mate, the SHA-256 of each chunk of ``chunk`` reads as
+    ``split_reads`` writes it (``digests``)."""
+    import hashlib
+    import os
+
+    from ..pipeline.chunking import _GzipWriter
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    paths, digests, size = [], {}, {}
+    for mate in (1, 2):
+        path = os.path.join(out_dir, f"{cell}_{mate}.fastq.gz")
+        w = _GzipWriter(path)
+        hashes, total = [], 0
+        h = None
+        for s in range(0, n_reads, FASTQ_BLOCK):
+            n = min(FASTQ_BLOCK, n_reads - s)
+            text, want = _fastq_block(g, n, s, read_len, dev, b"%d" % mate)
+            w.write(text)
+            total += len(text)
+            # the expected chunk text, cut at chunk boundaries by records
+            nl = np.flatnonzero(np.frombuffer(want, np.uint8) == 10)
+            ends = np.concatenate([[0], nl[3::4] + 1])
+            r0 = 0
+            while r0 < n:
+                if (s + r0) % chunk == 0:
+                    h = hashlib.sha256()
+                    hashes.append(h)
+                r1 = min(n, r0 + chunk - (s + r0) % chunk)
+                h.update(memoryview(want)[ends[r0]:ends[r1]])
+                r0 = r1
+        w.close()
+        paths.append(path)
+        digests[mate] = [x.hexdigest() for x in hashes]
+        size[mate] = total
+    return dict(fastq=paths, digests=digests, bytes=size)

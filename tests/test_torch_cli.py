@@ -1,11 +1,18 @@
 """The port's command line (hichap_master_tpu_torch.cli) against the JAX
 package's (hichap_master_tpu.cli).
 
-Parser: ``bamProcess``, ``filtering`` and the five analysis sub-commands
-take the same option strings, defaults, choices, types, ``nargs`` and
-``required`` flags, with ``--device`` the only extra; the front
-sub-commands before ``bamProcess`` are refused by name; ``--device cuda``
-with no card visible fails.
+Parser: ``rebuildG``, ``rebuildF``, ``Rescue``, ``bamProcess``,
+``filtering`` and the five analysis sub-commands take the same option
+strings, defaults, choices, types, ``nargs`` and ``required`` flags, with
+``--device`` the only extra; the two mapping sub-commands are refused by
+name; ``--device cuda`` with no card visible fails.
+
+``rebuildG`` (diploid and ``-N``), ``rebuildF`` and ``Rescue`` through both
+CLIs on the same inputs (the JAX package's ``diploid_dataset`` and its
+FakeAligner ``Global_bams``): the output directories byte for byte
+(``Snps.npz`` as loaded arrays, FASTQ chunks decompressed), completion
+markers included, and ``-r`` skipping each stage in both once its marker is
+there.
 
 ``bamProcess`` through both CLIs on copies of one workspace of alignment
 files (``testing.synthetic.alignment_chunks``), allelic and ``-N``: the
@@ -67,8 +74,8 @@ from hichap_master_tpu_torch.testing.synthetic import (alignment_chunks,
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-COMMANDS = ("bamProcess", "filtering", "matrix", "compartment", "tads",
-            "loops", "specificity")
+COMMANDS = ("rebuildG", "rebuildF", "Rescue", "bamProcess", "filtering",
+            "matrix", "compartment", "tads", "loops", "specificity")
 LENGTHS = {"1": 12_010_000, "2": 10_030_000}
 COUNTS = {"Bi_Allelic": 60_000, "M_M": 30_000, "P_P": 30_000,
           "M_P": 3_000, "P_M": 3_000}
@@ -99,7 +106,7 @@ def test_parser_matches_the_jax_cli(command):
     assert {k: v for k, v in got.items() if k in want} == want
 
 
-def test_only_the_analysis_commands_are_ported():
+def test_only_the_mapping_commands_are_not_ported():
     got = set(_subparsers(PCLI.build_parser()))
     want = set(_subparsers(JCLI.build_parser()))
     assert got == set(COMMANDS)
@@ -119,10 +126,10 @@ def test_module_entry_point_refuses_front_commands():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     r = subprocess.run([sys.executable, "-m", "hichap_master_tpu_torch.cli",
-                        "Rescue", "-b", "x"], cwd=REPO, env=env,
+                        "GlobalMapping", "-i", "x"], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 2
-    assert "Rescue is not part of the port" in r.stderr
+    assert "GlobalMapping is not part of the port" in r.stderr
 
 
 def test_a_cuda_device_that_is_not_visible_fails(tmp_path, capsys,
@@ -240,6 +247,173 @@ def test_bam_process_command_matches_the_jax_cli(tmp_path, mode):
         assert _run(cli, args + (["--device", "cpu"] if side == "p" else [])
                     ) == 0
         assert not bed.exists()
+
+
+def _outputs(d):
+    """The files under ``d``: bytes, FASTQ chunks decompressed, npz as
+    arrays."""
+    import gzip
+
+    out = {}
+    for root, _, files in os.walk(d):
+        for f in files:
+            p = os.path.join(root, f)
+            key = os.path.relpath(p, d)
+            if f.endswith(".npz"):
+                with np.load(p) as z:
+                    out[key] = {k: (z[k].dtype.str, z[k].tolist())
+                                for k in z.files}
+            elif f.endswith(".gz"):
+                out[key] = gzip.open(p).read()
+            else:
+                out[key] = open(p, "rb").read()
+    return out
+
+
+@pytest.fixture(scope="module")
+def front(tmp_path_factory):
+    """The JAX package's diploid dataset and its FakeAligner Global_bams."""
+    from hichap_master_tpu.pipeline import chunking as JC
+    from hichap_master_tpu.pipeline import genome_rebuild as JG
+    from hichap_master_tpu.pipeline.mapping import FakeAligner, ws_mapping
+    from hichap_master_tpu.testing.synthetic import diploid_dataset
+
+    d = tmp_path_factory.mktemp("front")
+    data = diploid_dataset(np.random.default_rng(8), str(d / "data"),
+                           n_pairs=200, n_snps=40, read_len=40,
+                           junction_frac=0.4)
+    g = d / "genome"
+    g.mkdir()
+    out = JG.rebuild_genome(data["fasta"], JG.snps_integration(
+        data["snps"], str(g)), "MboI", str(g))
+    for mate, fq in ((1, data["fq1"]), (2, data["fq2"])):
+        JC.split_reads(fq, str(d / "fq"), 80, mate)
+    ws_mapping(str(d / "fq"), str(d / "Global_bams"),
+               [out["Maternal"], out["Paternal"]], aligner=FakeAligner(),
+               jobs=1)
+    return d, data
+
+
+def _front_both(tmp_path, argv, stage_dir, setup=None):
+    """``argv`` through both CLIs in workspaces wj and wp (``setup(ws)``
+    first), the stage directories compared, then ``-r`` skipping the stage
+    in both once its marker is there."""
+    for side, cli in (("j", JCLI), ("p", PCLI)):
+        ws = tmp_path / f"w{side}"
+        ws.mkdir()
+        if setup:
+            setup(ws)
+        args = argv + ["-w", str(ws)]
+        assert _run(cli, args + (["--device", "cpu"] if side == "p" else [])
+                    ) == 0
+    want = _outputs(tmp_path / "wj" / stage_dir)
+    got = _outputs(tmp_path / "wp" / stage_dir)
+    assert sorted(got) == sorted(want)
+    assert ".hichap_stage_done" in got
+    for k in want:
+        assert got[k] == want[k], k
+    for side, cli in (("j", JCLI), ("p", PCLI)):
+        ws = tmp_path / f"w{side}"
+        victim = sorted(p for p in (ws / stage_dir).rglob("*")
+                        if p.is_file() and p.name != ".hichap_stage_done")[0]
+        victim.unlink()
+        args = argv + ["-w", str(ws), "-r"]
+        assert _run(cli, args + (["--device", "cpu"] if side == "p" else [])
+                    ) == 0
+        assert not victim.exists()
+    return want
+
+
+@pytest.mark.parametrize("mode", ["allelic", "NonAllelic"])
+def test_rebuild_genome_command_matches_the_jax_cli(front, tmp_path, mode):
+    d, data = front
+    argv = ["rebuildG", "-g", data["fasta"], "-e", "HindIII"] + (
+        ["-S", data["snps"]] if mode == "allelic" else ["-N"])
+    got = _front_both(tmp_path, argv, "genome")
+    names = {"genomeSize", "HindIII_genome_fragments.txt"} if (
+        mode == "NonAllelic") else {
+        "genomeSize", "Snps.npz", "Maternal/Maternal.fa",
+        "Paternal/Paternal.fa", "Maternal/HindIII_Maternal_fragments.txt",
+        "Paternal/HindIII_Paternal_fragments.txt"}
+    assert set(got) - {".hichap_stage_done"} == names
+    m = _metrics(tmp_path, "rebuildG")
+    steps = {"read", "sites", "write", "index"} | (
+        {"snps", "substitute"} if mode == "allelic" else set())
+    assert set(m) == {"rebuildG.total"} | {f"rebuildG.{k}" for k in steps}
+
+
+def test_rebuild_genome_needs_snps_unless_nonallelic(tmp_path, capsys):
+    with pytest.raises(SystemExit) as e:
+        _run(PCLI, ["rebuildG", "-g", "x.fa", "-w", str(tmp_path / "ws"),
+                    "--device", "cpu"])
+    assert e.value.code == 2
+    assert "needs -S/--Snp unless -N" in capsys.readouterr().err
+
+
+def test_rebuild_fastq_command_matches_the_jax_cli(front, tmp_path):
+    d, data = front
+    got = _front_both(tmp_path, ["rebuildF", "-1", data["fq1"], "-2",
+                                 data["fq2"], "-c", "70"], "fastqchunks")
+    assert len(got) == 2 * 3 + 1
+    m = _metrics(tmp_path, "rebuildF")
+    assert set(m) == {"rebuildF.total", "rebuildF.mate1", "rebuildF.mate2"}
+
+
+@pytest.mark.parametrize("case", ["mate1_bad", "mate2_bad", "stale"])
+def test_rebuild_fastq_leaves_the_jax_cli_directory(front, tmp_path, case):
+    """Mate 1 is split before mate 2 in the JAX CLI: where mate 1 is no
+    FASTQ, mate 2 leaves nothing; where mate 2 is none, mate 1's chunks and
+    mate 2's partial ones stay.  Stale chunks of an earlier run are
+    removed or kept as the JAX CLI removes or keeps them."""
+    import gzip
+
+    d, data = front
+    good = [(gzip.open if data[k].endswith(".gz") else open)(
+        data[k], "rb").read() for k in ("fq1", "fq2")]
+    fqs = []
+    for mate, text in ((1, good[0]), (2, good[1])):
+        if case == f"mate{mate}_bad":
+            lines = text.split(b"\n")
+            text = b"\n".join(lines[:4 * 150] + [b"no_at"] + lines[4 * 150:])
+        fqs.append(tmp_path / f"cell_{mate}.fastq")
+        fqs[-1].write_bytes(text)
+    argv = ["rebuildF", "-1", str(fqs[0]), "-2", str(fqs[1]), "-c", "100"]
+    for side, cli in (("j", JCLI), ("p", PCLI)):
+        ws = tmp_path / f"w{side}"
+        (ws / "fastqchunks").mkdir(parents=True)
+        for name in ("cell_chunk2_1", "cell_chunk2_2", "cell_chunk5_2"):
+            with gzip.open(ws / "fastqchunks" / f"{name}.fastq.gz",
+                           "wb") as f:
+                f.write(b"@stale\nA\n+\nI\n")
+        args = argv + ["-w", str(ws)] + (
+            ["--device", "cpu"] if side == "p" else [])
+        if case == "stale":
+            assert _run(cli, args) == 0
+        else:
+            with pytest.raises(IOError, match="is not a fastq file"):
+                _run(cli, args)
+    want = _outputs(tmp_path / "wj" / "fastqchunks")
+    got = _outputs(tmp_path / "wp" / "fastqchunks")
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k] == want[k], k
+    assert "cell_chunk5_2.fastq.gz" in got
+    assert ("cell_chunk0_2.fastq.gz" in got) == (case != "mate1_bad")
+
+
+@pytest.mark.parametrize("nonallelic", [False, True])
+def test_rescue_command_matches_the_jax_cli(front, tmp_path, nonallelic):
+    d, _ = front
+    got = _front_both(
+        tmp_path, ["Rescue"] + (["-N"] if nonallelic else []), "RescueFastq",
+        setup=lambda ws: shutil.copytree(d / "Global_bams",
+                                         ws / "Global_bams"))
+    assert len(got) == 1 + len(os.listdir(d / "Global_bams"))
+    assert sum(v.count(b"\n") for v in got.values()) > 40
+    m = _metrics(tmp_path, "Rescue")
+    assert "Rescue.total" in m and all(
+        k.rsplit(".", 1)[-1] in ("read", "scan", "write", "total")
+        for k in m)
 
 
 def test_matrix_names_a_missing_genome_size_file(tmp_path):

@@ -19,7 +19,8 @@ for name in ("jax", "jaxlib", "h5py", "pandas", "hichap_master_tpu"):
 import importlib, pkgutil
 import hichap_master_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-for mod in ("matrix", "filtering", "bam_process", "pairs", "columns"):
+for mod in ("matrix", "filtering", "bam_process", "pairs", "columns",
+            "enzyme", "genome_rebuild", "chunking", "rescue"):
     assert f"hichap_master_tpu_torch.pipeline.{mod}" in names, names
 for io in ("bedio", "cooler", "hdf5", "sam", "bam", "fasta"):
     assert f"hichap_master_tpu_torch.io.{io}" in names, names
