@@ -124,7 +124,7 @@ Phases, each printed on its own line, any failure raising:
    sizes with its slope per record, and the rescue);
 9. the front, with its own counters: a genome drawn on hg19
    (``testing.synthetic.genome_draw``: soft-masked and N runs, ~1.92 M
-   SNPs) through ``hichap-torch rebuildG -e MboI`` and ``rebuildG -N``
+   SNPs, MAP_REPEATS duplicated segments and inverted repeats) through ``hichap-torch rebuildG -e MboI`` and ``rebuildG -N``
    (checks: both haplotype FASTAs read back equal the draw with the SNPs
    applied, genomeSize the lengths, ``find_sites`` on the card equal to
    its plain version on chr1 and chr21, every fragment table's rows equal
@@ -133,14 +133,33 @@ Phases, each printed on its own line, any failure raising:
    rebuildF -c FASTQ_CHUNK`` (checks: the chunks, their records and the
    SHA-256 of their text equal the draw's); printed: the walls by step,
    MB/s, the fragments and the peak device memory; then the front phase's
-   wall and the run's;
-10. the launch counters of each path, each kernel of the path > 0, and one
+   wall;
+10. the mapping stages on the front phase's genome: first the card
+   against the CPU on chr21 + chr22 (``map_check``: 2 x MAP_CHECK_READS
+   reads through ``ws_mapping`` with FakeAligner on each, SAM and BAM
+   identical; K8's index and K9's hits, MAP_SHORT reads of 10-12 bases
+   included, identical to their plain versions, each timed with its
+   bound, K8 beside ``torch.sort`` of chr1's keys; the bowtie2 adapter
+   against a stub bowtie2 that writes one chunk's records shuffled, its
+   output equal to a host sort of the lines), then, with its own counters,
+   2 x MAP_READS reads drawn from the two haplotypes with their truth
+   planted (``testing.synthetic.read_draw``) through ``hichap-torch
+   rebuildF -c MAP_CHUNK``, ``GlobalMapping --fake-aligner``, ``Rescue``,
+   ``ReMapping --fake-aligner``, ``bamProcess`` and ``filtering``; checks:
+   every record of Global_bams equals its read's planted truth (flag,
+   position, XS), reads past 2^31 of the genome included, every part of
+   the planted chimeras re-mapped as planted, the chunk beds and the five
+   allelic beds non-empty; printed: each command's wall, the steps of the
+   two mapping commands (index, read, search, sort, write), M reads/s of
+   the search, the SAM write's MB/s and the peak device memory of each
+   command; then the phase's wall and the run's;
+11. the launch counters of each path, each kernel of the path > 0, and one
    JSON line with the per-kernel results (``launches_by_path``: analysis,
-   diploid, allelic, files, cli, filtering, bamprocess, front; the last
-   two launch no kernel).
+   diploid, allelic, files, cli, filtering, bamprocess, front, mapping;
+   bamprocess and front launch no kernel).
 
-The diploid, files, CLI, filtering, bamProcess, Rescue and rebuildG paths
-each report their peak device memory (``torch.cuda.max_memory_allocated``).
+The diploid, files, CLI, filtering, bamProcess, Rescue, rebuildG and
+mapping paths each report their peak device memory (``torch.cuda.max_memory_allocated``).
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
 every phase passed.
@@ -2557,17 +2576,20 @@ BAM_SEED = 17
 SAM_BYTES_PER_PAIR = 1_900     # both haplotypes (the draw writes ~1,864)
 
 
-class _BamReports:
-    """The reports that ``bam_extract`` logs (``log.log(21, "bamProcess
-    stats: %s", report)``: one mapping argument, kept as ``record.args``)."""
+class _Logged:
+    """The argument tuples of the records that a pipeline module logs at
+    level 21 (by default ``bam_extract``'s ``log.log(21, "bamProcess
+    stats: %s", report)``: one mapping argument, kept as ``record.args``),
+    those whose message starts with ``prefix``."""
 
-    def __init__(self):
+    def __init__(self, module: str = "bam_process", prefix: str = ""):
         import logging
 
         self.handler = logging.Handler(level=0)
-        self.handler.emit = lambda r: self.reports.append(r.args)
+        self.handler.emit = lambda r: self.reports.append(r.args) if str(
+            r.msg).startswith(prefix) else None
         self.logger = logging.getLogger(
-            "hichap_master_tpu_torch.pipeline.bam_process")
+            f"hichap_master_tpu_torch.pipeline.{module}")
         self.reports = []
 
     def __enter__(self):
@@ -2797,7 +2819,7 @@ def bam_phase(dev):
                  for f in os.listdir(os.path.join(ws, d)))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with _BamReports() as rep:
+    with _Logged() as rep:
         _timed(walls, "bamProcess", lambda: _cli([
             "bamProcess", "-w", ws, "-f", *truth["fragments"],
             "-s", truth["snps"]]))
@@ -2912,8 +2934,9 @@ def bam_checks(bp, peak_check, records_check):
 # rebuildG` (diploid, then -N) and `hichap-torch rebuildF`
 FRONT_SEED = 19
 FRONT_SCALE = 1                # lengths divided by it (CPU rehearsal)
-FASTQ_READS = 4_000_000
-FASTQ_CHUNK = 1_000_000
+FASTQ_READS = 1_000_000        # a mate (cut from 4 M: the mapping phase
+                               # runs rebuildF on 2 x 4 M drawn reads)
+FASTQ_CHUNK = 250_000
 FASTQ_CELL = "GM12878_R1"
 FRONT_DISK = 11e9              # bytes the genome part needs at hg19
 
@@ -2970,7 +2993,8 @@ def _table_rows(path, chrom) -> bytes:
 
 
 def genome_phase(dev):
-    """The genome drawn on hg19 (``testing.synthetic.genome_draw``), then
+    """The genome drawn on hg19 (``testing.synthetic.genome_draw``, with
+    MAP_REPEATS planted duplicated segments and inverted repeats), then
     ``hichap-torch rebuildG -e MboI`` (diploid) and ``rebuildG -N``, each
     through ``cli.run`` on the default device.  Checks: both haplotype
     FASTAs read back equal the draw with the SNPs applied (maternal, then
@@ -2979,7 +3003,9 @@ def genome_phase(dev):
     the maternal genome, every fragment table's rows equal the kept sites
     plus one per chromosome, and the maternal table's chr21 lines equal
     rows built in numpy from ``find_sites_plain``.  Returns what
-    ``genome_checks`` prints."""
+    ``genome_checks`` prints, and the workspace (``tmp``, ``ws``; the
+    caller removes ``tmp``) with the draw's SNP positions, repeats and
+    inverted repeats for ``mapping_phase``."""
     from hichap_master_tpu_torch.io.fasta import (find_sites,
                                                   find_sites_plain,
                                                   read_fasta_flat)
@@ -2999,7 +3025,8 @@ def genome_phase(dev):
         walls = {}
         fa, snp = os.path.join(tmp, "hg19.fa"), os.path.join(tmp, "snps.txt")
         draw = _timed(walls, "draw", lambda: genome_draw(
-            fa, snp, lengths, names, FRONT_SEED, device=dev))
+            fa, snp, lengths, names, FRONT_SEED, device=dev,
+            repeats=max(MAP_REPEATS // FRONT_SCALE, len(names))))
         st["fa_mb"], st["snp_mb"] = _mb(fa), _mb(snp)
         ws = os.path.join(tmp, "ws")
         torch.cuda.empty_cache()
@@ -3058,7 +3085,6 @@ def genome_phase(dev):
                 st["chr21_rows"] = table.count(b"\n")
             del got, flat
             torch.cuda.empty_cache()
-            shutil.rmtree(os.path.join(gdir, hap))          # disk
         del want
         # -N: the genome's own fragment table
         wn = os.path.join(tmp, "wn")
@@ -3072,11 +3098,17 @@ def genome_phase(dev):
         n_sites["NonAllelic"] = rows
         with open(os.path.join(wn, "Metrics", "rebuildG.json")) as f:
             st["metrics_n"] = json.load(f)
-        st.update(walls=walls, fragments=n_sites, n_snps=draw["n_snps"])
+        shutil.rmtree(wn)                                   # disk
+        os.remove(fa)
+        st.update(walls=walls, fragments=n_sites, n_snps=draw["n_snps"],
+                  tmp=tmp, ws=ws, snp_pos={c: v[0].cpu() for c, v in
+                                           draw["snps"].items()},
+                  repeats=draw["repeats"], palindromes=draw["palindromes"])
         del draw
         torch.cuda.empty_cache()
-    finally:
+    except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
+        raise
     return st
 
 
@@ -3174,11 +3206,526 @@ def fastq_phase(dev):
     return walls
 
 
+# the mapping phase: reads drawn from the front phase's parental genomes
+# (hg19, with planted repeats), with the truth planted in them, through
+# `hichap-torch rebuildF`, `GlobalMapping --fake-aligner`, `Rescue`,
+# `ReMapping --fake-aligner`, `bamProcess` and `filtering`
+MAP_READS = 4_000_000          # reads a mate (bamProcess's chunk is 4 M)
+MAP_CHUNK = 1_000_000          # rebuildF -c
+MAP_SEED = 23
+MAP_REPEATS = 2_000            # duplicated segments and inverted repeats
+MAP_DISK_PER_READ = 1_700      # bytes of temporary disk a read of a mate
+MAP_CHECK_READS = 50_000       # reads a mate of the card/CPU check
+MAP_CHECK_CHROMS = ("21", "22")
+MAP_SHORT = 5_000              # reads of 10-12 bases in the K9 check
+MAP_SCAN = 20                  # reads with an N every 8 bases (no seed;
+                               # each one a scan of the genome in plain)
+
+
+def _haplotypes(gdir, dev, names=None):
+    """The parental genomes that rebuildG wrote, as {hap: {name: uint8
+    tensor on dev}} in the FASTAs' order (``names``: only those)."""
+    from hichap_master_tpu_torch.io.fasta import read_fasta_device
+
+    out = {}
+    for hap in ("Maternal", "Paternal"):
+        flat, spans = read_fasta_device(
+            os.path.join(gdir, hap, f"{hap}.fa"), dev)
+        out[hap] = {c: flat[b:e] for c, (b, e) in spans.items()
+                    if names is None or c in names}
+    return out
+
+
+def _read_ids(aln):
+    """(read id - 1, mate, part) of each record named as read_draw and the
+    stages name them: SRR1658570.<id>_<mate>[<part>]."""
+    from hichap_master_tpu_torch.testing.synthetic import FASTQ_RUN
+
+    P = len(FASTQ_RUN)
+    n = len(aln)
+    off, ln = aln.name_off, aln.name_len.astype(np.int64)
+    us = ln.copy()
+    W = int(ln.max(initial=P + 1))
+    mat = aln.names[np.minimum(off[:, None] + np.arange(W),
+                               max(aln.names.size - 1, 0))]
+    inside = np.arange(W) < ln[:, None]
+    us = np.where(inside & (mat == ord("_")), np.arange(W), W).min(1)
+    ids = np.zeros(n, np.int64)
+    for j in range(P, W):
+        d = (j < us) & inside[:, j]
+        ids = np.where(d, ids * 10 + (mat[:, j].astype(np.int64) - 48), ids)
+    mate = mat[np.arange(n), np.minimum(us + 1, W - 1)] - ord("0")
+    part = np.where(ln > us + 2, mat[np.arange(n), np.minimum(us + 2, W - 1)]
+                    - ord("0"), 0)
+    return ids - 1, mate.astype(np.int64), part.astype(np.int64)
+
+
+def _global_pos(aln, names, starts):
+    rank = np.asarray([names.index(w.decode()) for w in aln.refs] + [0])
+    return np.where(aln.ref >= 0, starts[rank[aln.ref]] + aln.pos, -1)
+
+
+def _mapping_truth_checks(aln_dir, rd, stage):
+    """Every record of the SAM files of ``aln_dir`` against the planted
+    truth of its read (GlobalMapping: flag, global position and XS of the
+    whole read; ReMapping: of each part of READ_PART bases or more of the
+    chimeras with one junction; the shorter parts are counted, those
+    mapped with XS apart).  Returns the counts by kind."""
+    from hichap_master_tpu_torch.io.sam import read_sam
+    from hichap_master_tpu_torch.testing.synthetic import (READ_KINDS,
+                                                           READ_PART)
+
+    seen = {1: 0, 2: 0}
+    counts = {}
+    far = 0
+    for f in sorted(os.listdir(aln_dir)):
+        if not f.endswith(".sam"):
+            continue
+        h = "M" if "Maternal" in f else "P"
+        aln = read_sam(os.path.join(aln_dir, f))
+        ids, mate, part = _read_ids(aln)
+        glob = _global_pos(aln, rd["names"], rd["starts"])
+        xs = (aln.has & 2) > 0
+        for m in (1, 2):
+            sel = mate == m
+            t = rd["truth"][m]
+            i = ids[sel]
+            kind = t["kind"][i]
+            if stage == "global":
+                seen[m] += len(i)
+                bad = ((aln.flag[sel] != t[f"{h}.flag"][i])
+                       | (glob[sel] != t[f"{h}.hit"][i])
+                       | (xs[sel] != t[f"{h}.multi"][i]))
+                far += int((glob[sel] >= 1 << 31).sum())
+            else:
+                pk = np.clip(part[sel] - 1, 0, 1)
+                plen = t["parts"][i, pk]
+                planted = np.isin(kind, [READ_KINDS.index("chimera"),
+                                         READ_KINDS.index("short")]) & (
+                    t["junctions"][i] == 1) & (part[sel] > 0)
+                exact = planted & (plen >= READ_PART)
+                short = planted & (plen < READ_PART)
+                seen[m] += int(planted.sum())
+                bad = exact & ((aln.flag[sel] != t[f"{h}.part_flag"][i, pk])
+                               | (glob[sel] != t[f"{h}.part_hit"][i, pk])
+                               | (xs[sel] != t[f"{h}.part_multi"][i, pk]))
+                counts["short parts mapped with XS"] = counts.get(
+                    "short parts mapped with XS", 0) + int(
+                    (short & (aln.flag[sel] != 4) & xs[sel]).sum())
+                far += int((glob[sel][exact] >= 1 << 31).sum())
+                kind = np.where(planted, kind, -1)
+            if bad.any():
+                b = np.flatnonzero(bad)[0]
+                raise AssertionError(
+                    f"{stage}: {int(bad.sum())} records of {f} differ from "
+                    f"the planted truth (first: read {int(i[b]) + 1}, kind "
+                    f"{READ_KINDS[kind[b]] if kind[b] >= 0 else '-'}, flag "
+                    f"{int(aln.flag[sel][b])}, at {int(glob[sel][b])})")
+            for k, c in zip(*np.unique(kind, return_counts=True)):
+                if k >= 0:
+                    name = READ_KINDS[k]
+                    counts[name] = counts.get(name, 0) + int(c)
+    return dict(seen=seen, kinds=counts, past_2_31=far)
+
+
+def _planted_parts(rd) -> int:
+    """The parts that Rescue cuts and ReMapping maps, per haplotype: two
+    per chimera with one junction."""
+    from hichap_master_tpu_torch.testing.synthetic import READ_KINDS
+
+    n = 0
+    for m in (1, 2):
+        t = rd["truth"][m]
+        n += 2 * int((np.isin(t["kind"], [READ_KINDS.index("chimera"),
+                                          READ_KINDS.index("short")])
+                      & (t["junctions"] == 1)).sum())
+    return n
+
+
+def _stub_bowtie2(tmp, sam_path):
+    """A bowtie2 that writes one chunk's records (FakeAligner's records of
+    ``sam_path`` given bowtie2's CIGAR and tags), shuffled, after a
+    header, to its -S target.  Returns the stub and the body lines."""
+    with open(sam_path, "rb") as f:
+        lines = f.read().split(b"\n")[:-1]
+    rng = np.random.default_rng(MAP_SEED)
+    lines = [lines[i] for i in rng.permutation(len(lines))]
+    tail = b"\tXN:i:0\tXM:i:0\tXO:i:0\tXG:i:0\tNM:i:0\tYT:Z:UU"
+    body = [ln.replace(b"\t*\t*\t0\t0\t", b"\t150M\t*\t0\t0\t", 1) + tail
+            for ln in lines]
+    payload = os.path.join(tmp, "bowtie2_payload.sam")
+    with open(payload, "wb") as f:
+        f.write(b"@HD\tVN:1.0\tSO:unsorted\n@SQ\tSN:1\tLN:249250621\n"
+                b"@PG\tID:bowtie2\tPN:bowtie2\tVN:2.4.5\n")
+        f.write(b"\n".join(body) + b"\n")
+    stub = os.path.join(tmp, "bowtie2")
+    with open(stub, "w") as f:
+        f.write('#!/bin/sh\nwhile [ "$1" ]; do\n'
+                '  if [ "$1" = "-S" ]; then out="$2"; fi\n  shift\ndone\n'
+                f'cp "{payload}" "$out"\n')
+    os.chmod(stub, 0o755)
+    return stub, body
+
+
+def map_check(dev, gst, results):
+    """The card against the CPU on chr21 + chr22 of the front phase's
+    genome: 2 x MAP_CHECK_READS reads (``read_draw``) through
+    ``ws_mapping`` with FakeAligner on the card and on the CPU, as SAM and
+    as BAM (the files identical, BAM by its inflated payload); K8's index
+    of the two (the card's and the plain version's, both FakeAligner's)
+    identical (bucket starts, positions in canonical order, side list); K9
+    on those reads and MAP_SHORT reads of 10-12 bases identical to its
+    plain version; each timed, with its bound.  Then the bowtie2 adapter
+    against a stub bowtie2 that writes one chunk's records, shuffled: its
+    output equal to a host sort of the same lines."""
+    import gzip
+
+    from hichap_master_tpu_torch.io.fasta import write_fasta
+    from hichap_master_tpu_torch.kernels.exact_hits import (exact_hits,
+                                                            exact_hits_plain)
+    from hichap_master_tpu_torch.kernels.exact_index import (
+        canonical, exact_index, exact_index_plain)
+    from hichap_master_tpu_torch.pipeline.mapping import (Bowtie2Aligner,
+                                                          FakeAligner,
+                                                          read_reads,
+                                                          ws_mapping)
+    from hichap_master_tpu_torch.testing.synthetic import read_draw
+
+    cpu = torch.device("cpu")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mapcheck_")
+    st = {}
+    try:
+        gdir = os.path.join(gst["ws"], "genome")
+        haps = _haplotypes(gdir, dev, MAP_CHECK_CHROMS)
+        fa = os.path.join(tmp, "sub.fa")
+        write_fasta(fa, haps["Maternal"])
+        fq = os.path.join(tmp, "fq")
+        n = MAP_CHECK_READS // FRONT_SCALE
+        rd = read_draw(os.path.join(tmp, "draw"), "check", haps,
+                       gst["snp_pos"], n, 150, MAP_SEED + 1, device=dev,
+                       all_n=0)
+        del haps
+        os.makedirs(fq)
+        for mate, p in zip((1, 2), rd["fastq"]):
+            os.replace(p, os.path.join(fq, f"check_chunk0_{mate}.fastq.gz"))
+        al = {"card": FakeAligner(device=dev), "cpu": FakeAligner(device=cpu)}
+        walls = {}
+        for side, a in al.items():
+            for fmt in ("sam", "bam"):
+                w = {}
+                t0 = time.perf_counter()
+                ws_mapping(fq, os.path.join(tmp, f"{side}_{fmt}"), [fa],
+                           aligner=a, out_format=fmt, device=a.device,
+                           walls=w)
+                torch.cuda.synchronize()
+                walls[f"{side} {fmt}"] = time.perf_counter() - t0
+        for fmt in ("sam", "bam"):
+            files = sorted(os.listdir(os.path.join(tmp, f"card_{fmt}")))
+            check(files == sorted(os.listdir(os.path.join(tmp, f"cpu_{fmt}")))
+                  and len(files) == 2, f"mapping check: {fmt} files {files}")
+            for f in files:
+                op = gzip.open if fmt == "bam" else open
+                with op(os.path.join(tmp, f"card_{fmt}", f), "rb") as a, \
+                        op(os.path.join(tmp, f"cpu_{fmt}", f), "rb") as b:
+                    check(a.read() == b.read(), f"mapping check: {f} on the "
+                          "card differs from the CPU's")
+        st["walls"] = walls
+        # K8: FakeAligner's indexes on the card and on the CPU
+        ik, ip = al["card"]._index[1], al["cpu"]._index[1]
+        same = (torch.equal(ik.bucket.cpu(), ip.bucket)
+                and torch.equal(canonical(ik).cpu(), canonical(ip))
+                and torch.equal(torch.sort(ik.side).values.cpu(), ip.side))
+        check(same, "K8: the card's index differs from the plain version's")
+        G, k = ik.genome.numel(), ik.k
+        t0 = time.perf_counter()
+        exact_index_plain(ip.genome, ip.start, ip.end, k)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        k8_ms = event_ms(lambda: exact_index(ik.genome, ik.start, ik.end, k),
+                         n=3)
+        W, S = len(ik.pos), len(ik.side)
+        results["exact_index"] = dict(
+            route="cuda", source="hichap_master_tpu_torch/csrc/exact_index.cu",
+            replaces="hichap_master_tpu/pipeline/mapping.py:248 (str.find of "
+                     "FakeAligner._hits; no Pallas kernel)",
+            max_abs_err=0.0, ms=k8_ms, plain_ms=plain_ms,
+            **bound(G + 8 * (4 ** k + 1) + 4 * W + 8 * S),
+            library_ms=None, shape=f"chr{'+'.join(MAP_CHECK_CHROMS)}: "
+            f"{G:,} bases, k {k}, {W:,} windows")
+        # K9: every read of the check and MAP_SHORT reads of 10-12 bases
+        reads = [read_reads(os.path.join(fq, f)) for f in
+                 sorted(os.listdir(fq))]
+        seqs = [r.buf[o:o + ln] for r in reads for o, ln in
+                zip(r.seq_off.tolist(), r.seq_len.tolist())]
+        rng = np.random.default_rng(MAP_SEED)
+        cut = rng.integers(10, 13, MAP_SHORT)
+        seqs += [seqs[i][:c] for i, c in zip(rng.integers(0, len(seqs),
+                                                          MAP_SHORT), cut)]
+        for i in rng.integers(0, len(seqs), MAP_SCAN):   # no seed: scanned
+            x = seqs[i].copy()
+            x[3::8] = ord("N")
+            seqs.append(x)
+        ln = np.asarray([len(x) for x in seqs], np.int32)
+        off = np.cumsum(ln.astype(np.int64)) - ln
+        buf = torch.from_numpy(np.concatenate(seqs))
+        off_t, ln_t = torch.from_numpy(off), torch.from_numpy(ln)
+        t0 = time.perf_counter()
+        hp, cp = exact_hits_plain(ip, buf, off_t, ln_t)
+        plain9 = (time.perf_counter() - t0) * 1e3
+        bd, od, ld = buf.to(dev), off_t.to(dev), ln_t.to(dev)
+        hk, ck = exact_hits(ik, bd, od, ld)
+        check(torch.equal(hk.cpu(), hp) and torch.equal(ck.cpu(), cp),
+              "K9: the card's hits differ from the plain version's")
+        k9_ms = event_ms(lambda: exact_hits(ik, bd, od, ld), n=5)
+        R = len(seqs)
+        cand = exact_hits_plain.candidates
+        results["exact_hits"] = dict(
+            route="cuda", source="hichap_master_tpu_torch/csrc/exact_hits.cu",
+            replaces="hichap_master_tpu/pipeline/mapping.py:248 (str.find of "
+                     "FakeAligner._hits; no Pallas kernel)",
+            max_abs_err=0.0, ms=k9_ms, plain_ms=plain9,
+            **bound(int(ln.sum()) + 12 * R + 2 * R * 12
+                    + cand["bucket_reads"] * 16 + cand["bytes"]),
+            library_ms=None, shape=f"{R:,} reads ({MAP_SHORT:,} of 10-12 "
+            f"bases, {MAP_SCAN} with no window of ACGT) x 2 strands on "
+            f"chr{'+'.join(MAP_CHECK_CHROMS)}",
+            mapped=int((cp > 0).sum()))
+        st.update(R=R, G=G, k=k, W=W, S=S, mapped=int((cp > 0).sum()),
+                  multi=int((cp > 1).sum()))
+        # the library column of K8: torch.sort of the same keys at chr1 size
+        keys = _chr1_keys(gdir, k, dev)
+        results["exact_index"]["library_ms"] = event_ms(
+            lambda: torch.sort(keys, stable=True), n=3)
+        results["exact_index"]["library"] = (
+            f"torch.sort(stable) of chr1's {keys.numel():,} window keys")
+        del keys, al, ik, ip, bd, od, ld
+        torch.cuda.empty_cache()
+        # the bowtie2 adapter on one chunk's records
+        sam = os.path.join(tmp, "card_sam", sorted(os.listdir(
+            os.path.join(tmp, "card_sam")))[0])
+        stub, body = _stub_bowtie2(tmp, sam)
+        w = {}
+        out = os.path.join(tmp, "bt2.sam")
+        Bowtie2Aligner(stub, device=dev).map_chunk(
+            "idx", os.path.join(fq, "check_chunk0_1.fastq.gz"), out, w)
+        t0 = time.perf_counter()
+        want = sorted(body, key=lambda x: x.split(b"\t", 1)[0])
+        st["host_sort"] = time.perf_counter() - t0
+        with open(out, "rb") as f:
+            check(f.read() == b"\n".join(want) + b"\n", "bowtie2 adapter: "
+                  "its output differs from a host sort of the lines")
+        st["adapter"] = dict(lines=len(body), **w)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return st
+
+
+def _chr1_keys(gdir, k, dev):
+    """The keys of chr1's keyed windows (K8's rule) on the card."""
+    from hichap_master_tpu_torch.io.fasta import read_fasta_device
+    from hichap_master_tpu_torch.kernels.exact_index import base_codes
+
+    flat, spans = read_fasta_device(
+        os.path.join(gdir, "Maternal", "Maternal.fa"), dev)
+    b, e = spans["1"]
+    code = base_codes(flat[b:e] & 0xDF)
+    del flat
+    n = code.numel() - k + 1
+    key = torch.zeros(n, dtype=torch.int64, device=dev)
+    good = torch.ones(n, dtype=torch.bool, device=dev)
+    for j in range(k):
+        key = key * 4 + code[j:j + n].clamp(min=0)
+        good &= code[j:j + n] >= 0
+    return key[good]
+
+
+def mapping_phase(dev, gst):
+    """The front phase's parental genomes (hg19, planted repeats): 2 x
+    MAP_READS reads drawn from them (``read_draw``), through
+    ``hichap-torch rebuildF -c MAP_CHUNK``, ``GlobalMapping
+    --fake-aligner`` against both haplotypes, ``Rescue``, ``ReMapping
+    --fake-aligner``, ``bamProcess`` and ``filtering`` (default device).
+    Returns the phase's state for ``mapping_checks``; the checks against
+    the planted truth run here, after the commands, outside the walls."""
+    from hichap_master_tpu_torch.testing.synthetic import read_draw
+
+    ws, tmp = gst["ws"], gst["tmp"]
+    gdir = os.path.join(ws, "genome")
+    fas = [os.path.join(gdir, h, f"{h}.fa") for h in ("Maternal", "Paternal")]
+    reads = MAP_READS // FRONT_SCALE
+    free = shutil.disk_usage(tmp).free
+    cut = None
+    while 2 * reads * MAP_DISK_PER_READ > free and reads > MAP_CHUNK // 4:
+        reads //= 2
+        cut = (f"cut to 2 x {reads:,} reads: {free / 1e9:.1f} GB free on "
+               f"the temporary disk")
+    if cut:
+        log(f"mapping: {cut}")
+    chunk = min(MAP_CHUNK // FRONT_SCALE, reads)
+    walls, st = {}, dict(reads=reads, chunk=chunk, cut=cut)
+    haps = _haplotypes(gdir, dev)
+    st["bases"] = sum(t.numel() for t in haps["Maternal"].values())
+    rd = _timed(walls, "draw", lambda: read_draw(
+        os.path.join(tmp, "reads"), FASTQ_CELL, haps, gst["snp_pos"], reads,
+        150, MAP_SEED, device=dev, repeats=gst["repeats"],
+        palindromes=gst["palindromes"]))
+    del haps
+    torch.cuda.empty_cache()
+    fq_mb = sum(_mb(p) for p in rd["fastq"])
+    _timed(walls, "rebuildF", lambda: _cli(
+        ["rebuildF", "-w", ws, "-1", rd["fastq"][0], "-2", rd["fastq"][1],
+         "-c", chunk]))
+    for p in rd["fastq"]:
+        os.remove(p)                                         # disk
+    peaks = {}
+    for cmd in ("GlobalMapping", "Rescue", "ReMapping", "bamProcess",
+                "filtering"):
+        argv = [cmd, "-w", ws]
+        if cmd.endswith("Mapping"):
+            argv += ["--fake-aligner", "-i", *fas]
+        if cmd == "bamProcess":
+            argv += ["-f", *(os.path.join(gdir, h, f"MboI_{h}_fragments.txt")
+                             for h in ("Maternal", "Paternal")),
+                     "-s", os.path.join(gdir, "Snps.npz")]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if cmd == "filtering":
+            with _Reports() as filt:
+                _timed(walls, cmd, lambda: _cli(argv))
+        elif cmd == "bamProcess":
+            with _Logged() as bam:
+                _timed(walls, cmd, lambda: _cli(argv))
+            st["report"] = bam.reports[0]
+        elif cmd == "GlobalMapping":
+            with _Logged("mapping", "index of") as ix:
+                _timed(walls, cmd, lambda: _cli(argv))
+            st["indexes"] = ix.reports
+        else:
+            _timed(walls, cmd, lambda: _cli(argv))
+        peaks[cmd] = torch.cuda.max_memory_allocated()
+        with open(os.path.join(ws, "Metrics", f"{cmd}.json")) as f:
+            st[f"metrics {cmd}"] = json.load(f)
+        if cmd == "GlobalMapping":
+            gb = os.path.join(ws, "Global_bams")
+            st["global_mb"] = sum(_mb(os.path.join(gb, f))
+                                  for f in os.listdir(gb))
+            t0 = time.perf_counter()
+            st["global"] = _mapping_truth_checks(gb, rd, "global")
+            walls["check global"] = time.perf_counter() - t0
+        if cmd == "ReMapping":
+            t0 = time.perf_counter()
+            st["remap"] = _mapping_truth_checks(
+                os.path.join(ws, "ReMap_bams"), rd, "remap")
+            walls["check remap"] = time.perf_counter() - t0
+            st["planted_parts"] = _planted_parts(rd)
+        if cmd == "bamProcess":
+            st["rows"] = _bed_rows(os.path.join(ws, "UniqRawBed"))
+            for d in ("Global_bams", "ReMap_bams", "RescueFastq",
+                      "fastqchunks"):
+                shutil.rmtree(os.path.join(ws, d))           # disk
+    from hichap_master_tpu_torch.io.bedio import ALLELIC_CLASSES
+    allelic = os.path.join(ws, "Allelic_Bed")
+    st["allelic"] = {c: _line_count(os.path.join(allelic, f))
+                     for c in ALLELIC_CLASSES for f in os.listdir(allelic)
+                     if c in f}
+    # pairs whose two mates map once in a haplotype as drawn: bamProcess
+    # counts them unique, and the rescued parts add more
+    st["unique_floor"] = {
+        hap: int(np.logical_and.reduce([
+            (rd["truth"][m][f"{hap[0]}.flag"] != 4)
+            & ~rd["truth"][m][f"{hap[0]}.multi"] for m in (1, 2)]).sum())
+        for hap in ("Maternal", "Paternal")}
+    st.update(walls=walls, peaks=peaks, fq_mb=fq_mb, stats=filt.stats)
+    return st
+
+
+def mapping_checks(st, mc):
+    """The mapping phase's checks and report."""
+    from hichap_master_tpu_torch.testing.synthetic import READ_KINDS
+
+    reads, walls = st["reads"], st["walls"]
+    g, r = st["global"], st["remap"]
+    check(g["seen"] == {1: 2 * reads, 2: 2 * reads}, f"GlobalMapping: "
+          f"records {g['seen']} for 2 x {reads:,} reads and two haplotypes")
+    check(sum(r["seen"].values()) == 2 * st["planted_parts"], f"ReMapping: "
+          f"{r['seen']} planted part records for {st['planted_parts']} "
+          "parts in each haplotype")
+    check(set(g["kinds"]) == set(READ_KINDS), f"mapping: kinds drawn "
+          f"{sorted(g['kinds'])}")
+    check(r["kinds"].get("short parts mapped with XS", 0) > 0,
+          f"ReMapping: no part of 10-12 bases mapped with XS {r['kinds']}")
+    check(st["bases"] < 1 << 31 or (g["past_2_31"] > 0
+                                     and r["past_2_31"] > 0),
+          "mapping: no read was checked past 2^31 of the genome")
+    for hap in ("Maternal", "Paternal"):
+        rows, rep = st["rows"][hap], st["report"][hap]
+        check(rep["Total_pairs"] == reads and rep["Unique_pairs"]
+              + rep["Multiple_pairs"] + rep["Unmapped_pairs"] == reads,
+              f"bamProcess: {hap} report {rep} for {reads:,} pairs")
+        check(rep["Unique_pairs"] >= st["unique_floor"][hap], f"bamProcess: "
+              f"{hap} unique pairs {rep['Unique_pairs']} below the "
+              f"{st['unique_floor'][hap]} drawn unique in both mates")
+        check(0 < rows["rows15"] + rows["rows23"] <= reads,
+              f"bamProcess: {hap} rows {rows}")
+    # an exact aligner maps a read over a SNP to one haplotype only, so no
+    # pair reaches M_P or P_M: those two are written, empty
+    check(len(st["allelic"]) == 5 and all(st["allelic"][c] > 0 for c in (
+        "Bi_Allelic", "M_M", "P_P")), f"filtering: allelic beds "
+        f"{st['allelic']}")
+    m = st["metrics GlobalMapping"]
+    steps = {}
+    for k, v in m.items():
+        if k.count(".") == 2:
+            steps[k[len("GlobalMapping."):]] = v
+    log(f"mapping: draw of 2 x {reads:,} reads of 150 bp from the "
+        f"haplotypes ({st['fq_mb']:.1f} MB gzipped) {walls['draw']:.3f} s"
+        + (f" ({st['cut']})" if st["cut"] else "")
+        + "; commands: " + ", ".join(
+            f"{c} {walls[c]:.3f} s" for c in (
+                "rebuildF", "GlobalMapping", "Rescue", "ReMapping",
+                "bamProcess", "filtering")))
+    search = sum(v for k, v in steps.items() if k.endswith(".search"))
+    write = sum(v for k, v in steps.items() if k.endswith(".write"))
+    log("mapping:   GlobalMapping steps: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in sorted(steps.items()))
+        + f"; search {4 * reads / search / 1e6:.2f} M reads/s (2 x "
+        f"{reads:,} reads x 2 haplotypes); SAM write "
+        f"{st['global_mb'] / write:.1f} MB/s ({st['global_mb']:.1f} MB)")
+    log("mapping:   indexes (FakeAligner's log): " + "; ".join(
+        f"{os.path.basename(str(a[0]))} {a[1]:,} bases, k {a[2]}, {a[3]:,} "
+        f"windows, {a[4]:,} side, {a[5]:.3f} GB" for a in st["indexes"]))
+    log("mapping:   ReMapping steps: " + ", ".join(
+        f"{k[len('ReMapping.'):]} {v:.3f} s" for k, v in
+        sorted(st["metrics ReMapping"].items())))
+    log("mapping:   peak device memory by command: " + ", ".join(
+        f"{k} {v / 2 ** 30:.2f} GiB" for k, v in st["peaks"].items()))
+    log(f"mapping:   checks: every record of Global_bams equals the planted "
+        f"truth ({g['seen']} records a mate, kinds {g['kinds']}, "
+        f"{g['past_2_31']:,} at global offsets past 2^31); every planted "
+        f"part re-mapped as planted ({r['seen']}, {r['past_2_31']:,} past "
+        f"2^31); check walls {walls['check global']:.1f} + "
+        f"{walls['check remap']:.1f} s; bamProcess {st['report']} (unique "
+        f"pairs at least {st['unique_floor']}); chunk bed rows {st['rows']}; "
+        f"filtering {st['stats']}; allelic beds {st['allelic']}")
+    w = mc["walls"]
+    a = mc["adapter"]
+    log(f"mapping:   card vs CPU at 2 x {MAP_CHECK_READS // FRONT_SCALE:,} "
+        f"reads on chr{'+'.join(MAP_CHECK_CHROMS)}: SAM and BAM identical "
+        f"(walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in w.items())
+        + f"); K8 index identical ({mc['G']:,} bases, k {mc['k']}, "
+        f"{mc['W']:,} windows, {mc['S']:,} side); K9 identical on "
+        f"{mc['R']:,} reads ({mc['mapped']:,} entries mapped, {mc['multi']:,}"
+        f" with two hits or more); bowtie2 adapter on {a['lines']:,} "
+        f"shuffled lines equal to a host sort ({mc['host_sort']:.2f} s): "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in a.items() if k != "lines"))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device visible")
     from hichap_master_tpu_torch.kernels import _build
     from hichap_master_tpu_torch.kernels import hmm_scan
+    from hichap_master_tpu_torch.kernels.exact_hits import exact_hits
+    from hichap_master_tpu_torch.kernels.exact_index import exact_index
     from hichap_master_tpu_torch.kernels.escalation import (ladder,
                                                             prefix_maps)
     from hichap_master_tpu_torch.kernels.ice_sweep import ice_sweeps
@@ -3221,7 +3768,11 @@ def main() -> None:
                 "hmm_forward_backward": hmm_scan.forward_backward,
                 "hmm_viterbi": hmm_scan.viterbi,
                 "impute_vote": impute_vote,
-                "segment_marginal": segment_marginal}
+                "segment_marginal": segment_marginal,
+                "exact_index": exact_index, "exact_hits": exact_hits}
+
+    # the kernels of the files and CLI paths: K1-K7 (K8 and K9 map)
+    analysis_kernels = tuple(counters)[:8]
 
     def reset():
         for fn in counters.values():
@@ -3285,7 +3836,7 @@ def main() -> None:
     reset()
     torch.cuda.reset_peak_memory_stats()
     st = files_phase(allelic, al, dev)
-    files_l = read("files", tuple(counters))
+    files_l = read("files", analysis_kernels)
     peak("files")
     try:
         files_checks(allelic, al, st, dev)
@@ -3294,7 +3845,7 @@ def main() -> None:
         reset()
         torch.cuda.reset_peak_memory_stats()
         cl = cli_phase(st)
-        cli_l = read("cli", tuple(counters))
+        cli_l = read("cli", analysis_kernels)
         peak("cli")
         cli_checks(st, cl, dev)
     finally:
@@ -3331,19 +3882,33 @@ def main() -> None:
     t_front = time.perf_counter()
     reset()
     gst = genome_phase(dev)
-    front_l = read("front", ())
-    genome_checks(gst)
-    torch.cuda.empty_cache()
-    reset()
-    fastq_phase(dev)
-    fastq_l = read("fastq", ())
-    front_l = {k: front_l[k] + fastq_l[k] for k in front_l}
-    log(f"front phase: {time.perf_counter() - t_front:.1f} s; whole run "
+    try:
+        front_l = read("front", ())
+        genome_checks(gst)
+        torch.cuda.empty_cache()
+        reset()
+        fastq_phase(dev)
+        fastq_l = read("fastq", ())
+        front_l = {k: front_l[k] + fastq_l[k] for k in front_l}
+        log(f"front phase: {time.perf_counter() - t_front:.1f} s")
+        # the mapping stages between the reads and the chunk beds: first
+        # the card against the CPU on chr21 + chr22, then the chain
+        t_map = time.perf_counter()
+        mc = map_check(dev, gst, results)
+        torch.cuda.empty_cache()
+        reset()
+        mp = mapping_phase(dev, gst)
+        map_l = read("mapping", ("exact_index", "exact_hits"))
+        mapping_checks(mp, mc)
+    finally:
+        shutil.rmtree(gst["tmp"], ignore_errors=True)
+    log(f"mapping phase: {time.perf_counter() - t_map:.1f} s; whole run "
         f"{time.perf_counter() - T_START:.1f} s")
 
     paths = {"analysis": analysis, "diploid": diploid_l,
              "allelic": allelic_l, "files": files_l, "cli": cli_l,
-             "filtering": filter_l, "bamprocess": bam_l, "front": front_l}
+             "filtering": filter_l, "bamprocess": bam_l, "front": front_l,
+             "mapping": map_l}
     kernels = [dict(name=k, launches=sum(p[k] for p in paths.values()),
                     launches_by_path={n: p[k] for n, p in paths.items()},
                     **results[k]) for k in counters]

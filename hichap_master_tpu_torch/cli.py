@@ -1,20 +1,19 @@
 """hichap-torch command line: the sub-commands of ``hichap-tpu`` on the
-port, but the two that drive bowtie2.
+port.
 
-The sub-commands ``rebuildG``, ``rebuildF``, ``Rescue``, ``bamProcess``,
-``filtering``, ``matrix``, ``compartment``, ``tads``, ``loops`` and
-``specificity`` take the JAX package's flags and defaults
-(``hichap_master_tpu/cli.py``), with one flag more: ``--device`` (default
-``cuda``), the device every driver runs on.  With ``--device cuda`` and no
-card visible the command fails; it never falls back to the CPU.
+Every sub-command (``rebuildG``, ``rebuildF``, ``GlobalMapping``,
+``Rescue``, ``ReMapping``, ``bamProcess``, ``filtering``, ``matrix``,
+``compartment``, ``tads``, ``loops`` and ``specificity``) takes the JAX
+package's flags and defaults (``hichap_master_tpu/cli.py``), with one flag
+more: ``--device`` (default ``cuda``), the device every driver runs on.
+With ``--device cuda`` and no card visible the command fails; it never
+falls back to the CPU.
 
-``GlobalMapping`` and ``ReMapping`` (bowtie2, or the JAX package's
-FakeAligner) are not part of the port yet: they are refused by name.
 ``-r/--resume`` behaves as in the JAX CLI: ``rebuildG``, ``rebuildF``,
-``Rescue`` and ``bamProcess`` write a completion marker
-(``.hichap_stage_done``) into their output directory and, with ``-r``, are
-skipped when the marker is there; the later sub-commands write none and
-skip nothing.
+``GlobalMapping``, ``Rescue``, ``ReMapping`` and ``bamProcess`` write a
+completion marker (``.hichap_stage_done``) into their output directory
+and, with ``-r``, are skipped when the marker is there; the later
+sub-commands write none and skip nothing.
 
 ``rebuildG`` reads the genome FASTA (``-g``) and, unless ``-N``, the SNP
 table (``-S``), and writes ``<workspace>/genome`` (``-o``): ``Snps.npz``,
@@ -23,7 +22,18 @@ table (``-S``), and writes ``<workspace>/genome`` (``-o``): ``Snps.npz``,
 table); the substitution and the site search run on the device.
 ``rebuildF`` cuts the two FASTQ mates (``-1``, ``-2``) into chunks of
 ``-c`` reads under ``<workspace>/fastqchunks``; it runs on the host (it
-has no device work; ``--device`` is checked all the same).  ``Rescue``
+has no device work; ``--device`` is checked all the same).
+``GlobalMapping`` maps every chunk of ``<workspace>/fastqchunks`` (``-f``)
+against each index (``-i``: Maternal then Paternal, or one) into
+``<workspace>/Global_bams`` (``-o``); ``ReMapping`` maps the rescue FASTQs
+of ``<workspace>/RescueFastq`` (``-f``) into ``<workspace>/ReMap_bams``,
+each against its haplotype's index.  With ``--fake-aligner`` the indexes
+are FASTA paths and the exact search runs on the device
+(``pipeline.mapping.FakeAligner``); otherwise bowtie2 (``-b``) maps, in
+WS mode on the host, its output name-sorted on the device, or in PBS mode
+(``-m PBS``, ``-pt``, ``-mem``, ``-PBSlog``) through qsub, its raw SAM
+kept.  ``--bam-format`` writes BAM (WS mode only; with
+``--fake-aligner`` PBS mode runs as WS).  ``Rescue``
 reads the chunk alignments of ``<workspace>/Global_bams`` (``-b``) and
 writes the rescue FASTQs ``<stem>_unmapped.fq`` to
 ``<workspace>/RescueFastq`` (``-o``); the junction search runs on the
@@ -42,14 +52,21 @@ Each command writes ``<workspace>/Metrics/<command>.json``: the command's
 wall seconds under ``<command>.total`` and the seconds of each step its
 drivers time, under ``<command>.<step>`` (``rebuildG.<step>``: ``snps``,
 ``read``, ``substitute``, ``sites``, ``write``, ``index``;
-``rebuildF.mate1`` / ``.mate2``; ``Rescue.<file>.<step>``: ``read``,
+``rebuildF.mate1`` / ``.mate2``; ``GlobalMapping.<tag>.<step>`` and
+``ReMapping.<tag>.<step>``: ``index``, ``read``, ``search``, ``sort``,
+``write``, the tag ``Maternal``, ``Paternal`` or the index's name (none
+for ReMapping's one index); ``Rescue.<file>.<step>``: ``read``,
 ``scan``, ``write``; ``bamProcess.<haplotype>.<step>``,
 ``filtering.<haplotype>.<step>`` for each ``hic_filtering`` call and
 ``filtering.allelic.<step>``).
 
     hichap-torch rebuildG -w ws -g hg19.fa -S snps.txt -e MboI
     hichap-torch rebuildF -w ws -1 cell_R1_1.fastq.gz -2 cell_R1_2.fastq.gz
+    hichap-torch GlobalMapping -w ws --fake-aligner \
+        -i ws/genome/Maternal/Maternal.fa ws/genome/Paternal/Paternal.fa
     hichap-torch Rescue -w ws -e MboI
+    hichap-torch ReMapping -w ws --fake-aligner \
+        -i ws/genome/Maternal/Maternal.fa ws/genome/Paternal/Paternal.fa
 
     hichap-torch bamProcess -w ws -f M_fragments.txt P_fragments.txt -s snps.npz
     hichap-torch filtering -w ws
@@ -69,7 +86,6 @@ from .utils.logging import get_logger, setup_logging
 
 log = get_logger("hichap_master_tpu_torch.cli")
 
-FRONT = ("GlobalMapping", "ReMapping")
 # the workspace directories of hichap-tpu that these sub-commands use
 WS_DIRS = {"genome": "genome", "chunks": "fastqchunks",
            "global": "Global_bams", "rescue": "RescueFastq",
@@ -79,7 +95,8 @@ WS_DIRS = {"genome": "genome", "chunks": "fastqchunks",
 # directory each of them writes by default
 _DONE_MARK = ".hichap_stage_done"
 _STAGE_OUT = {"rebuildG": "genome", "rebuildF": "chunks",
-              "Rescue": "rescue", "bamProcess": "rawbed"}
+              "GlobalMapping": "global", "Rescue": "rescue",
+              "ReMapping": "remap", "bamProcess": "rawbed"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -94,10 +111,11 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_argument("-log", "--logfile", default="HiCHap.log")
     common.add_argument("-w", "--workspace", default="hichap_workspace")
     common.add_argument("-r", "--resume", action="store_true", default=False,
-                        help="skip rebuildG, rebuildF, Rescue or "
-                             "bamProcess when its output directory holds "
-                             "its completion marker (the other "
-                             "sub-commands write none and skip nothing)")
+                        help="skip rebuildG, rebuildF, GlobalMapping, "
+                             "Rescue, ReMapping or bamProcess when its "
+                             "output directory holds its completion marker "
+                             "(the other sub-commands write none and skip "
+                             "nothing)")
     common.add_argument("--device", default="cuda",
                         help="torch device of every driver (default cuda; "
                              "no fallback to the CPU)")
@@ -118,6 +136,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-c", "--chunksize", type=int, default=4_000_000)
     p.add_argument("-t", "--threads", type=int, default=1)
     p.add_argument("-o", "--out", default=None)
+
+    for name in ("GlobalMapping", "ReMapping"):
+        p = sub.add_parser(name, parents=[common],
+                           help=f"{name} with bowtie2 or the fake aligner")
+        p.add_argument("-b", "--bowtie2Path", default="bowtie2")
+        p.add_argument("-f", "--fastq", default=None)
+        p.add_argument("-i", "--bowtieIndex", nargs="+", required=True)
+        p.add_argument("-o", "--out", default=None)
+        p.add_argument("-m", "--mode", choices=["PBS", "WS"], default="WS")
+        p.add_argument("-wt", "--WSthreads", type=int, default=16)
+        p.add_argument("-pt", "--PBSthreads", type=int, nargs="+",
+                       default=[20, 4])
+        p.add_argument("-mem", "--memory", type=int, default=10)
+        p.add_argument("-PBSlog", "--PBSlogfile", default=None)
+        p.add_argument("--fake-aligner", action="store_true", default=False,
+                       help="use the exact-match FakeAligner on the device "
+                            "(indexes are FASTA paths)")
+        p.add_argument("--bam-format", action="store_true", default=False,
+                       help="store mapped chunks as BGZF .bam instead of "
+                            "SAM text; WS mode only")
 
     p = sub.add_parser("Rescue", parents=[common],
                        help="cut unmapped reads at ligation junctions")
@@ -285,6 +323,46 @@ def _split_fastq(args, walls) -> None:
         os.remove(last)          # as split_reads removes it in its folder
 
 
+def _mapping(args, dev, walls) -> None:
+    """``ws_mapping`` / ``ws_rescue_mapping`` (or, with ``-m PBS`` and
+    bowtie2, ``pbs_mapping`` / ``pbs_rescue_mapping``), as the JAX CLI runs
+    them: ``--bam-format`` is refused in PBS mode unless
+    ``--fake-aligner``, which always runs in WS mode."""
+    from .pipeline.mapping import (Bowtie2Aligner, FakeAligner, pbs_mapping,
+                                   pbs_rescue_mapping, ws_mapping,
+                                   ws_rescue_mapping)
+
+    is_global = args.command == "GlobalMapping"
+    fastq = args.fastq or _ws(args, "chunks" if is_global else "rescue")
+    out = args.out or _ws(args, "global" if is_global else "remap")
+    fmt = "bam" if args.bam_format else "sam"
+    pbs = args.mode == "PBS" and not args.fake_aligner
+    if args.bam_format and pbs:
+        raise SystemExit("--bam-format requires WS mode (PBS jobs "
+                         "run bowtie2 one-liners that emit SAM)")
+    aligner = (FakeAligner(device=dev) if args.fake_aligner
+               else Bowtie2Aligner(args.bowtie2Path,
+                                   max(1, args.WSthreads // 4), device=dev))
+    pbs_kw = dict(cell="hichap", bowtie2=args.bowtie2Path,
+                  threads=args.PBSthreads[1], num_task=args.PBSthreads[0],
+                  mem_gb=args.memory, log_dir=args.PBSlogfile)
+    if is_global:
+        if pbs:
+            pbs_mapping(fastq, out, args.bowtieIndex, **pbs_kw)
+        else:
+            ws_mapping(fastq, out, args.bowtieIndex, aligner=aligner,
+                       out_format=fmt, device=dev, walls=walls)
+        return
+    tags = (["Maternal", "Paternal"] if len(args.bowtieIndex) == 2
+            else [""])
+    idx_by_tag = dict(zip(tags, args.bowtieIndex))
+    if pbs:
+        pbs_rescue_mapping(fastq, out, idx_by_tag, **pbs_kw)
+    else:
+        ws_rescue_mapping(fastq, out, idx_by_tag, aligner=aligner,
+                          out_format=fmt, device=dev, walls=walls)
+
+
 def _rescue(args, dev, walls) -> None:
     """``cutting_reads_to_remapping`` of every chunk alignment; as in the
     JAX CLI the haplotype mark never narrows the selection, and ``-N`` is
@@ -358,11 +436,6 @@ def _device(parser, name: str):
 
 def run(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    command = next((a for a in argv if not a.startswith("-")), None)
-    if command in FRONT:
-        print(f"hichap-torch: {command} is not part of the port; run it "
-              "with hichap-tpu", file=sys.stderr)
-        return 2
     parser = build_parser()
     args = parser.parse_args(argv)
     if not args.command:
@@ -392,6 +465,9 @@ def run(argv=None) -> int:
 
     elif args.command == "rebuildF":
         _split_fastq(args, walls)
+
+    elif args.command in ("GlobalMapping", "ReMapping"):
+        _mapping(args, dev, walls)
 
     elif args.command == "Rescue":
         _rescue(args, dev, walls)

@@ -266,3 +266,68 @@ extern "C" long fastaparse_fastq(const char* buf, long nbytes,
     *is_high = hi ? 1 : 0;
     return status;
 }
+
+// fastaparse_reads: the reads of a whole FASTQ text as FakeAligner's
+// _read_fastq takes them (hichap_master_tpu/pipeline/mapping.py:174-185),
+// four lines a record, lines ended by "\n", "\r" or "\r\n": the name is the
+// first whitespace-separated word of the header after its first byte, SEQ
+// and QUAL are their lines with Python's ASCII whitespace stripped from
+// both ends, the third line is skipped, and a record cut short by the end
+// of the text has empty fields.  Spans are offsets and lengths into `buf`.
+// At most `cap` records.  Returns the records, or -1 when there are more
+// than `cap`, -2 with *bad the index of a record whose header holds no
+// word (where the JAX package's split()[0] raises IndexError), or -3 with
+// *bad the index of the first record that holds a byte outside ASCII.
+extern "C" long fastaparse_reads(const char* buf, long nbytes,
+                                 int64_t* name_off, int32_t* name_len,
+                                 int64_t* seq_off, int32_t* seq_len,
+                                 int64_t* qual_off, int32_t* qual_len,
+                                 long cap, long* bad) {
+    const char* p = buf;
+    const char* const end = buf + nbytes;
+    long n = 0;
+    while (p < end) {
+        if (n == cap) return -1;
+        const char* b[4];
+        const char* e[4];
+        for (int k = 0; k < 4; ++k) {
+            if (p < end) {
+                const char* next;
+                e[k] = line_end(p, end, &next);
+                b[k] = p;
+                p = next;
+            } else {
+                b[k] = e[k] = end;
+            }
+        }
+        for (int k = 0; k < 4; ++k) {
+            if (high(b[k], e[k])) {
+                *bad = n;
+                return -3;
+            }
+        }
+        const char* s = b[0] + 1;               // h[1:]
+        if (s > e[0]) s = e[0];
+        while (s < e[0] && space(*s)) ++s;
+        const char* t = s;
+        while (t < e[0] && !space(*t)) ++t;
+        if (t == s) {
+            *bad = n;
+            return -2;
+        }
+        name_off[n] = s - buf;
+        name_len[n] = static_cast<int32_t>(t - s);
+        for (int k = 1; k < 4; k += 2) {
+            const char* x = b[k];
+            const char* y = e[k];
+            while (x < y && space(*x)) ++x;
+            while (y > x && space(y[-1])) --y;
+            int64_t* off = k == 1 ? seq_off : qual_off;
+            int32_t* len = k == 1 ? seq_len : qual_len;
+            off[n] = x - buf;
+            len[n] = static_cast<int32_t>(y - x);
+        }
+        ++n;
+    }
+    return n;
+}

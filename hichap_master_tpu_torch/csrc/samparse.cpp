@@ -16,7 +16,8 @@
 //   as[r], xs[r] the AS and XS integer tags (0 when absent) and has[r]
 //   (bit 0 AS present, bit 1 XS present); where `quals` is not null, the
 //   QUAL text (as the JAX package's AlnRecord.qual holds it, UTF-8)
-//   appended to `quals` at qual_off[r], qual_len[r].
+//   appended to `quals` at qual_off[r], qual_len[r]; where `mapq` is not
+//   null, mapq[r] the MAPQ.
 
 #include <cstdint>
 #include <cstring>
@@ -149,7 +150,8 @@ extern "C" long samparse_sam(const char* buf, long nbytes, char* tab,
                              int32_t* qlen, char* seqs, int64_t* seq_off,
                              int32_t* seq_len, int64_t* as, int64_t* xs,
                              int8_t* has, char* quals, int64_t* qual_off,
-                             int32_t* qual_len, long* bad_line) {
+                             int32_t* qual_len, long* bad_line,
+                             int32_t* mapq) {
     Interner table(tab, tab_cap, tab_off, tab_len, tab_max, n_tab);
     Out o{names, name_off, name_len, base_len, tag, last, flag, ref, pos,
           qlen, seqs, seq_off, seq_len, as, xs, has, quals, qual_off,
@@ -241,6 +243,7 @@ extern "C" long samparse_sam(const char* buf, long nbytes, char* tab,
             qual_len[r] = static_cast<int32_t>(ql);
             o.quals_used += ql;
         }
+        if (mapq) mapq[r] = static_cast<int32_t>(v_mapq);
         as[r] = v_as;
         xs[r] = v_xs;
         has[r] = h;
@@ -344,7 +347,7 @@ extern "C" long samparse_bam(const char* buf, long nbytes, char* names,
                              int32_t* seq_len, int64_t* as, int64_t* xs,
                              int8_t* has, char* quals, int64_t* qual_off,
                              int32_t* qual_len, long* consumed,
-                             long* bad_line) {
+                             long* bad_line, int32_t* mapq) {
     static const char kCodes[] = "=ACMGRSVTWYHKDBN";
     Out o{names, name_off, name_len, base_len, tag, last, flag, ref, pos,
           qlen, seqs, seq_off, seq_len, as, xs, has, quals, qual_off,
@@ -382,6 +385,7 @@ extern "C" long samparse_bam(const char* buf, long nbytes, char* names,
         flag[r] = fl;
         ref[r] = ref_id;
         pos[r] = p0;
+        if (mapq) mapq[r] = rec[9];
         char* s = seqs + o.seqs_used;
         for (int32_t k = 0; k < l_seq; ++k) {
             const unsigned char b = rec[seq_at + k / 2];
@@ -425,9 +429,10 @@ extern "C" long samparse_bam(const char* buf, long nbytes, char* names,
 // samparse_bam_encode: n records as BAM (block_size, then the record, as the
 // JAX package's _encode_record writes them: bin 0, no CIGAR, next refID and
 // pos -1, tlen 0; SEQ bases outside "=ACMGRSVTWYHKDBN" as 15; QUAL 0xff per
-// base where qual is null or a record's qual_len is not its seq_len, else
-// each byte - 33; then "ASi" and "XSi" int32 tags where present).  Returns
-// the bytes written, or -1 if `cap` bytes would not hold them.
+// base where qual is null or a record's QUAL is "*" or empty, else each of
+// its qual_len bytes - 33, however many there are; then "ASi" and "XSi"
+// int32 tags where present).  Returns the bytes written, or -1 if `cap`
+// bytes would not hold them.
 extern "C" long samparse_bam_encode(long n, const char* names,
                                     const int64_t* name_off,
                                     const int32_t* name_len,
@@ -448,7 +453,11 @@ extern "C" long samparse_bam_encode(long n, const char* names,
     unsigned char* const stop = q + cap;
     for (long r = 0; r < n; ++r) {
         const long ln = name_len[r] + 1, ls = seq_len[r];
-        const long body = 32 + ln + (ls + 1) / 2 + ls +
+        const char* qs = qual ? qual + qual_off[r] : nullptr;
+        const bool no_qual = !qual || qual_len[r] == 0 ||
+                             (qual_len[r] == 1 && qs[0] == '*');
+        const long lq = no_qual ? ls : qual_len[r];
+        const long body = 32 + ln + (ls + 1) / 2 + lq +
                           ((has[r] & 1) ? 7 : 0) + ((has[r] & 2) ? 7 : 0);
         if (stop - q < 4 + body) return -1;
         const int32_t head[9] = {static_cast<int32_t>(body), ref[r],
@@ -474,9 +483,8 @@ extern "C" long samparse_bam_encode(long n, const char* names,
             const int lo = k + 1 < ls ? code[s[k + 1]] : 0;
             *q++ = static_cast<unsigned char>((hi << 4) | lo);
         }
-        if (qual && qual_len[r] == ls) {
-            const char* qs = qual + qual_off[r];
-            for (long k = 0; k < ls; ++k)
+        if (!no_qual) {
+            for (long k = 0; k < lq; ++k)
                 *q++ = static_cast<unsigned char>(qs[k] - 33);
         } else {
             std::memset(q, 0xff, static_cast<size_t>(ls));
@@ -547,4 +555,145 @@ extern "C" long samparse_fragments(const char* buf, long nbytes, char* tab,
     }
     *bad_line = line;
     return r;
+}
+
+namespace {
+
+// A decimal integer at q (with "-" first when negative); returns the end.
+char* decimal(char* q, int64_t v) {
+    char digits[24];
+    uint64_t a = v < 0 ? 0 - static_cast<uint64_t>(v)
+                       : static_cast<uint64_t>(v);
+    char* d = digits + sizeof(digits);
+    do {
+        *--d = static_cast<char>('0' + a % 10);
+        a /= 10;
+    } while (a);
+    if (v < 0) *--d = '-';
+    const size_t len = static_cast<size_t>(digits + sizeof(digits) - d);
+    std::memcpy(q, d, len);
+    return q + len;
+}
+
+}  // namespace
+
+// samparse_format_sam: SAM body lines of records rows[0..n) (all of 0..n
+// where rows is null), as the JAX package's format_sam_line writes them
+// (hichap_master_tpu/io/sam.py:84-96): QNAME, FLAG, RNAME (entry ref[r] of
+// the reference table, "*" for -1 or an empty name), POS = pos + 1, MAPQ,
+// "*\t*\t0\t0", SEQ, QUAL ("*" where empty; QUAL "*" too where `quals` is
+// null), then "AS:i:" and "XS:i:" where has[r] holds bits 0 and 1.  Where
+// rev is not null and rev[r] is 1, SEQ is written reverse-complemented
+// (A, C, G, T swapped with T, G, C, A; every other byte kept) and QUAL
+// reversed, as FakeAligner stores a flag-16 record.  Returns the bytes
+// written, or -1 if `cap` bytes would not hold them.
+extern "C" long samparse_format_sam(
+    long n, const int64_t* rows, const char* names, const int64_t* name_off,
+    const int32_t* name_len, const int32_t* flag, const int32_t* ref,
+    const char* tab, const int64_t* tab_off, const int64_t* tab_len,
+    const int64_t* pos, const int32_t* mapq, const char* seqs,
+    const int64_t* seq_off, const int32_t* seq_len, const char* quals,
+    const int64_t* qual_off, const int32_t* qual_len, const int8_t* rev,
+    const int64_t* as, const int64_t* xs, const int8_t* has, char* out,
+    long cap) {
+    char comp[256];
+    for (int c = 0; c < 256; ++c) comp[c] = static_cast<char>(c);
+    comp['A'] = 'T';
+    comp['C'] = 'G';
+    comp['G'] = 'C';
+    comp['T'] = 'A';
+    char* q = out;
+    char* const end = out + cap;
+    for (long i = 0; i < n; ++i) {
+        const long r = rows ? rows[i] : i;
+        const long nl = name_len[r], sl = seq_len[r];
+        const long ql = quals ? qual_len[r] : 0;
+        const long rl = ref[r] >= 0 ? tab_len[ref[r]] : 0;
+        // 11 fields: 10 tabs, 5 numbers of at most 20 bytes, 2 tags of 26
+        if (end - q < nl + rl + sl + ql + 220) return -1;
+        const bool flip = rev && rev[r];
+        std::memcpy(q, names + name_off[r], static_cast<size_t>(nl));
+        q += nl;
+        *q++ = '\t';
+        q = decimal(q, flag[r]);
+        *q++ = '\t';
+        if (rl > 0) {
+            std::memcpy(q, tab + tab_off[ref[r]], static_cast<size_t>(rl));
+            q += rl;
+        } else {
+            *q++ = '*';
+        }
+        *q++ = '\t';
+        q = decimal(q, pos[r] + 1);
+        *q++ = '\t';
+        q = decimal(q, mapq[r]);
+        std::memcpy(q, "\t*\t*\t0\t0\t", 9);
+        q += 9;
+        const unsigned char* s =
+            reinterpret_cast<const unsigned char*>(seqs + seq_off[r]);
+        if (sl == 0) {
+            *q++ = '*';
+        } else if (flip) {
+            for (long k = 0; k < sl; ++k) *q++ = comp[s[sl - 1 - k]];
+        } else {
+            std::memcpy(q, s, static_cast<size_t>(sl));
+            q += sl;
+        }
+        *q++ = '\t';
+        if (ql == 0) {
+            *q++ = '*';
+        } else if (flip) {
+            const char* t = quals + qual_off[r];
+            for (long k = 0; k < ql; ++k) *q++ = t[ql - 1 - k];
+        } else {
+            std::memcpy(q, quals + qual_off[r], static_cast<size_t>(ql));
+            q += ql;
+        }
+        if (has[r] & 1) {
+            std::memcpy(q, "\tAS:i:", 6);
+            q = decimal(q + 6, as[r]);
+        }
+        if (has[r] & 2) {
+            std::memcpy(q, "\tXS:i:", 6);
+            q = decimal(q + 6, xs[r]);
+        }
+        *q++ = '\n';
+    }
+    return static_cast<long>(q - out);
+}
+
+// samparse_lines: the SAM body lines of `buf` as std::getline reads them
+// (ended by "\n" only, so a "\r" before it stays in the line; the last line
+// may lack its "\n"; an empty line is a line), lines that start with "@"
+// skipped: line_off[i] / line_len[i] their bytes in `buf` (without the
+// "\n"), and each line's QNAME, its bytes up to the first tab (the whole
+// line without one), copied to `names` at name_off[i], name_len[i].  At
+// most `cap` lines; returns the lines, or -1 when there are more.
+extern "C" long samparse_lines(const char* buf, long nbytes,
+                               int64_t* line_off, int32_t* line_len,
+                               char* names, int64_t* name_off,
+                               int32_t* name_len, long cap) {
+    const char* p = buf;
+    const char* const end = buf + nbytes;
+    long n = 0, used = 0;
+    while (p < end) {
+        const char* nl = static_cast<const char*>(
+            std::memchr(p, '\n', static_cast<size_t>(end - p)));
+        const char* eol = nl ? nl : end;
+        if (eol == p || *p != '@') {
+            if (n == cap) return -1;
+            const char* t = static_cast<const char*>(
+                std::memchr(p, '\t', static_cast<size_t>(eol - p)));
+            const long k = (t ? t : eol) - p;
+            line_off[n] = p - buf;
+            line_len[n] = static_cast<int32_t>(eol - p);
+            std::memcpy(names + used, p, static_cast<size_t>(k));
+            name_off[n] = used;
+            name_len[n] = static_cast<int32_t>(k);
+            used += k;
+            ++n;
+        }
+        p = nl ? nl + 1 : end;
+    }
+    return n;
 }

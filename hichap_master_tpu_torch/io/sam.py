@@ -1,7 +1,8 @@
 """Alignments into columns: SAM text, ``.sam.gz`` and (through ``io.bam``)
-BAM, without pysam.
+BAM, without pysam; and columns out as SAM text (``write_sam``, the JAX
+package's ``format_sam_line`` by host C++ ``samparse_format_sam``).
 
-Counterpart of the reading half of ``hichap_master_tpu/io/sam.py``.  The
+Counterpart of ``hichap_master_tpu/io/sam.py``.  The
 JAX package parses each line into an ``AlnRecord`` dataclass; the port
 scans blocks of lines with host C++ (``samparse_sam`` in
 ``csrc/samparse.cpp``, built by ``kernels/_build.load_host``) into one
@@ -20,7 +21,8 @@ the JAX package's ``int()`` raises.  Lengths count bytes (the JAX package
 counts characters; they differ only for non-ASCII text).
 
 QUAL is read only where asked for (``qual=True``): ``pipeline.rescue``
-needs it, ``bamProcess`` does not and allocates nothing for it.  It is the
+needs it, ``bamProcess`` does not and allocates nothing for it; so is
+MAPQ (``mapq=True``), which only the writers need.  It is the
 text of the JAX package's ``AlnRecord.qual``: SAM's field 11 as written
 (``*`` included); BAM's ``*`` for a missing QUAL (0xff), ``""`` for
 ``l_seq`` 0, else ``chr(q + 33)`` per byte, as UTF-8.
@@ -61,7 +63,8 @@ class Alignments:
     written) or -1 for none; ``pos`` 0-based; ``qlen`` the query length;
     ``tag_as`` / ``tag_xs`` the AS and XS values where ``has`` has
     ``HAS_AS`` / ``HAS_XS``; ``quals`` / ``qual_off`` / ``qual_len`` the
-    QUAL text of each record where it was asked for (else None)."""
+    QUAL text of each record and ``mapq`` its MAPQ, where they were asked
+    for (else None)."""
 
     names: np.ndarray
     name_off: np.ndarray
@@ -83,6 +86,7 @@ class Alignments:
     quals: Optional[np.ndarray] = None
     qual_off: Optional[np.ndarray] = None
     qual_len: Optional[np.ndarray] = None
+    mapq: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
         return len(self.flag)
@@ -106,12 +110,17 @@ _COLUMNS = (("name_off", np.int64), ("name_len", np.int32),
             ("qlen", np.int32), ("seq_off", np.int64), ("seq_len", np.int32),
             ("tag_as", np.int64), ("tag_xs", np.int64), ("has", np.int8))
 _QUAL_COLUMNS = (("qual_off", np.int64), ("qual_len", np.int32))
+_MAPQ_COLUMNS = (("mapq", np.int32),)
+_ALL = _COLUMNS + _QUAL_COLUMNS + _MAPQ_COLUMNS
 
 
-def _empty_block(cap: int, nbytes: int, qual_bytes: int = -1) -> dict:
+def _empty_block(cap: int, nbytes: int, qual_bytes: int = -1,
+                 mapq: bool = False) -> dict:
     """Columns for ``cap`` records and ``nbytes`` of names and of
-    sequences; QUAL columns for ``qual_bytes`` bytes where it is >= 0."""
-    out = {k: np.empty(cap, t) for k, t in _COLUMNS}
+    sequences; QUAL columns for ``qual_bytes`` bytes where it is >= 0; a
+    MAPQ column where ``mapq``."""
+    out = {k: np.empty(cap, t) for k, t in _COLUMNS + (
+        _MAPQ_COLUMNS if mapq else ())}
     out["names"] = np.empty(max(nbytes, 1), np.uint8)
     out["seqs"] = np.empty(max(nbytes, 1), np.uint8)
     if qual_bytes >= 0:
@@ -129,10 +138,14 @@ def _block_args(b: dict) -> list:
         for k in ("quals", "qual_off", "qual_len")]
 
 
+def _mapq_arg(b: dict):
+    return _ptr(b["mapq"]) if "mapq" in b else None
+
+
 def _trim(b: dict, n: int) -> dict:
     """The first ``n`` records of a block, its byte buffers cut to what they
     hold."""
-    out = {k: b[k][:n] for k, _ in _COLUMNS + _QUAL_COLUMNS if k in b}
+    out = {k: b[k][:n] for k, _ in _ALL if k in b}
     end = lambda o, l: int(o[n - 1]) + int(l[n - 1]) if n else 0  # noqa: E731
     out["names"] = b["names"][:end(out["name_off"], out["name_len"])]
     out["seqs"] = b["seqs"][:end(out["seq_off"], out["seq_len"])]
@@ -141,20 +154,21 @@ def _trim(b: dict, n: int) -> dict:
     return out
 
 
-def _parse_sam(buf: bytes, labels: _Labels, qual: bool = False):
+def _parse_sam(buf: bytes, labels: _Labels, qual: bool = False,
+               mapq: bool = False):
     """One block of SAM lines through the host scanner: (the block's
     columns, as ``Alignments`` names them, and its number of lines), or
     (None, the index of the line that fails)."""
     from ..kernels._build import load_host
 
     cap = len(buf) // MIN_LINE + 1
-    b = _empty_block(cap, len(buf), len(buf) if qual else -1)
+    b = _empty_block(cap, len(buf), len(buf) if qual else -1, mapq)
     bad = np.zeros(1, np.int64)
     while True:
         n = load_host().samparse_sam(
             buf, len(buf), _ptr(labels.tab), labels.tab.size,
             _ptr(labels.off), _ptr(labels.len), labels.off.size,
-            _ptr(labels.n), *_block_args(b), _ptr(bad))
+            _ptr(labels.n), *_block_args(b), _ptr(bad), _mapq_arg(b))
         if n != -1:
             break
         labels.grow()
@@ -172,11 +186,11 @@ def _integer(f: bytes) -> int:
 
 
 def _parse_sam_plain(buf: bytes, labels: List[bytes],
-                     qual: bool = False) -> dict:
+                     qual: bool = False, mapq: bool = False) -> dict:
     """``_parse_sam`` in Python, one line at a time (the tests'
     reference); ``labels`` is the list of interned references, extended in
     place.  Raises ``ValueError`` where the scanner fails."""
-    cols = {k: [] for k, _ in _COLUMNS + _QUAL_COLUMNS}
+    cols = {k: [] for k, _ in _ALL}
     names, seqs, quals = bytearray(), bytearray(), bytearray()
     known = {w: i for i, w in enumerate(labels)}
     for line in buf.splitlines():
@@ -186,7 +200,7 @@ def _parse_sam_plain(buf: bytes, labels: List[bytes],
         if len(f) < 11:
             continue
         flag, pos = _integer(f[1]), _integer(f[3])
-        _integer(f[4])
+        cols["mapq"].append(_integer(f[4]))
         tag_as = tag_xs = has = 0
         for t in f[11:]:
             if t.startswith(b"AS:i:"):
@@ -226,21 +240,26 @@ def _parse_sam_plain(buf: bytes, labels: List[bytes],
     if qual:
         out.update({k: np.asarray(cols[k], t) for k, t in _QUAL_COLUMNS})
         out["quals"] = np.frombuffer(bytes(quals), np.uint8)
+    if mapq:
+        out["mapq"] = np.asarray(cols["mapq"], np.int32)
     return out
 
 
 def concat(blocks: Sequence[dict], refs: List[bytes],
            ref_maps: Sequence[np.ndarray] | None = None,
-           qual: bool = False) -> Alignments:
+           qual: bool = False, mapq: bool = False) -> Alignments:
     """Blocks of columns one after the other as one ``Alignments`` whose
     ``refs`` is ``refs``; block i's reference ids map through
     ``ref_maps[i]`` (index ``ref + 1``, so that -1 stays -1) when given.
-    No blocks give no records (with empty QUAL columns where ``qual``)."""
+    No blocks give no records (with empty QUAL and MAPQ columns where
+    ``qual`` and ``mapq``)."""
     if not blocks:
-        blocks = [_trim(_empty_block(0, 0, 0 if qual else -1), 0)]
+        blocks = [_trim(_empty_block(0, 0, 0 if qual else -1, mapq), 0)]
     qual = all(b.get("quals") is not None for b in blocks)
+    mapq = all(b.get("mapq") is not None for b in blocks)
     out = {}
-    for k, _ in _COLUMNS + (_QUAL_COLUMNS if qual else ()):
+    for k, _ in _COLUMNS + (_QUAL_COLUMNS if qual else ()) + (
+            _MAPQ_COLUMNS if mapq else ()):
         out[k] = np.concatenate([b[k] for b in blocks])
     for buf, off in (("names", "name_off"), ("seqs", "seq_off")) + (
             (("quals", "qual_off"),) if qual else ()):
@@ -390,24 +409,108 @@ def _line_blocks(path: str) -> Iterator[bytes]:
     yield from _iter_line_blocks(path, READ_BYTES)
 
 
-def read_sam(path: str, qual: bool = False) -> Alignments:
+def read_sam(path: str, qual: bool = False,
+             mapq: bool = False) -> Alignments:
     """The records of a SAM file (``.sam.gz``: gzip) as columns (with
-    QUAL where ``qual``)."""
+    QUAL where ``qual``, MAPQ where ``mapq``)."""
     labels = _Labels()
     blocks, line = [], 0
     for buf in _line_blocks(path):
-        block, lines = _parse_sam(buf, labels, qual)
+        block, lines = _parse_sam(buf, labels, qual, mapq)
         if block is None:
             raise ValueError(f"{path}:{line + lines + 1}: FLAG, POS, MAPQ or "
                              "an AS/XS tag value is no integer")
         blocks.append(block)
         line += lines
-    return concat(blocks, labels.strings(), qual=qual)
+    return concat(blocks, labels.strings(), qual=qual, mapq=mapq)
 
 
-def read_alignments(path: str, qual: bool = False) -> Alignments:
+def read_alignments(path: str, qual: bool = False,
+                    mapq: bool = False) -> Alignments:
     """SAM or BAM by the file's suffix (``.bam``: ``io.bam.read_bam``)."""
     if str(path).endswith(".bam"):
         from .bam import read_bam
-        return read_bam(path, qual)
-    return read_sam(path, qual)
+        return read_bam(path, qual, mapq)
+    return read_sam(path, qual, mapq)
+
+
+# ------------------------------------------------------------------ write
+WRITE_RECORDS = 1 << 18       # records formatted at a time
+
+
+def _word_table(words: Sequence[bytes]):
+    """(bytes, offsets, lengths) of byte strings one after the other."""
+    lens = np.asarray([len(w) for w in words], np.int64)
+    offs = np.cumsum(lens) - lens
+    tab = np.frombuffer(b"".join(words) or b"\0", np.uint8)
+    return tab, offs.astype(np.int64), lens
+
+
+def format_sam(records: Alignments, mapq: np.ndarray, rows=None,
+               rev=None) -> Iterator[bytes]:
+    """SAM body lines of ``records`` (``rows``, an order of record indices,
+    or all in order), ``WRITE_RECORDS`` at a time, as the JAX package's
+    ``format_sam_line`` writes them (``hichap_master_tpu/io/sam.py:84-96``;
+    host C++ ``samparse_format_sam``): POS is ``pos + 1``, columns 6-9 are
+    ``*\\t*\\t0\\t0``, an empty SEQ or QUAL (or no QUAL column) is ``*``,
+    ``AS:i:`` before ``XS:i:``, each where ``has`` sets it.  Where ``rev``
+    (int8 per record) is 1, SEQ is written reverse-complemented and QUAL
+    reversed."""
+    from ..kernels._build import load_host
+
+    lib = load_host()
+    n = len(records) if rows is None else len(rows)
+    tab, toff, tlen = _word_table(records.refs)
+    mapq = np.ascontiguousarray(mapq, np.int32)
+    quals = records.quals
+    q = ((_ptr(quals), _ptr(records.qual_off), _ptr(records.qual_len))
+         if quals is not None else (None, None, None))
+    rev = None if rev is None else np.ascontiguousarray(rev, np.int8)
+    rows = None if rows is None else np.ascontiguousarray(rows, np.int64)
+    for s in range(0, n, WRITE_RECORDS):
+        e = min(n, s + WRITE_RECORDS)
+        pick = np.arange(s, e) if rows is None else rows[s:e]
+        cap = int(records.name_len[pick].sum() + records.seq_len[pick].sum()
+                  + (records.qual_len[pick].sum() if quals is not None
+                     else 0) + tlen.max(initial=0) * (e - s)
+                  + 220 * (e - s)) + 1
+        out = np.empty(cap, np.uint8)
+        got = lib.samparse_format_sam(
+            e - s, _ptr(np.ascontiguousarray(pick, np.int64)),
+            _ptr(records.names), _ptr(records.name_off),
+            _ptr(records.name_len), _ptr(records.flag), _ptr(records.ref),
+            _ptr(tab), _ptr(toff), _ptr(tlen), _ptr(records.pos), _ptr(mapq),
+            _ptr(records.seqs), _ptr(records.seq_off), _ptr(records.seq_len),
+            *q, None if rev is None else _ptr(rev), _ptr(records.tag_as),
+            _ptr(records.tag_xs), _ptr(records.has), _ptr(out), cap)
+        if got < 0:
+            raise RuntimeError("samparse_format_sam: the buffer is short")
+        yield out[:got].tobytes()
+
+
+def write_sam(path: str, records: Alignments,
+              references: Optional[dict] = None, *,
+              mapq: Optional[np.ndarray] = None, rows=None,
+              rev=None) -> None:
+    """``records`` as SAM text (``hichap_master_tpu/io/sam.py:99-107``):
+    ``@SQ`` lines first when ``references`` is given, then one line a
+    record (``format_sam``); a ``.gz`` path is gzipped.  ``mapq`` is the
+    column that ``Alignments`` keeps only when read with ``mapq=True``
+    (default: ``records.mapq``)."""
+    if mapq is None:
+        mapq = records.mapq
+    if mapq is None:
+        raise ValueError("write_sam needs a MAPQ column")
+    if str(path).endswith(".gz"):   # gzip members on several threads
+        from ..pipeline.chunking import _GzipWriter
+        f = _GzipWriter(path)
+    else:
+        f = open(path, "wb")
+    try:
+        if references:
+            f.write("".join(f"@SQ\tSN:{name}\tLN:{length}\n" for name, length
+                            in references.items()).encode())
+        for text in format_sam(records, mapq, rows, rev):
+            f.write(text)
+    finally:
+        f.close()

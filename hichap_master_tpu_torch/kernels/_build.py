@@ -40,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_Q = ctypes.c_int64
 # C entry points -> argument types (pointers and the stream as c_void_p;
 # every function returns the launch's cudaError_t as int, except
 # ice_sweep_max_batch (a batch size), segment_marginal_tile (K7's pixels
@@ -61,6 +62,11 @@ SIGNATURES = {
     "impute_vote_constant": [_I, _I],
     "segment_marginal": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "segment_marginal_tile": [],
+    "exact_index_count": [_P, _Q, _P, _P, _I, _I, _P, _P, _P],
+    "exact_index_scatter": [_P, _Q, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "exact_hits": [_P, _Q, _P, _P, _I, _I, _P, _P, _P, _Q, _P, _P, _P, _Q,
+                   _P, _P, _P, _P],
+    "exact_hits_scan": [_P, _Q, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
 }
 
 
@@ -69,8 +75,9 @@ SIGNATURES = {
 # bedparse_allelic), the rows scanned or -1 for a full intern table
 # (bedparse_record; samparse_sam, samparse_fragments, which give -2 for a
 # line that fails), the records parsed or -2 (samparse_bam), the bytes
-# written (bedparse_gather, bedparse_format, samparse_bam_encode; -1 for a
-# full buffer)
+# written (bedparse_gather, bedparse_format, samparse_bam_encode,
+# samparse_format_sam; -1 for a full buffer), the lines or records found
+# (samparse_lines, fastaparse_reads; -1 past the capacity)
 _L = ctypes.c_long
 _S = ctypes.POINTER(ctypes.c_char_p)
 HOST_SOURCE = CSRC_DIR / "bedparse.cpp"
@@ -85,15 +92,18 @@ HOST_SIGNATURES = {
                         _P, _P, _P, _P, _P, _P, _P, _P],
     "bedparse_gather": [_P, _P, _P, _P, _L, _P],
     "bedparse_format": [_L, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _L],
-    "samparse_sam": [ctypes.c_char_p, _L, _P, _L, _P, _P, _I, _P] + [_P] * 20,
-    "samparse_bam": [_P, _L] + [_P] * 21,
+    "samparse_sam": [ctypes.c_char_p, _L, _P, _L, _P, _P, _I, _P] + [_P] * 21,
+    "samparse_bam": [_P, _L] + [_P] * 22,
     "samparse_bam_encode": [_L] + [_P] * 17 + [_L],
+    "samparse_format_sam": [_L] + [_P] * 22 + [_L],
+    "samparse_lines": [_P, _L, _P, _P, _P, _P, _P, _L],
     "samparse_fragments": [ctypes.c_char_p, _L, _P, _L, _P, _P, _I, _P, _P,
                            _P, _P],
     "fastaparse_fasta": [_P, _L, _P, _P, _P, _P, _L, _P, _P],
     "fastaparse_snps": [_P, _L, _P, _L, _P, _P, _I, _P] + [_P] * 7,
     "fastaparse_fastq": [_P, _L, ctypes.c_char_p, _L, _P, _L, _P, _P, _P,
                          _P, _P],
+    "fastaparse_reads": [_P, _L, _P, _P, _P, _P, _P, _P, _L, _P],
 }
 
 

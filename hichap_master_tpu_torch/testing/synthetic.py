@@ -1254,6 +1254,12 @@ GENOME_LEAD_N = {"13": 19_020_000, "14": 19_000_000, "15": 20_000_000,
                  "21": 9_411_193, "22": 16_050_000}
 GENOME_MASK_RUN = 300
 GENOME_LINE = 50
+# genome_draw(repeats=n), opt-in: n duplicated segments of REPEAT_LEN and n
+# inverted repeats (a run of PALINDROME_HALF bases followed by its reverse
+# complement, upper case), spread over the chromosomes by index; their
+# places and sizes are invented
+REPEAT_LEN = 400
+PALINDROME_HALF = 100
 
 
 def _ascii_bases(codes: torch.Tensor) -> torch.Tensor:
@@ -1284,8 +1290,58 @@ def _genome_chrom(g, L: int, name: str, dev) -> torch.Tensor:
     return seq
 
 
+def _comp_table(dev) -> torch.Tensor:
+    comp = torch.arange(256, device=dev, dtype=torch.uint8)
+    comp[torch.tensor([65, 67, 71, 84], device=dev)] = torch.tensor(
+        [84, 71, 67, 65], device=dev, dtype=torch.uint8)
+    return comp
+
+
+def _free_at(g, seq, width: int, dev) -> int:
+    """A start whose ``width`` bytes hold no N (-1 after 100 tries)."""
+    for _ in range(100):
+        p = int(torch.randint(0, seq.numel() - width, (1,), generator=g,
+                              device=dev))
+        if not bool((seq[p:p + width] == ord("N")).any()):
+            return p
+    return -1
+
+
+def _plant_repeats(g, seq, count: int, dev):
+    """``count`` duplicated segments and ``count`` inverted repeats written
+    into one chromosome, none overlapping another: ([(src, dst)],
+    [start])."""
+    dup, pal, taken = [], [], []
+    if seq.numel() < 4 * REPEAT_LEN:
+        return dup, pal
+
+    def free(a, width):
+        return all(a + width <= b or e <= a for b, e in taken)
+
+    comp = _comp_table(dev)
+    for _ in range(count):
+        src = _free_at(g, seq, REPEAT_LEN, dev)
+        dst = _free_at(g, seq, REPEAT_LEN, dev)
+        if min(src, dst) < 0 or abs(src - dst) < REPEAT_LEN or not (
+                free(src, REPEAT_LEN) and free(dst, REPEAT_LEN)):
+            continue
+        seq[dst:dst + REPEAT_LEN] = seq[src:src + REPEAT_LEN]
+        dup.append((src, dst))
+        taken += [(src, src + REPEAT_LEN), (dst, dst + REPEAT_LEN)]
+    for _ in range(count):
+        H = PALINDROME_HALF
+        c = _free_at(g, seq, 2 * H, dev)
+        if c < 0 or not free(c, 2 * H):
+            continue
+        taken.append((c, c + 2 * H))
+        seq[c:c + H] &= 0xDF
+        seq[c + H:c + 2 * H] = comp[seq[c:c + H].flip(0).long()]
+        pal.append(c)
+    return dup, pal
+
+
 def genome_draw(fasta: str, snp_file: str, lengths, names, seed: int = 0,
-                *, device) -> dict:
+                *, device, repeats: int = 0) -> dict:
     """A genome of ``lengths`` (``names`` without ``chr``) drawn on
     ``device`` and written as a FASTA (``>chr<name>``, 50 bases a line),
     with a phased SNP table (5 columns: ``chr<name>``, 1-based position,
@@ -1294,13 +1350,21 @@ def genome_draw(fasta: str, snp_file: str, lengths, names, seed: int = 0,
     reference base uppercase, one of the two alleles, the other a different
     base).  Returns ``chroms`` ({name: uint8 tensor on device}) and
     ``snps`` ({name: (positions, maternal, paternal), tensors on device,
-    the alleles as ASCII codes})."""
+    the alleles as ASCII codes}).  With ``repeats``, ``repeats`` duplicated
+    segments and as many inverted repeats are planted (``_plant_repeats``,
+    a generator of their own, so the rest of the draw is unchanged) and
+    returned: ``repeats`` ({name: [(src, dst)]}, 0-based starts of the two
+    copies of REPEAT_LEN bases) and ``palindromes`` ({name: [start]}, runs
+    of 2 * PALINDROME_HALF bases equal to their reverse complement)."""
     import os
 
     dev = torch.device(device)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
+    g_rep = torch.Generator(device=dev)
+    g_rep.manual_seed(seed + 7919)
     chroms, snps = {}, {}
+    dups, pals = {}, {}
     rows = {k: [] for k in ("chrom", "pos", "ref", "m", "p")}
     os.makedirs(os.path.dirname(os.path.abspath(fasta)), exist_ok=True)
     from ..io.fasta import wrap
@@ -1308,6 +1372,10 @@ def genome_draw(fasta: str, snp_file: str, lengths, names, seed: int = 0,
     with open(fasta, "wb") as f:
         for i, (name, L) in enumerate(zip(names, lengths)):
             seq = _genome_chrom(g, int(L), name, dev)
+            if repeats:
+                dups[name], pals[name] = _plant_repeats(
+                    g_rep, seq, repeats // len(names) + (
+                        i < repeats % len(names)), dev)
             chroms[name] = seq
             f.write(f">chr{name}\n".encode())
             f.write(wrap(seq, GENOME_LINE).cpu().numpy())
@@ -1337,7 +1405,10 @@ def genome_draw(fasta: str, snp_file: str, lengths, names, seed: int = 0,
                       [("word", *btab, cols["ref"])],
                       [("word", *btab, cols["m"])],
                       [("word", *btab, cols["p"])]], len(cols["pos"]), f)
-    return dict(chroms=chroms, snps=snps, n_snps=len(cols["pos"]))
+    out = dict(chroms=chroms, snps=snps, n_snps=len(cols["pos"]))
+    if repeats:
+        out.update(repeats=dups, palindromes=pals)
+    return out
 
 
 # fastq_pair: the read name of SRA's fastq-dump ("@<run>.<spot> <spot>
@@ -1419,3 +1490,363 @@ def fastq_pair(out_dir: str, cell: str, n_reads: int, chunk: int,
         digests[mate] = [x.hexdigest() for x in hashes]
         size[mate] = total
     return dict(fastq=paths, digests=digests, bytes=size)
+
+
+# read_draw: Hi-C mates of the mapping stages drawn from the parental
+# genomes, each read with its planted truth.  The name, length and
+# qualities are fastq_pair's; the mix of kinds (READ_MIX, the all-N reads
+# per block) is invented:
+#   both        a window with no SNP and no N: maps to both haplotypes;
+#   maternal,   a window over at least one SNP, from that haplotype: maps
+#   paternal    to it only;
+#   chimera     two windows joined by the MboI junction GATCGATC, parts of
+#               at least READ_PART bases: unmapped, cut by Rescue, each
+#               part mapped by ReMapping;
+#   short       a chimera whose first part has 10-12 bases (Rescue's
+#               MIN_LEN is 10): the part maps many times;
+#   random      uniform bases: unmapped;
+#   n           a window of "both" with one base set to N: unmapped;
+#   multi       a window inside one copy of a duplicated segment
+#               (genome_draw's repeats): maps to both copies (XS);
+#   palindrome  the centre of an inverted repeat: the read is its own
+#               reverse complement, so it maps twice at one place (XS);
+#   all_n       N only: maps to every N run (XS), first at the first N.
+# Every read but the all-N and random ones is reverse-complemented with
+# probability 1/2.
+READ_MIX = (("both", 0.55), ("maternal", 0.09), ("paternal", 0.09),
+            ("chimera", 0.1), ("short", 0.02), ("random", 0.05),
+            ("n", 0.04), ("multi", 0.05), ("palindrome", 0.01))
+READ_KINDS = tuple(k for k, _ in READ_MIX) + ("all_n",)
+READ_ALL_N = 1                # all-N reads per block of FASTQ_BLOCK reads
+READ_PART = 32                # the shortest part of a "chimera" (a
+                              # random 32-mer recurs in hg19 with odds
+                              # 3e-10, a 25-mer with 6e-6)
+READ_SHORT = (10, 13)         # the first part of a "short" chimera
+_JUNC = torch.tensor(list(b"GATCGATC"), dtype=torch.uint8)
+_DRAW_ROUNDS = 1000           # draws of the windows that failed, at most
+
+
+def _clear(s, width, gen):
+    """Whether the windows at ``s`` miss every planted repeat (both copies
+    of a duplicated segment, every inverted repeat)."""
+    if not len(gen["planted"][0]):
+        return torch.ones_like(s, dtype=torch.bool)
+    starts, ends = gen["planted"]
+    i = torch.searchsorted(starts, s + width) - 1
+    return (i < 0) | (ends[i.clamp(min=0)] <= s)
+
+
+def _windows(g, n, width, gen, avoid_snps: bool):
+    """``n`` global starts of windows of ``width`` bytes inside one
+    chromosome, without N or planted repeat (and without SNP where
+    ``avoid_snps``)."""
+    dev = gen["M"].device
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    todo = torch.arange(n, device=dev)
+    span = (gen["lens"] - width).clamp(min=0).double()
+    for _ in range(_DRAW_ROUNDS):
+        if not len(todo):
+            return out
+        c = torch.multinomial(span, len(todo), True, generator=g)
+        s = gen["start"][c] + (torch.rand(len(todo), generator=g, device=dev,
+                                          dtype=torch.float64)
+                               * span[c]).long()
+        ok = ~(gen["M"][s[:, None] + torch.arange(width, device=dev)]
+               == ord("N")).any(1) & _clear(s, width, gen)
+        if avoid_snps and len(gen["snp"]):
+            ok &= (torch.searchsorted(gen["snp"], s + width)
+                   == torch.searchsorted(gen["snp"], s))
+        out[todo[ok]] = s[ok]
+        todo = todo[~ok]
+    if len(todo):
+        raise RuntimeError("read_draw: too few windows without N")
+    return out
+
+
+def _snp_windows(g, n, width, gen):
+    """``n`` global starts of windows of ``width`` bytes over a SNP, inside
+    one chromosome, without N or planted repeat."""
+    dev = gen["M"].device
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    todo = torch.arange(n, device=dev)
+    for _ in range(_DRAW_ROUNDS):
+        if not len(todo):
+            return out
+        i = torch.randint(0, len(gen["snp"]), (len(todo),), generator=g,
+                          device=dev)
+        snp = gen["snp"][i]
+        s = snp - torch.randint(0, width, (len(todo),), generator=g,
+                                device=dev)
+        c = torch.searchsorted(gen["start"], snp, right=True) - 1
+        ok = (s >= gen["start"][c]) & (s + width <= gen["end"][c])
+        sc = s.clamp(min=0, max=gen["M"].numel() - width)
+        ok &= ~(gen["M"][sc[:, None] + torch.arange(width, device=dev)]
+                == ord("N")).any(1) & _clear(sc, width, gen)
+        out[todo[ok]] = s[ok]
+        todo = todo[~ok]
+    if len(todo):
+        raise RuntimeError("read_draw: too few windows over a SNP")
+    return out
+
+
+def _revcomp_rows(x: torch.Tensor, ln: torch.Tensor) -> torch.Tensor:
+    """Each row's first ``ln`` bytes reverse-complemented (zero after)."""
+    W = x.shape[1]
+    j = torch.arange(W, device=x.device)
+    src = (ln[:, None] - 1 - j).clamp(min=0)
+    comp = _comp_table(x.device)
+    return torch.where(j < ln[:, None], comp[x.gather(1, src).long()], 0)
+
+
+def _planted_hits(hap: torch.Tensor, rows: torch.Tensor, ln: torch.Tensor,
+                 cand: torch.Tensor):
+    """FakeAligner's answer for reads ``rows`` ([n, W] uint8, lengths
+    ``ln``) counting only the planted places ``cand`` ([n, m] global starts
+    in ``hap``, -1 for none): (first hit, flag 0/16/4, two hits or more).
+    The forward occurrences first, by position (the genome's order), then
+    the reverse-complement ones."""
+    dev = rows.device
+    W = rows.shape[1]
+    j = torch.arange(W, device=dev)
+    inside = j < ln[:, None]
+    rc = _revcomp_rows(rows, ln)
+    BIG = torch.iinfo(torch.int64).max
+    first = [torch.full((len(rows),), BIG, dtype=torch.int64, device=dev)
+             for _ in range(2)]
+    total = torch.zeros(len(rows), dtype=torch.int64, device=dev)
+    for m in range(cand.shape[1]):
+        p = cand[:, m]
+        ok = p >= 0
+        idx = (p.clamp(min=0)[:, None] + j).clamp(max=hap.numel() - 1)
+        win = hap[idx]
+        for t, want in enumerate((rows, rc)):
+            hit = ok & ((win == want) | ~inside).all(1)
+            first[t] = torch.where(hit, torch.minimum(first[t], p), first[t])
+            total += hit.long()
+    fwd = first[0] < BIG
+    hit = torch.where(fwd, first[0], torch.where(first[1] < BIG, first[1],
+                                                 -1))
+    flag = torch.where(fwd, 0, torch.where(first[1] < BIG, 16, 4))
+    return hit, flag, total >= 2
+
+
+def _junctions(rows: torch.Tensor) -> torch.Tensor:
+    """Occurrences of GATCGATC (overlapping ones too) in each row."""
+    J = _JUNC.to(rows.device)
+    n = rows.shape[1] - len(J) + 1
+    hit = torch.ones((len(rows), max(n, 0)), dtype=torch.bool,
+                     device=rows.device)
+    for k in range(len(J)):
+        hit &= rows[:, k:k + n] == J[k]
+    return hit.sum(1)
+
+
+def _read_block(g, n, L, gen, all_n: int):
+    """One block of reads: (rows [n, L] uint8, kind, candidates [n, 2],
+    part lengths [n, 2], part candidates [n, 2])."""
+    dev = gen["M"].device
+    K = torch.tensor([w for _, w in READ_MIX], dtype=torch.float64,
+                     device=dev)
+    kind = torch.multinomial(K, n, True, generator=g)
+    kind[:all_n] = READ_KINDS.index("all_n")
+    rows = torch.empty((n, L), dtype=torch.uint8, device=dev)
+    cand = torch.full((n, 2), -1, dtype=torch.int64, device=dev)
+    parts = torch.zeros((n, 2), dtype=torch.int64, device=dev)
+    pcand = torch.full((n, 2), -1, dtype=torch.int64, device=dev)
+    hap_of = torch.rand(n, generator=g, device=dev) < 0.5     # True: P
+    j = torch.arange(L, device=dev)
+
+    def take(sel, starts, width=L):
+        src = torch.where(hap_of[sel, None], gen["P"][starts[:, None] + j[
+            :width]], gen["M"][starts[:, None] + j[:width]])
+        return src
+
+    def idx(name):
+        return torch.nonzero(kind == READ_KINDS.index(name)).flatten()
+
+    for name in ("both", "n"):
+        sel = idx(name)
+        s = _windows(g, len(sel), L, gen, True)
+        rows[sel] = take(sel, s)
+        cand[sel, 0] = s
+        if name == "n":
+            at = torch.randint(0, L, (len(sel),), generator=g, device=dev)
+            rows[sel, at] = ord("N")
+    for name, pat in (("maternal", False), ("paternal", True)):
+        sel = idx(name)
+        hap_of[sel] = pat
+        s = _snp_windows(g, len(sel), L, gen)
+        rows[sel] = take(sel, s)
+        cand[sel, 0] = s
+    sel = idx("multi")
+    if len(gen["dup"]):
+        r = torch.randint(0, len(gen["dup"]), (len(sel),), generator=g,
+                          device=dev)
+        o = torch.randint(0, REPEAT_LEN - L + 1, (len(sel),), generator=g,
+                          device=dev)
+        a, b = gen["dup"][r, 0] + o, gen["dup"][r, 1] + o
+        rows[sel] = take(sel, a)
+        cand[sel, 0], cand[sel, 1] = a, b
+    else:
+        kind[sel] = READ_KINDS.index("random")
+    sel = idx("palindrome")
+    if len(gen["pal"]):
+        r = torch.randint(0, len(gen["pal"]), (len(sel),), generator=g,
+                          device=dev)
+        s = gen["pal"][r] + PALINDROME_HALF - L // 2
+        rows[sel] = take(sel, s)
+        cand[sel, 0] = s
+    else:
+        kind[sel] = READ_KINDS.index("random")
+    for name in ("chimera", "short"):
+        sel = idx(name)
+        J = len(_JUNC)
+        if name == "chimera":
+            l1 = torch.randint(READ_PART, L - J - READ_PART + 1, (len(sel),),
+                               generator=g, device=dev)
+        else:
+            l1 = torch.randint(*READ_SHORT, (len(sel),), generator=g,
+                               device=dev)
+        a = _windows(g, len(sel), L, gen, False)
+        b = _windows(g, len(sel), L, gen, False)
+        wa, wb = take(sel, a), take(sel, b)
+        l2 = L - J - l1
+        out = torch.where(j < l1[:, None], wa, 0)
+        at_b = (j - l1[:, None] - J).clamp(min=0)
+        out = torch.where(j >= (l1 + J)[:, None], wb.gather(1, at_b), out)
+        jj = (j - l1[:, None]).clamp(min=0, max=J - 1)
+        inj = (j >= l1[:, None]) & (j < (l1 + J)[:, None])
+        out = torch.where(inj, _JUNC.to(dev)[jj], out)
+        rows[sel] = out.to(torch.uint8)
+        parts[sel, 0], parts[sel, 1] = l1, l2
+        pcand[sel, 0], pcand[sel, 1] = a, b
+    sel = idx("random")
+    rows[sel] = _ascii_bases(torch.randint(0, 4, (len(sel), L), generator=g,
+                                           device=dev, dtype=torch.uint8))
+    cand[sel] = -1
+    rows[idx("all_n")] = ord("N")
+    flip = (torch.rand(n, generator=g, device=dev) < 0.5) & (
+        kind != READ_KINDS.index("random")) & (
+        kind != READ_KINDS.index("all_n"))
+    full = torch.full((n,), L, dtype=torch.int64, device=dev)
+    rows = torch.where(flip[:, None], _revcomp_rows(rows, full), rows).to(
+        torch.uint8)
+    # the parts as Rescue cuts them: on a flipped read, B's reverse
+    # complement first
+    parts = torch.where(flip[:, None], parts.flip(1), parts)
+    pcand = torch.where(flip[:, None], pcand.flip(1), pcand)
+    return rows, kind, cand, parts, pcand, hap_of
+
+
+def _part_rows(rows, parts):
+    """The two parts of each read as Rescue cuts it at its junction:
+    ([n, W] part 1, [n, W] part 2)."""
+    n, L = rows.shape
+    J = len(_JUNC)
+    j = torch.arange(L, device=rows.device)
+    p1 = torch.where(j < parts[:, :1], rows, 0)
+    at = (j + parts[:, :1] + J).clamp(max=L - 1)
+    p2 = torch.where(j < parts[:, 1:], rows.gather(1, at), 0)
+    return p1.to(torch.uint8), p2.to(torch.uint8)
+
+
+def read_draw(out_dir: str, cell: str, haplotypes: dict, snps: dict,
+              n_reads: int, read_len: int = 150, seed: int = 0, *, device,
+              repeats=None, palindromes=None,
+              all_n: int = READ_ALL_N) -> dict:
+    """Two gzipped FASTQ mates of ``n_reads`` reads (``<cell>_1.fastq.gz``
+    and ``<cell>_2.fastq.gz``, written as ``fastq_pair`` writes them) drawn
+    from ``haplotypes`` ({"Maternal": {name: uint8 tensor}, "Paternal":
+    ...}, the genome order of the parental FASTAs) with ``snps`` ({name:
+    1-based positions}) and ``genome_draw``'s ``repeats`` and
+    ``palindromes``, with ``all_n`` all-N reads a block.  Returns the
+    paths (``fastq``), the chromosome order and starts (``names``,
+    ``starts``: global offsets), the first N of each haplotype
+    (``first_n``) and, per mate, the planted truth as host
+    arrays: ``kind`` (index into READ_KINDS) and, per haplotype ``M`` /
+    ``P``, ``hit`` (global start of FakeAligner's first hit, -1 for none),
+    ``flag`` (0, 16 or 4) and ``multi``, counted over the planted places;
+    for the chimeras ``parts`` (the lengths of the two parts as Rescue cuts
+    them), ``junctions`` (occurrences of the junction) and per haplotype
+    ``part_hit``, ``part_flag``, ``part_multi`` ([n, 2])."""
+    import io
+    import os
+
+    from ..pipeline.chunking import _GzipWriter
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    names = list(haplotypes["Maternal"])
+    gen = {h[0]: torch.cat([haplotypes[h][c] for c in names]) & 0xDF
+           for h in ("Maternal", "Paternal")}
+    lens = torch.tensor([haplotypes["Maternal"][c].numel() for c in names],
+                        dtype=torch.int64, device=dev)
+    gen["lens"] = lens
+    gen["end"] = torch.cumsum(lens, 0)
+    gen["start"] = gen["end"] - lens
+    at = dict(zip(names, gen["start"].tolist()))
+    gen["snp"] = torch.sort(torch.cat(
+        [snps[c].to(dev).long() - 1 + at[c] for c in names if c in snps]
+        or [torch.zeros(0, dtype=torch.int64, device=dev)])).values
+    gen["dup"] = torch.tensor([(at[c] + a, at[c] + b) for c in names
+                               for a, b in (repeats or {}).get(c, [])],
+                              dtype=torch.int64, device=dev).reshape(-1, 2)
+    gen["pal"] = torch.tensor([at[c] + a for c in names
+                               for a in (palindromes or {}).get(c, [])],
+                              dtype=torch.int64, device=dev)
+    iv = [(a, a + REPEAT_LEN) for a in gen["dup"].flatten().tolist()] + [
+        (a, a + 2 * PALINDROME_HALF) for a in gen["pal"].tolist()]
+    iv.sort()
+    gen["planted"] = (
+        torch.tensor([a for a, _ in iv], dtype=torch.int64, device=dev),
+        torch.cummax(torch.tensor([b for _, b in iv] or [0],
+                                  dtype=torch.int64, device=dev), 0)
+        .values[:len(iv)])
+    first_n = {h: int(torch.argmax((gen[h] == ord("N")).to(torch.uint8)))
+               for h in "MP"}
+    os.makedirs(out_dir, exist_ok=True)
+    paths, truth = [], {}
+    L = read_len
+    for mate in (1, 2):
+        path = os.path.join(out_dir, f"{cell}_{mate}.fastq.gz")
+        w = _GzipWriter(path)
+        cols = {}
+        for s in range(0, n_reads, FASTQ_BLOCK):
+            n = min(FASTQ_BLOCK, n_reads - s)
+            rows, kind, cand, parts, pcand, _ = _read_block(
+                g, n, L, gen, all_n)
+            qual = torch.randint(*FASTQ_QUAL, (n, L), generator=g,
+                                 device=dev, dtype=torch.uint8)
+            ln = torch.full((n,), L, dtype=torch.int64, device=dev)
+            t = {"kind": kind, "parts": parts, "junctions": _junctions(rows)}
+            p1, p2 = _part_rows(rows, parts)
+            for h in "MP":
+                hit, flag, multi = _planted_hits(gen[h], rows, ln, cand)
+                an = kind == READ_KINDS.index("all_n")
+                t[f"{h}.hit"] = torch.where(an, first_n[h], hit)
+                t[f"{h}.flag"] = torch.where(an, 0, flag)
+                t[f"{h}.multi"] = multi | an
+                ph = [_planted_hits(gen[h], p, parts[:, i], pcand[:, i:i + 1])
+                      for i, p in enumerate((p1, p2))]
+                t[f"{h}.part_hit"] = torch.stack([x[0] for x in ph], 1)
+                t[f"{h}.part_flag"] = torch.stack([x[1] for x in ph], 1)
+                t[f"{h}.part_multi"] = torch.stack([x[2] for x in ph], 1)
+            for k, v in t.items():
+                cols.setdefault(k, []).append(_host(v))
+            seq = _host(rows).ravel()
+            ids = np.arange(s + 1, s + n + 1, dtype=np.int64)
+            off = np.arange(n, dtype=np.int64) * L
+            lnh = np.full(n, L, np.int64)
+            buf = io.BytesIO()
+            _format_rows([[("const", b"@" + FASTQ_RUN), ("int", ids),
+                           ("const", b" "), ("int", ids),
+                           ("const", b" length=%d\n" % L),
+                           ("text", seq, off, lnh), ("const", b"\n+\n"),
+                           ("text", _host(qual).ravel(), off, lnh)]], n, buf)
+            w.write(buf.getvalue())
+        w.close()
+        paths.append(path)
+        truth[mate] = {k: np.concatenate(v) for k, v in cols.items()}
+    return dict(fastq=paths, names=names, starts=_host(gen["start"]),
+                first_n=first_n, truth=truth)

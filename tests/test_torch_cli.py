@@ -1,18 +1,19 @@
 """The port's command line (hichap_master_tpu_torch.cli) against the JAX
 package's (hichap_master_tpu.cli).
 
-Parser: ``rebuildG``, ``rebuildF``, ``Rescue``, ``bamProcess``,
-``filtering`` and the five analysis sub-commands take the same option
-strings, defaults, choices, types, ``nargs`` and ``required`` flags, with
-``--device`` the only extra; the two mapping sub-commands are refused by
-name; ``--device cuda`` with no card visible fails.
+Parser: every sub-command of the JAX CLI takes the same option strings,
+defaults, choices, types, ``nargs`` and ``required`` flags, with
+``--device`` the only extra; ``--device cuda`` with no card visible
+fails.
 
-``rebuildG`` (diploid and ``-N``), ``rebuildF`` and ``Rescue`` through both
-CLIs on the same inputs (the JAX package's ``diploid_dataset`` and its
-FakeAligner ``Global_bams``): the output directories byte for byte
-(``Snps.npz`` as loaded arrays, FASTQ chunks decompressed), completion
-markers included, and ``-r`` skipping each stage in both once its marker is
-there.
+``rebuildG`` (diploid and ``-N``), ``rebuildF``, ``GlobalMapping`` and
+``ReMapping`` (``--fake-aligner``, SAM and ``--bam-format``, PBS mode
+falling back to WS) and ``Rescue`` through both CLIs on the same inputs
+(the JAX package's ``diploid_dataset``, its chunks, its FakeAligner
+``Global_bams`` and its rescue FASTQs): the output directories byte for
+byte (``Snps.npz`` as loaded arrays, FASTQ chunks and BAM files
+decompressed), completion markers included, and ``-r`` skipping each stage
+in both once its marker is there.
 
 ``bamProcess`` through both CLIs on copies of one workspace of alignment
 files (``testing.synthetic.alignment_chunks``), allelic and ``-N``: the
@@ -74,8 +75,9 @@ from hichap_master_tpu_torch.testing.synthetic import (alignment_chunks,
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-COMMANDS = ("rebuildG", "rebuildF", "Rescue", "bamProcess", "filtering",
-            "matrix", "compartment", "tads", "loops", "specificity")
+COMMANDS = ("rebuildG", "rebuildF", "GlobalMapping", "Rescue", "ReMapping",
+            "bamProcess", "filtering", "matrix", "compartment", "tads",
+            "loops", "specificity")
 LENGTHS = {"1": 12_010_000, "2": 10_030_000}
 COUNTS = {"Bi_Allelic": 60_000, "M_M": 30_000, "P_P": 30_000,
           "M_P": 3_000, "P_M": 3_000}
@@ -107,29 +109,12 @@ def test_parser_matches_the_jax_cli(command):
 
 
 def test_only_the_mapping_commands_are_not_ported():
+    """Every sub-command of the JAX CLI is ported, the mapping ones too: no
+    command is left out."""
     got = set(_subparsers(PCLI.build_parser()))
     want = set(_subparsers(JCLI.build_parser()))
     assert got == set(COMMANDS)
-    assert want - got == set(PCLI.FRONT)
-
-
-@pytest.mark.parametrize("command", PCLI.FRONT)
-def test_front_commands_are_refused_by_name(command, capsys, tmp_path):
-    assert PCLI.run([command, "-w", str(tmp_path / "ws")]) == 2
-    err = capsys.readouterr().err
-    assert f"{command} is not part of the port" in err
-    assert "hichap-tpu" in err
-    assert not (tmp_path / "ws").exists()
-
-
-def test_module_entry_point_refuses_front_commands():
-    env = dict(os.environ)
-    env.pop("PYTHONPATH", None)
-    r = subprocess.run([sys.executable, "-m", "hichap_master_tpu_torch.cli",
-                        "GlobalMapping", "-i", "x"], cwd=REPO, env=env,
-                       capture_output=True, text=True, timeout=300)
-    assert r.returncode == 2
-    assert "GlobalMapping is not part of the port" in r.stderr
+    assert want - got == set()
 
 
 def test_a_cuda_device_that_is_not_visible_fails(tmp_path, capsys,
@@ -263,7 +248,7 @@ def _outputs(d):
                 with np.load(p) as z:
                     out[key] = {k: (z[k].dtype.str, z[k].tolist())
                                 for k in z.files}
-            elif f.endswith(".gz"):
+            elif f.endswith((".gz", ".bam")):
                 out[key] = gzip.open(p).read()
             else:
                 out[key] = open(p, "rb").read()
@@ -272,10 +257,12 @@ def _outputs(d):
 
 @pytest.fixture(scope="module")
 def front(tmp_path_factory):
-    """The JAX package's diploid dataset and its FakeAligner Global_bams."""
+    """The JAX package's diploid dataset, its chunks, its FakeAligner
+    Global_bams and their rescue FASTQs."""
     from hichap_master_tpu.pipeline import chunking as JC
     from hichap_master_tpu.pipeline import genome_rebuild as JG
     from hichap_master_tpu.pipeline.mapping import FakeAligner, ws_mapping
+    from hichap_master_tpu.pipeline.rescue import cutting_reads_to_remapping
     from hichap_master_tpu.testing.synthetic import diploid_dataset
 
     d = tmp_path_factory.mktemp("front")
@@ -291,6 +278,9 @@ def front(tmp_path_factory):
     ws_mapping(str(d / "fq"), str(d / "Global_bams"),
                [out["Maternal"], out["Paternal"]], aligner=FakeAligner(),
                jobs=1)
+    cutting_reads_to_remapping(str(d / "Global_bams"), str(d / "RescueFastq"),
+                               "MboI")
+    data["haplotypes"] = [out["Maternal"], out["Paternal"]]
     return d, data
 
 
@@ -414,6 +404,61 @@ def test_rescue_command_matches_the_jax_cli(front, tmp_path, nonallelic):
     assert "Rescue.total" in m and all(
         k.rsplit(".", 1)[-1] in ("read", "scan", "write", "total")
         for k in m)
+
+
+MAPPING = {"global": ["GlobalMapping"],
+           "global_bam": ["GlobalMapping", "--bam-format"],
+           "global_pbs": ["GlobalMapping", "-m", "PBS", "-pt", "3", "2"],
+           "remap": ["ReMapping"],
+           "remap_bam": ["ReMapping", "--bam-format"]}
+
+
+@pytest.mark.parametrize("case", sorted(MAPPING))
+def test_mapping_commands_match_the_jax_cli(front, tmp_path, case):
+    """``--fake-aligner`` against the two haplotype FASTAs (PBS mode runs
+    as WS with it, as in the JAX CLI)."""
+    d, data = front
+    argv = MAPPING[case] + ["--fake-aligner", "-i"] + data["haplotypes"]
+    src, stage = (("fq", "fastqchunks"), "Global_bams") if \
+        case.startswith("global") else (("RescueFastq", "RescueFastq"),
+                                        "ReMap_bams")
+    got = _front_both(tmp_path, argv, stage, setup=lambda ws: shutil.copytree(
+        d / src[0], ws / src[1]))
+    fmt = ".bam" if case.endswith("bam") else ".sam"
+    files = [k for k in got if k != ".hichap_stage_done"]
+    assert files and all(k.endswith(fmt) for k in files)
+    assert sum(v.count(b"\n") for v in got.values()) > 40 or fmt == ".bam"
+    m = _metrics(tmp_path, MAPPING[case][0])
+    steps = {"index", "read", "search", "sort", "write"}
+    assert {k.rsplit(".", 1)[-1] for k in m} == steps | {"total"}
+    assert {k.split(".")[1] for k in m if k.count(".") == 2} == {
+        "Maternal", "Paternal"}
+
+
+def test_bam_format_in_pbs_mode_is_refused_as_in_the_jax_cli(front,
+                                                            tmp_path):
+    d, data = front
+    argv = ["GlobalMapping", "-m", "PBS", "--bam-format", "-i"] + \
+        data["haplotypes"]
+    for side, cli in (("j", JCLI), ("p", PCLI)):
+        extra = ["--device", "cpu"] if side == "p" else []
+        with pytest.raises(SystemExit, match="requires WS mode"):
+            _run(cli, argv + ["-w", str(tmp_path / side)] + extra)
+
+
+def test_module_entry_point_maps_with_the_fake_aligner(front, tmp_path):
+    d, data = front
+    shutil.copytree(d / "fq", tmp_path / "ws" / "fastqchunks")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-m", "hichap_master_tpu_torch.cli",
+                        "GlobalMapping", "--fake-aligner", "-w",
+                        str(tmp_path / "ws"), "--device", "cpu", "-i"]
+                       + data["haplotypes"], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    out = sorted(os.listdir(tmp_path / "ws" / "Global_bams"))
+    assert len(out) == 1 + len(os.listdir(d / "Global_bams"))
 
 
 def test_matrix_names_a_missing_genome_size_file(tmp_path):

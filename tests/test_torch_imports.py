@@ -20,8 +20,10 @@ import importlib, pkgutil
 import hichap_master_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for mod in ("matrix", "filtering", "bam_process", "pairs", "columns",
-            "enzyme", "genome_rebuild", "chunking", "rescue"):
+            "enzyme", "genome_rebuild", "chunking", "rescue", "mapping"):
     assert f"hichap_master_tpu_torch.pipeline.{mod}" in names, names
+for mod in ("exact_index", "exact_hits"):
+    assert f"hichap_master_tpu_torch.kernels.{mod}" in names, names
 for io in ("bedio", "cooler", "hdf5", "sam", "bam", "fasta"):
     assert f"hichap_master_tpu_torch.io.{io}" in names, names
 for mod in ("cli", "utils", "utils.logging", "utils.profiling"):
