@@ -32,7 +32,12 @@ Phases, each printed on its own line, any failure raising:
    torch.index_select of the same gather as the floor of its L2 traffic);
    K3 again at the allelic 40 kb shape (chr1's corrected M matrix of the
    same draw, its pixels cut by the allelic prefilter; pw 1, ww 3, 18
-   levels, B = 71), identical to plain;
+   levels, B = 71), identical to plain; K8 and K9 on the genomes and reads
+   of ``testing.exact_cases`` (K8 twice, the same bytes, and both equal to
+   their plain versions with ``torch.equal``; 600 contigs; reads longer
+   than K9's staging room, also through FakeAligner on the card and the
+   CPU, the SAM identical), K8 timed on the two skewed genomes at about
+   the check shape's size;
 3. the main path at full size, after zeroing the kernels' launch counters,
    each stage's wall on its own line:
    genome-wide block-sparse ICE at 10 kb (tiles with a far-field floor,
@@ -137,9 +142,11 @@ Phases, each printed on its own line, any failure raising:
 10. the mapping stages on the front phase's genome: first the card
    against the CPU on chr21 + chr22 (``map_check``: 2 x MAP_CHECK_READS
    reads through ``ws_mapping`` with FakeAligner on each, SAM and BAM
-   identical; K8's index and K9's hits, MAP_SHORT reads of 10-12 bases
-   included, identical to their plain versions, each timed with its
-   bound, K8 beside ``torch.sort`` of chr1's keys; the bowtie2 adapter
+   identical; K8's index (bucket starts, positions and side list, with
+   ``torch.equal``, and a second build the same bytes) and K9's hits,
+   MAP_SHORT reads of 10-12 bases included, identical to their plain
+   versions, each timed with its bound, K8 beside ``torch.sort`` of the
+   same window keys; the bowtie2 adapter
    against a stub bowtie2 that writes one chunk's records shuffled, its
    output equal to a host sort of the lines), then, with its own counters,
    2 x MAP_READS reads drawn from the two haplotypes with their truth
@@ -3206,6 +3213,116 @@ def fastq_phase(dev):
     return walls
 
 
+# K8 and K9 on genomes built for trouble (testing.exact_cases); the two
+# skewed ones again at about the check shape's size (poly-A: 100 Mbp, a
+# key holding 30% of the windows; the 400-bp segment copied 200,000 times:
+# 83.4 Mbp), K8 timed on them
+EDGE_SKEW_SCALES = (4_000, 100)
+
+
+def _k89_case(name, chroms, k, reads, dev, timed=False):
+    """One case: K8 twice on the card, both builds' bucket starts,
+    positions and side list equal to the plain version's (on the card)
+    with ``torch.equal``; K9's hits and counts equal to the plain
+    version's.  Returns K8's ms (CUDA events) when ``timed`` and the
+    largest share of the windows one key holds."""
+    from hichap_master_tpu_torch.kernels.exact_hits import (exact_hits,
+                                                            exact_hits_plain)
+    from hichap_master_tpu_torch.kernels.exact_index import (
+        exact_index, exact_index_plain)
+    from hichap_master_tpu_torch.testing.exact_cases import flat
+
+    g, s, e = (torch.from_numpy(x).to(dev) for x in flat(chroms))
+    runs = [exact_index(g, s, e, k) for _ in range(2)]
+    want = exact_index_plain(g, s, e, k)
+    for f in ("bucket", "pos", "side"):
+        check(all(torch.equal(getattr(ix, f), getattr(want, f))
+                  for ix in runs), f"K8 edge case {name!r}: {f} differs "
+              "from the plain version's")
+    ln = np.asarray([len(x) for x in reads], np.int32)
+    off = np.cumsum(ln.astype(np.int64)) - ln
+    buf = torch.from_numpy(np.concatenate(reads)).to(dev)
+    off_t, ln_t = torch.from_numpy(off).to(dev), torch.from_numpy(ln).to(dev)
+    hk, ck = exact_hits(runs[0], buf, off_t, ln_t)
+    hp, cp = exact_hits_plain(want, buf, off_t, ln_t)
+    check(torch.equal(hk, hp) and torch.equal(ck, cp), f"K9 edge case "
+          f"{name!r}: hits differ from the plain version's")
+    share = float(want.bucket.diff().max()) / max(len(want.pos), 1)
+    if timed:
+        return event_ms(lambda: exact_index(g, s, e, k), n=3), share
+    return None, share
+
+
+def _long_reads_mapped(case, dev):
+    """FakeAligner on the card and on the CPU on the "long reads" case
+    (reads longer than K9's staging room): the SAM files identical."""
+    from hichap_master_tpu_torch.pipeline.mapping import FakeAligner
+    from hichap_master_tpu_torch.testing.exact_cases import write_case
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_long_")
+    try:
+        fa, fq = write_case(tmp, case[1], case[3])
+        out = {}
+        for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            path = os.path.join(tmp, f"{side}.sam")
+            FakeAligner(device=d).map_chunk(fa, fq, path)
+            with open(path, "rb") as f:
+                out[side] = f.read()
+        check(out["card"] == out["cpu"], "K9 long reads: FakeAligner's SAM "
+              "on the card differs from the CPU's")
+        return out["card"].count(b"\n")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def k89_edge_cases(dev, results):
+    """K8 and K9 against their plain versions on every edge case of
+    ``testing.exact_cases`` (K8 run twice, the same bytes), FakeAligner on
+    the card against the CPU on its reads longer than K9's staging room,
+    and the two skewed genomes at EDGE_SKEW_SCALES, K8 timed on them.
+    First, that the cases cut where the library's constants say: the
+    tile-edge genomes at K8's sub-tile, the long reads past the staging
+    room that ``hits_plan`` gives."""
+    from hichap_master_tpu_torch.kernels import _build
+    from hichap_master_tpu_torch.kernels.exact_hits import hits_plan
+    from hichap_master_tpu_torch.testing.exact_cases import (LONG_READ,
+                                                             SUB_TILE,
+                                                             edge_cases,
+                                                             flat,
+                                                             skewed_cases)
+
+    lib = _build.load()
+    room = hits_plan(10 ** 6, lib.exact_hits_fixed_smem(),
+                     lib.exact_hits_scan_segment())[1]
+    check(lib.exact_index_sub_tile() == SUB_TILE and room < LONG_READ,
+          f"K8/K9 edge cases: sub-tile {lib.exact_index_sub_tile()} (the "
+          f"cases cut at {SUB_TILE}), staging room {room} (the long reads "
+          f"are of {LONG_READ} bases or more)")
+    t0 = time.perf_counter()
+    cases = edge_cases(1)
+    for case in cases:
+        _k89_case(*case, dev)
+    long_lines = _long_reads_mapped(
+        next(c for c in cases if c[0] == "long reads"), dev)
+    skew = {}
+    for name, chroms, k, reads in skewed_cases(*EDGE_SKEW_SCALES):
+        ms, share = _k89_case(name, chroms, k, reads, dev, timed=True)
+        skew[name] = dict(ms=ms, bases=int(len(flat(chroms)[0])), k=k,
+                          top_key_share=share)
+    torch.cuda.empty_cache()
+    results["exact_index"] = dict(edge_cases=len(cases), skewed=skew)
+    log(f"K8/K9 edge cases: {len(cases)} genomes built for trouble "
+        f"({', '.join(c[0] for c in cases)}), K8 twice the same bytes and "
+        "equal to plain, K9 equal to plain; FakeAligner on reads of "
+        f"{LONG_READ:,}+ bases (staging room {room:,}): card SAM = CPU SAM "
+        f"({long_lines} lines); skewed at the check shape's size: "
+        + "; ".join(
+            f"{n} ({v['bases']:,} bases, k {v['k']}, one key "
+            f"{100 * v['top_key_share']:.1f}% of the windows) K8 "
+            f"{v['ms']:.3f} ms" for n, v in skew.items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+
+
 # the mapping phase: reads drawn from the front phase's parental genomes
 # (hg19, with planted repeats), with the truth planted in them, through
 # `hichap-torch rebuildF`, `GlobalMapping --fake-aligner`, `Rescue`,
@@ -3373,7 +3490,8 @@ def map_check(dev, gst, results):
     ``ws_mapping`` with FakeAligner on the card and on the CPU, as SAM and
     as BAM (the files identical, BAM by its inflated payload); K8's index
     of the two (the card's and the plain version's, both FakeAligner's)
-    identical (bucket starts, positions in canonical order, side list); K9
+    identical (bucket starts, positions, side list), and a second build on
+    the card the same bytes; K9
     on those reads and MAP_SHORT reads of 10-12 bases identical to its
     plain version; each timed, with its bound.  Then the bowtie2 adapter
     against a stub bowtie2 that writes one chunk's records, shuffled: its
@@ -3384,11 +3502,13 @@ def map_check(dev, gst, results):
     from hichap_master_tpu_torch.kernels.exact_hits import (exact_hits,
                                                             exact_hits_plain)
     from hichap_master_tpu_torch.kernels.exact_index import (
-        canonical, exact_index, exact_index_plain)
+        exact_index, exact_index_plain)
     from hichap_master_tpu_torch.pipeline.mapping import (Bowtie2Aligner,
                                                           FakeAligner,
-                                                          read_reads,
                                                           ws_mapping)
+    from hichap_master_tpu_torch.testing.exact_measure import (check_reads,
+                                                               k9_bytes,
+                                                               window_keys)
     from hichap_master_tpu_torch.testing.synthetic import read_draw
 
     cpu = torch.device("cpu")
@@ -3432,10 +3552,14 @@ def map_check(dev, gst, results):
         st["walls"] = walls
         # K8: FakeAligner's indexes on the card and on the CPU
         ik, ip = al["card"]._index[1], al["cpu"]._index[1]
-        same = (torch.equal(ik.bucket.cpu(), ip.bucket)
-                and torch.equal(canonical(ik).cpu(), canonical(ip))
-                and torch.equal(torch.sort(ik.side).values.cpu(), ip.side))
-        check(same, "K8: the card's index differs from the plain version's")
+        fields = ("bucket", "pos", "side")
+        check(all(torch.equal(getattr(ik, f).cpu(), getattr(ip, f))
+                  for f in fields),
+              "K8: the card's index differs from the plain version's")
+        again = exact_index(ik.genome, ik.start, ik.end, ik.k)
+        check(all(torch.equal(getattr(ik, f), getattr(again, f))
+                  for f in fields), "K8: two builds on the card differ")
+        del again
         G, k = ik.genome.numel(), ik.k
         t0 = time.perf_counter()
         exact_index_plain(ip.genome, ip.start, ip.end, k)
@@ -3443,7 +3567,7 @@ def map_check(dev, gst, results):
         k8_ms = event_ms(lambda: exact_index(ik.genome, ik.start, ik.end, k),
                          n=3)
         W, S = len(ik.pos), len(ik.side)
-        results["exact_index"] = dict(
+        results["exact_index"].update(
             route="cuda", source="hichap_master_tpu_torch/csrc/exact_index.cu",
             replaces="hichap_master_tpu/pipeline/mapping.py:248 (str.find of "
                      "FakeAligner._hits; no Pallas kernel)",
@@ -3452,18 +3576,7 @@ def map_check(dev, gst, results):
             library_ms=None, shape=f"chr{'+'.join(MAP_CHECK_CHROMS)}: "
             f"{G:,} bases, k {k}, {W:,} windows")
         # K9: every read of the check and MAP_SHORT reads of 10-12 bases
-        reads = [read_reads(os.path.join(fq, f)) for f in
-                 sorted(os.listdir(fq))]
-        seqs = [r.buf[o:o + ln] for r in reads for o, ln in
-                zip(r.seq_off.tolist(), r.seq_len.tolist())]
-        rng = np.random.default_rng(MAP_SEED)
-        cut = rng.integers(10, 13, MAP_SHORT)
-        seqs += [seqs[i][:c] for i, c in zip(rng.integers(0, len(seqs),
-                                                          MAP_SHORT), cut)]
-        for i in rng.integers(0, len(seqs), MAP_SCAN):   # no seed: scanned
-            x = seqs[i].copy()
-            x[3::8] = ord("N")
-            seqs.append(x)
+        seqs = check_reads(fq, MAP_SEED, MAP_SHORT, MAP_SCAN)
         ln = np.asarray([len(x) for x in seqs], np.int32)
         off = np.cumsum(ln.astype(np.int64)) - ln
         buf = torch.from_numpy(np.concatenate(seqs))
@@ -3483,20 +3596,21 @@ def map_check(dev, gst, results):
             replaces="hichap_master_tpu/pipeline/mapping.py:248 (str.find of "
                      "FakeAligner._hits; no Pallas kernel)",
             max_abs_err=0.0, ms=k9_ms, plain_ms=plain9,
-            **bound(int(ln.sum()) + 12 * R + 2 * R * 12
-                    + cand["bucket_reads"] * 16 + cand["bytes"]),
+            **bound(k9_bytes(ln, cand, cp.numpy())),
             library_ms=None, shape=f"{R:,} reads ({MAP_SHORT:,} of 10-12 "
             f"bases, {MAP_SCAN} with no window of ACGT) x 2 strands on "
             f"chr{'+'.join(MAP_CHECK_CHROMS)}",
             mapped=int((cp > 0).sum()))
         st.update(R=R, G=G, k=k, W=W, S=S, mapped=int((cp > 0).sum()),
                   multi=int((cp > 1).sum()))
-        # the library column of K8: torch.sort of the same keys at chr1 size
-        keys = _chr1_keys(gdir, k, dev)
+        # the library column of K8: torch.sort of the same window keys
+        keys = window_keys(ik.genome, ik.start, ik.end, k)
+        check(keys.numel() == W, f"K8: {keys.numel()} window keys for {W} "
+              "positions")
         results["exact_index"]["library_ms"] = event_ms(
             lambda: torch.sort(keys, stable=True), n=3)
         results["exact_index"]["library"] = (
-            f"torch.sort(stable) of chr1's {keys.numel():,} window keys")
+            f"torch.sort(stable) of the same {W:,} window keys (int64)")
         del keys, al, ik, ip, bd, od, ld
         torch.cuda.empty_cache()
         # the bowtie2 adapter on one chunk's records
@@ -3517,25 +3631,6 @@ def map_check(dev, gst, results):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return st
-
-
-def _chr1_keys(gdir, k, dev):
-    """The keys of chr1's keyed windows (K8's rule) on the card."""
-    from hichap_master_tpu_torch.io.fasta import read_fasta_device
-    from hichap_master_tpu_torch.kernels.exact_index import base_codes
-
-    flat, spans = read_fasta_device(
-        os.path.join(gdir, "Maternal", "Maternal.fa"), dev)
-    b, e = spans["1"]
-    code = base_codes(flat[b:e] & 0xDF)
-    del flat
-    n = code.numel() - k + 1
-    key = torch.zeros(n, dtype=torch.int64, device=dev)
-    good = torch.ones(n, dtype=torch.bool, device=dev)
-    for j in range(k):
-        key = key * 4 + code[j:j + n].clamp(min=0)
-        good &= code[j:j + n] >= 0
-    return key[good]
 
 
 def mapping_phase(dev, gst):
@@ -3762,6 +3857,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     k3_allelic_compare(diploid, dev, results)
     torch.cuda.empty_cache()
+    k89_edge_cases(dev, results)
 
     counters = {"ice_sweep": ice_sweeps, "sparse_marginal": block_sym_matvec,
                 "escalation_prefix": prefix_maps, "escalation": ladder,

@@ -44,8 +44,10 @@ _Q = ctypes.c_int64
 # C entry points -> argument types (pointers and the stream as c_void_p;
 # every function returns the launch's cudaError_t as int, except
 # ice_sweep_max_batch (a batch size), segment_marginal_tile (K7's pixels
-# per tile) and impute_vote_constant (K6's band rows, bitmap shift, shared
-# budget and band scratch))
+# per tile), impute_vote_constant (K6's band rows, bitmap shift, shared
+# budget and band scratch), exact_index_sub_tile (K8's positions a
+# sub-tile), exact_hits_fixed_smem (K9's shared bytes besides reads) and
+# exact_hits_scan_segment (the genome bytes a block of K9's scan stages))
 SIGNATURES = {
     "ice_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "ice_sweep_max_batch": [_I, _I],
@@ -62,11 +64,17 @@ SIGNATURES = {
     "impute_vote_constant": [_I, _I],
     "segment_marginal": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "segment_marginal_tile": [],
-    "exact_index_count": [_P, _Q, _P, _P, _I, _I, _P, _P, _P],
-    "exact_index_scatter": [_P, _Q, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "exact_index_hist": [_P, _Q, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "exact_index_partition": [_P, _Q, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                              _P, _P, _P],
+    "exact_index_bucket": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "exact_index_sub_tile": [],
     "exact_hits": [_P, _Q, _P, _P, _I, _I, _P, _P, _P, _Q, _P, _P, _P, _Q,
-                   _P, _P, _P, _P],
-    "exact_hits_scan": [_P, _Q, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
+                   _I, _I, _P, _P, _P, _P],
+    "exact_hits_fixed_smem": [],
+    "exact_hits_scan": [_P, _Q, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P,
+                        _P],
+    "exact_hits_scan_segment": [],
 }
 
 

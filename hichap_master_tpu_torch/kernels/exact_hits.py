@@ -11,27 +11,55 @@ occurrences (overlapping ones included) capped at 2.  The genome is
 upper-cased and the read is not, so a read with a byte in ``a..z`` never
 occurs.
 
-A read is checked at the positions of its rarest ``ACGT``-only window of
-``k`` bytes (the smallest bucket), or, shorter than ``k`` and all
-``ACGT``, at the positions of the buckets its prefix spans and of the side
-list; a read with neither (a byte outside ``ACGT`` in every window) is
-compared at every position of the genome.
+Every occurrence of a read contains every ``ACGT``-only window of ``k``
+bytes of it, so the positions of any one such window's bucket hold all its
+hits.  The plain version checks a read at the positions of its rarest
+window (the smallest bucket over every offset); the kernel takes the
+smallest among a bounded set (the disjoint windows and the last one).  A
+read shorter than ``k`` and all ``ACGT`` is checked at the positions of the
+buckets its prefix spans and of the side list; a read with neither (a byte
+outside ``ACGT`` in every window) is compared at every position of the
+genome.
 
-CUDA source: ``csrc/exact_hits.cu`` (a warp per entry; the scan of the
-reads without a seed, a grid row per read, in a second launch).  The plain
-version runs the same candidates through tensor gathers, and for the reads
-without a seed every start of the genome, narrowed byte by byte.
+CUDA source: ``csrc/exact_hits.cu`` (a warp per read, both strands from
+one staging of the read in shared memory; the reads without a seed in a
+second launch, a block per 32 kb of genome staged once for all of them).
+The plain version runs the same candidates through tensor gathers, and
+for the reads without a seed every start of the genome, narrowed byte by
+byte.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
 from .exact_index import ExactIndex, base_codes
 
-CANDIDATE_ROWS = 1 << 20     # candidates compared at a time (plain)
-SCAN_ROWS = 65_535           # marked entries per scan launch
+CANDIDATE_BYTES = 1 << 25    # read bytes compared at a time (plain)
+PLAIN_CELLS = 1 << 29        # entries x longest read, a batch (plain)
+WARPS = 8                    # reads a block of the kernel, at most
+SMEM_MAX = 232_448           # shared memory a block can take (H100)
+SMEM_SPARE = 1_024           # left for the kernels' static shared memory
+
+
+def hits_plan(longest: int, fixed: int, segment: int) -> tuple:
+    """(warps a block, bytes staged a strand) for reads of at most
+    ``longest`` bases, where a block of the search takes ``fixed`` bytes
+    of shared memory besides the reads and a block of the scan stages
+    ``segment`` genome bytes (the library's ``exact_hits_fixed_smem()``
+    and ``exact_hits_scan_segment()``).  Each warp stages its read and the
+    reverse complement, ``lcap`` bytes each (a multiple of 16), fewer warps
+    a block for long reads; the scan stages ``segment + lcap`` genome bytes
+    and one strand.  ``lcap`` stops where the scan's staging fills a
+    block: a longer read is compared against device memory."""
+    room = (SMEM_MAX - SMEM_SPARE - segment) // 32 * 16
+    lcap = min(16 * max(1, -(-longest // 16)), room)
+    warps = WARPS
+    while warps > 1 and fixed + 2 * warps * lcap > SMEM_MAX - SMEM_SPARE:
+        warps //= 2
+    return warps, lcap
 
 
 def strand_bytes(reads: torch.Tensor, off: torch.Tensor,
@@ -64,8 +92,9 @@ def _check_candidates(index, rows, e, p, ln2, best, n) -> None:
     that occur inside one chromosome: minimum into ``best``, count into
     ``n``."""
     G = index.genome.numel()
-    for s in range(0, len(e), CANDIDATE_ROWS):
-        ee, pp = e[s:s + CANDIDATE_ROWS], p[s:s + CANDIDATE_ROWS]
+    step = max(1, CANDIDATE_BYTES // max(rows.shape[1], 1))
+    for s in range(0, len(e), step):
+        ee, pp = e[s:s + step], p[s:s + step]
         L = ln2[ee]
         c = _chrom(index, pp.clamp(min=0))
         ok = (pp >= 0) & (pp >= index.start[c]) & (pp + L <= index.end[c]) & (
@@ -84,7 +113,38 @@ def _check_candidates(index, rows, e, p, ln2, best, n) -> None:
 
 def exact_hits_plain(index: ExactIndex, reads: torch.Tensor,
                      off: torch.Tensor, ln: torch.Tensor):
-    """Plain PyTorch version of K9: (hit [2R] int64, count [2R] int32)."""
+    """Plain PyTorch version of K9: (hit [2R] int64, count [2R] int32).
+    The reads go in batches by length: in a batch the longest read is at
+    most twice the shortest (or 32 bases), and the entries x the longest
+    read at most PLAIN_CELLS."""
+    R = len(off)
+    exact_hits_plain.candidates = dict(bucket_reads=0, count=0, bytes=0,
+                                       first=0)
+    lens = ln.long()
+    if R == 0 or (2 * R * max(int(lens.max()), 1) <= PLAIN_CELLS and int(
+            lens.max()) <= 2 * max(int(lens.min()), 16)):
+        return _plain_batch(index, reads, off, ln)
+    order = torch.argsort(lens, stable=True)
+    sl = np.maximum(lens[order].cpu().numpy(), 1)
+    hit = torch.empty(2 * R, dtype=torch.int64, device=reads.device)
+    count = torch.empty(2 * R, dtype=torch.int32, device=reads.device)
+    a = 0
+    while a < R:
+        cost = 2 * np.arange(1, R - a + 1) * sl[a:]    # non-decreasing
+        b = a + max(1, min(int(np.searchsorted(cost, PLAIN_CELLS, "right")),
+                           int(np.searchsorted(sl[a:], 2 * max(sl[a], 16),
+                                               "right"))))
+        idx = order[a:b]
+        h, c = _plain_batch(index, reads, off[idx], ln[idx])
+        e = (2 * idx[:, None] + torch.arange(2, device=idx.device)).flatten()
+        hit[e], count[e] = h, c
+        a = b
+    return hit, count
+
+
+def _plain_batch(index, reads, off, ln):
+    """The plain version on one batch; adds its candidates to
+    ``exact_hits_plain.candidates``."""
     dev = reads.device
     k = index.k
     rows = strand_bytes(reads, off, ln)
@@ -143,9 +203,11 @@ def exact_hits_plain(index: ExactIndex, reads: torch.Tensor,
         S = len(index.side)
         cand_e.append(e.repeat_interleave(S))
         cand_p.append(index.side.repeat(len(e)))
-    exact_hits_plain.candidates = dict(
-        bucket_reads=int(good.sum()) if Lm >= k else 0,
-        bytes=sum(4 * len(c) + int(ln2[c].sum()) for c in cand_e))
+    tally = exact_hits_plain.candidates
+    tally["bucket_reads"] += int(good.sum()) if Lm >= k else 0
+    tally["count"] += sum(len(c) for c in cand_e)
+    tally["bytes"] += sum(4 * len(c) + int(ln2[c].sum()) for c in cand_e)
+    tally["first"] += sum(int(ln2[c].clamp(max=32).sum()) for c in cand_e)
     if cand_e:
         _check_candidates(index, rows, torch.cat(cand_e), torch.cat(cand_p),
                           ln2, best, n)
@@ -197,7 +259,12 @@ def exact_hits(index: ExactIndex, reads: torch.Tensor, off: torch.Tensor,
     if reads.numel() == 0:
         reads = torch.zeros(1, dtype=torch.uint8, device=dev)
     ix = index
+    if ix.genome.data_ptr() % 4:
+        raise ValueError("the exact-hits kernel reads the genome by aligned "
+                         "words: its data must be 4-byte aligned")
     lib = _build.load()
+    warps, lcap = hits_plan(int(ln.max()), lib.exact_hits_fixed_smem(),
+                            lib.exact_hits_scan_segment())
     stream = _build.stream_ptr(dev)
     G, C = ix.genome.numel(), len(ix.start)
     pos = ix.pos if ix.pos.numel() else torch.zeros(1, dtype=torch.int32,
@@ -208,16 +275,15 @@ def exact_hits(index: ExactIndex, reads: torch.Tensor, off: torch.Tensor,
         ix.genome.data_ptr(), G, ix.start.data_ptr(), ix.end.data_ptr(), C,
         ix.k, ix.bucket.data_ptr(), pos.data_ptr(), side.data_ptr(),
         len(ix.side), reads.data_ptr(), off.data_ptr(), ln.data_ptr(), R,
-        hit.data_ptr(), count.data_ptr(), marked.data_ptr(), stream),
+        warps, lcap, hit.data_ptr(), count.data_ptr(), marked.data_ptr(),
+        stream),
         "exact_hits")
     which = torch.nonzero(marked).flatten()
-    for s in range(0, len(which), SCAN_ROWS):
-        part = which[s:s + SCAN_ROWS].contiguous()
-        _build.check(lib.exact_hits_scan(
-            ix.genome.data_ptr(), G, ix.start.data_ptr(), ix.end.data_ptr(),
-            C, reads.data_ptr(), off.data_ptr(), ln.data_ptr(),
-            part.data_ptr(), len(part), hit.data_ptr(), count.data_ptr(),
-            stream), "exact_hits_scan")
+    _build.check(lib.exact_hits_scan(
+        ix.genome.data_ptr(), G, ix.start.data_ptr(), ix.end.data_ptr(), C,
+        reads.data_ptr(), off.data_ptr(), ln.data_ptr(), which.data_ptr(),
+        len(which), lcap, hit.data_ptr(), count.data_ptr(), stream),
+        "exact_hits_scan")
     count.clamp_(max=2)
     exact_hits.launches += 1
     return hit, count

@@ -10,16 +10,19 @@ The genome is one upper-cased uint8 buffer, its chromosomes one after the
 other (``start`` / ``end``).  A window of ``k`` bytes is keyed (2 bits a
 base, ``A C G T`` = 0 1 2 3, the first base most significant) when it lies
 inside one chromosome and holds only ``ACGT``.  ``ExactIndex`` holds the
-bucket starts (``bucket[4^k + 1]``), the keyed positions grouped by key
-(``pos``, uint32 bits in an int32 tensor: hg19's positions exceed 2^31)
-and the side list (``side``: positions of an ``ACGT`` byte whose window is
-not keyed, where a read shorter than ``k`` can still start).  Inside a
-bucket, and in the side list, the order is the plain version's (ascending)
-on the CPU and the order of the atomic cursors on the card: K9 reduces
-with a minimum and a count, so nothing downstream depends on it.
+bucket starts (``bucket[4^k + 1]``), the keyed positions grouped by key,
+ascending inside each key (``pos``, uint32 bits in an int32 tensor: hg19's
+positions exceed 2^31) and the ascending side list (``side``: positions of
+an ``ACGT`` byte whose window is not keyed, where a read shorter than
+``k`` can still start).  The card's index is the plain version's, byte for
+byte, on every run.
 
-CUDA source: ``csrc/exact_index.cu`` (a counting pass, the scan by
-``torch.cumsum``, a scatter pass).
+CUDA source: ``csrc/exact_index.cu``, a stable counting sort in two levels
+(``index_plan``: the keys' top bits split the windows into partitions,
+the rest sort each partition): a histogram of the partitions per tile of
+the genome, their scan by ``torch.cumsum``, the positions written by
+partition in genome order, then a block per partition that counts,
+scans and places its keys' low bits, every counter in shared memory.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ import torch
 from . import _build
 
 K_MAX = 13                # 4^13 buckets: 0.54 GB of int64 starts
+PART_BITS = 12            # the partitions: a key's top bits, at most
+TILE_SUBS_MAX = 256       # sub-tiles a tile, at most
 
 
 @dataclass
@@ -45,6 +50,38 @@ class ExactIndex:
     bucket: torch.Tensor      # int64 [4^k + 1]
     pos: torch.Tensor         # int32 [W] (uint32 bits)
     side: torch.Tensor        # int64 [S]
+
+
+@dataclass(frozen=True)
+class IndexPlan:
+    """How the kernel splits the work: a key's top ``part_bits`` bits name
+    its partition and its low ``sub_bits`` bits its place inside; the
+    genome is cut into ``tiles`` tiles of ``tile`` positions."""
+
+    part_bits: int
+    sub_bits: int
+    tile: int
+    tiles: int
+
+    @property
+    def parts(self) -> int:
+        return 1 << self.part_bits
+
+
+def index_plan(G: int, k: int, sms: int, sub_tile: int) -> IndexPlan:
+    """The plan for a genome of ``G`` bytes and windows of ``k`` on a card
+    of ``sms`` multiprocessors, where a block stages ``sub_tile`` positions
+    at a time (the library's ``exact_index_sub_tile()``): at most
+    2^PART_BITS partitions, and tiles small enough for about four blocks a
+    multiprocessor but at most TILE_SUBS_MAX sub-tiles (the per-tile
+    histograms stay ~12 bytes per partition and tile)."""
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"the index kernel takes k in 1..{K_MAX}, got {k}")
+    part_bits = min(2 * k, PART_BITS)
+    per = -(-max(G, 1) // (sub_tile * 4 * max(sms, 1)))
+    tile = sub_tile * max(1, min(TILE_SUBS_MAX, per))
+    return IndexPlan(part_bits, 2 * k - part_bits, tile,
+                     max(1, -(-G // tile)))
 
 
 def index_k(G: int) -> int:
@@ -114,43 +151,61 @@ def exact_index(genome: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
     if genome.device.type != "cuda":
         raise RuntimeError(f"no exact-index kernel for device "
                            f"{genome.device}")
+    if k > K_MAX:
+        raise ValueError(f"the index kernel takes k <= {K_MAX}, got {k}")
     dev = genome.device
     for name, t in (("start", start), ("end", end)):
         if t.device != dev or t.dtype != torch.int64:
             raise TypeError(f"{name} must be int64 on {dev}")
     genome, start, end = (t.contiguous() for t in (genome, start, end))
+    if genome.data_ptr() % 16:
+        genome = genome.clone()           # the kernels load 16 bytes at once
     G, C = genome.numel(), len(start)
+    s, e = start.cpu(), end.cpu()
+    if bool((s > e).any() or (e[:-1] > s[1:]).any() or s[0] < 0
+            or e[-1] > G):
+        raise ValueError("the index kernel takes chromosomes in order, none "
+                         "overlapping another, inside the genome")
     lib = _build.load()
+    plan = index_plan(G, k, torch.cuda.get_device_properties(
+        dev).multi_processor_count, lib.exact_index_sub_tile())
+    P, B, sub = plan.parts, plan.tiles, plan.sub_bits
     stream = _build.stream_ptr(dev)
-    count = torch.zeros(4 ** k, dtype=torch.int32, device=dev)
-    side_n = torch.zeros(1, dtype=torch.int64, device=dev)
-    _build.check(lib.exact_index_count(
-        genome.data_ptr(), G, start.data_ptr(), end.data_ptr(), C, k,
-        count.data_ptr(), side_n.data_ptr(), stream), "exact_index_count")
-    bucket = torch.zeros(4 ** k + 1, dtype=torch.int64, device=dev)
-    torch.cumsum(count, 0, dtype=torch.int64, out=bucket[1:])
-    W, S = int(bucket[-1]), int(side_n)
-    pos = torch.empty(max(W, 1), dtype=torch.int32, device=dev)
+    args = (genome.data_ptr(), G, start.data_ptr(), end.data_ptr(), C, k,
+            sub, plan.tile, B)
+    hist = torch.empty(P * B, dtype=torch.int32, device=dev)
+    side_cnt = torch.empty(B, dtype=torch.int32, device=dev)
+    _build.check(lib.exact_index_hist(*args, hist.data_ptr(),
+                                      side_cnt.data_ptr(), stream),
+                 "exact_index_hist")
+    offs = torch.cumsum(hist, 0, dtype=torch.int64)
+    side_offs = torch.cumsum(side_cnt, 0, dtype=torch.int64)
+    W, S = torch.stack([offs[-1], side_offs[-1]]).tolist()
+    offs -= hist
+    side_offs -= side_cnt
+    del hist, side_cnt
+    spart = torch.empty(max(W, 1), dtype=torch.int64, device=dev)
     side = torch.empty(max(S, 1), dtype=torch.int64, device=dev)
-    count.zero_()
-    side_n.zero_()
-    _build.check(lib.exact_index_scatter(
-        genome.data_ptr(), G, start.data_ptr(), end.data_ptr(), C, k,
-        bucket.data_ptr(), count.data_ptr(), pos.data_ptr(), side.data_ptr(),
-        side_n.data_ptr(), stream), "exact_index_scatter")
-    del count
+    _build.check(lib.exact_index_partition(
+        *args, offs.data_ptr(), side_offs.data_ptr(), spart.data_ptr(),
+        side.data_ptr(), stream), "exact_index_partition")
+    pstart = torch.full((P + 1,), W, dtype=torch.int64, device=dev)
+    pstart[:P] = offs.view(P, B)[:, 0]
+    del offs, side_offs
+    # the largest partitions first: a block each, the last to finish
+    order = torch.argsort(pstart.diff(), descending=True, stable=True).to(
+        torch.int32)
+    pos = torch.empty(max(W, 1), dtype=torch.int32, device=dev)
+    low = torch.empty(max(W, 1), dtype=torch.uint8, device=dev)
+    bucket = torch.full((4 ** k + 1,), W, dtype=torch.int64, device=dev)
+    _build.check(lib.exact_index_bucket(
+        spart.data_ptr(), pstart.data_ptr(), order.data_ptr(), P, sub,
+        pos.data_ptr(), low.data_ptr(), bucket.data_ptr(), stream),
+        "exact_index_bucket")
+    del spart, low
     exact_index.launches += 1
     return ExactIndex(k, genome, start, end, bucket, pos[:W], side[:S])
 
 
 exact_index.launches = 0
 
-
-def canonical(index: ExactIndex) -> torch.Tensor:
-    """The positions of ``index`` in the plain version's order (ascending
-    in each bucket), as int64: what two indexes of one genome share."""
-    counts = index.bucket[1:] - index.bucket[:-1]
-    b = torch.repeat_interleave(torch.arange(len(counts),
-                                             device=counts.device), counts)
-    p = index.pos.long() & 0xFFFFFFFF
-    return p[torch.sort(b * (1 << 32) + p).indices]

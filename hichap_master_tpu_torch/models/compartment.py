@@ -313,8 +313,8 @@ def call_compartments(inputs: Mapping, res: int, allelic, device,
     return tracks
 
 
-NO_PLOTS = ("plots are not ported (ROADMAP.md Queue 1 item 3): pass "
-            "plot=False")
+NO_PLOTS = ("plots are not ported to the card (see ROADMAP.md, Queue 1): "
+            "pass plot=False")
 
 
 def run_compartment(cooler_path: str, res: int, allelic, out_path: str,

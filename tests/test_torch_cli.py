@@ -108,7 +108,7 @@ def test_parser_matches_the_jax_cli(command):
     assert {k: v for k, v in got.items() if k in want} == want
 
 
-def test_only_the_mapping_commands_are_not_ported():
+def test_every_jax_command_is_ported():
     """Every sub-command of the JAX CLI is ported, the mapping ones too: no
     command is left out."""
     got = set(_subparsers(PCLI.build_parser()))

@@ -283,14 +283,14 @@ def test_structure_find_matches_jax(coolers):
 
 def test_drivers_refuse_plots(coolers):
     d = str(coolers["dir"] / "plots")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="plots are not ported to the card"):
         run_compartment(coolers["ab"], AB_RES, False, d, plot=True,
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="plots are not ported to the card"):
         run_tads(coolers["trad"], RES, False, d, plot=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="plots are not ported to the card"):
         run_loops(coolers["trad"], RES, False, d, plot=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="plots are not ported to the card"):
         StructureFind(coolers["ab"], AB_RES, False,
                       device="cpu").run_Compartment(d)
     assert not os.path.exists(d)
