@@ -27,8 +27,10 @@ Phases, each printed on its own line, any failure raising:
    40 kb TAD input (T = 8,192, 3 states, float64), each also on its edge
    cases (K5: paths identical and scores bit for bit, exact ties included,
    with its maps in shared memory and in the scratch); K6 the imputation
-   vote and K7 the scattered marginal of the 10 kb diploid build (uint16
-   and float32 values, two runs bit for bit, its edge cases, and
+   vote of the 10 kb diploid build (all of pass 3's queries, one vote,
+   and one round of the files path: the first FILES_BLOCK pairs of M_M
+   and of P_P, its time in ``files_round``) and K7 its scattered marginal
+   (uint16 and float32 values, two runs bit for bit, its edge cases, and
    torch.index_select of the same gather as the floor of its L2 traffic);
    K3 again at the allelic 40 kb shape (chr1's corrected M matrix of the
    same draw, its pixels cut by the allelic prefilter; pw 1, ww 3, 18
@@ -68,8 +70,9 @@ Phases, each printed on its own line, any failure raising:
    written as the five allelic beds of ``GM12878_R1_`` and an hg19
    genome-size file (``testing.synthetic.write_allelic_beds``), then
    ``pipeline.matrix.haplotype_matrix_files`` (the port's bed scanner, the
-   matrix stage at whole 500 kb + 10 kb and local 40 kb, the three coolers
-   and the gap npz through ``io.cooler`` / ``io.hdf5``), then the
+   matrix stage at whole 500 kb + 10 kb and local 40 kb fed FILES_BLOCK
+   pairs at a time, the three coolers and the gap npz through
+   ``io.cooler`` / ``io.hdf5``), then the
    cooler-backed drivers on those files: ``run_compartment`` at 500 kb
    (traditional, then Maternal and Paternal with its PC file),
    ``run_tads`` and ``run_loops`` (with the gap npz) on the M/P matrices at
@@ -79,10 +82,15 @@ Phases, each printed on its own line, any failure raising:
    parsed = the draw's, every pixel table, integer and float, identical
    to the in-memory stage's on the same pairs, Traditional weights within
    1e-4 with the same NaN sets, each driver's calls identical to its
-   in-memory entry point fed the reader's tables; then the valid-bed path
-   at 1/VALID_EVERY of the pairs (a 15-column bed through
-   ``traditional_matrix_files``), each step's wall and rate on its own
-   line;
+   in-memory entry point fed the reader's tables; then
+   ``haplotype_matrix_files`` again at 1/VALID_EVERY of the pairs (pairs
+   parsed = the cut's); then the valid-bed path (a 15-column bed through
+   ``traditional_matrix_files``) at 1/VALID_EVERY of the pairs (tables
+   and weights against ``traditional_matrix_construction``) and at all of
+   them (pixel tables identical to the files phase's Traditional cooler,
+   weights within 1e-4), each step's wall and rate on its own line; then
+   the peak device memory of both drivers at both sizes with the same
+   block and its slope in bytes per pair, each on its own line;
 6. the same beds through the command line, with its own counters: the
    ``hichap-torch`` sub-commands in this process (``cli.run``, default
    device): ``matrix``, ``compartment`` (traditional, M, P), ``tads`` and
@@ -96,18 +104,28 @@ Phases, each printed on its own line, any failure raising:
    files are removed;
 7. the front of the user path, chunk beds in: first the filtering stage
    at FILTER_CHECK_RECORDS records per haplotype (chunk beds drawn by
-   ``testing.synthetic.record_beds``) on the card and on the CPU, its
-   statistics and report equal to the draw's planted truth and to each
-   other and its seven output files identical byte for byte; then, with
-   its own counters, FILTER_RECORDS per haplotype through
-   ``hichap-torch filtering`` (default device) and ``hichap-torch
-   matrix`` on its Allelic_Bed (whole 500 kb + 10 kb, local 40 kb);
-   checks: the logged statistics and report equal the planted truth, the
-   five allelic beds' pairs as the matrix stage's reader parses them equal
-   their line counts, the Traditional table sums to those pairs by its
-   rule at each resolution; printed: the draw, the command walls and
-   M records/s, each step's wall, the peak device memory at both sizes
-   and its slope in bytes per record;
+   ``testing.synthetic.record_beds``) on the card in blocks of
+   FILTER_BLOCK records (3 sorted runs a haplotype merged on the card,
+   the allelic beds joined in read-name ranges) and on the CPU in one
+   block, and again on the card with the block sized by the stage
+   (``filter_block``, HICHAP_FILTER_BLOCK unset) under a cap of
+   FILTER_SIZED_CAP bytes of device memory, which must run in more than
+   one block and keep its peak to the cap; its statistics and report
+   equal to the draw's planted truth and to each other and its seven
+   output files identical byte for byte; then, with its own counters, FILTER_RECORDS per haplotype through
+   ``hichap-torch filtering`` (default device) with
+   ``HICHAP_FILTER_BLOCK`` = FILTER_BLOCK (12 runs a haplotype) under a
+   cap of FILTER_CAP bytes of device memory
+   (``torch.cuda.set_per_process_memory_fraction``, below half of what the
+   stage took when it held the whole input) and ``hichap-torch matrix`` on
+   its Allelic_Bed (whole 500 kb + 10 kb, local 40 kb); checks: the
+   logged statistics and report equal the planted truth, the peak below
+   the cap, the five allelic beds' pairs as the matrix stage's reader
+   parses them equal their line counts, the Traditional table sums to
+   those pairs by its rule at each resolution; printed: the draw, the
+   command walls and M records/s, each step's wall, the peak device
+   memory at both sizes with the same block and its slope in bytes per
+   record;
 8. the alignments before the chunk beds: first ``bam_extract`` at
    BAM_CHECK_PAIRS read pairs per haplotype (one chunk drawn by
    ``testing.synthetic.alignment_chunks`` with planted ligation junctions,
@@ -166,7 +184,9 @@ Phases, each printed on its own line, any failure raising:
    bamprocess and front launch no kernel).
 
 The diploid, files, CLI, filtering, bamProcess, Rescue, rebuildG and
-mapping paths each report their peak device memory (``torch.cuda.max_memory_allocated``).
+mapping paths each report their peak device memory
+(``torch.cuda.max_memory_allocated``); the last phase's line reports the
+whole run's wall.
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
 every phase passed.
@@ -216,6 +236,23 @@ MATERNAL_CALLED_MIN = 0.4
 # the pairs (every VALID_EVERY-th)
 FILES_PREFIX = "GM12878_R1_"
 VALID_EVERY = 10
+# the files phase's block of pairs (haplotype_matrix_files and
+# traditional_matrix_files): the 27.17 M pairs in 26 or more blocks; the
+# peak device memory of both drivers at 1/VALID_EVERY of the pairs and at
+# all of them with this block gives the slope in bytes per pair
+FILES_BLOCK = 1 << 20
+
+
+def in_files_blocks(fn):
+    """``fn()`` with the matrix stage's block
+    (``pipeline.matrix.MATRIX_BLOCK``) set to FILES_BLOCK."""
+    from hichap_master_tpu_torch.pipeline import matrix
+
+    before, matrix.MATRIX_BLOCK = matrix.MATRIX_BLOCK, FILES_BLOCK
+    try:
+        return fn()
+    finally:
+        matrix.MATRIX_BLOCK = before
 
 
 def log(msg: str) -> None:
@@ -936,9 +973,11 @@ def k6_edge_cases(main, dev):
 
 def k67_compare(diploid, dev, results):
     """K6 on pass 3's full query set of the 10 kb diploid build against
-    SparseU of its un-imputed matrix, then its edge cases; K7 on the
-    hybrid split of its 10 kb traditional matrix with a random positive
-    vector."""
+    SparseU of its un-imputed matrix (the one vote of the paths whose
+    classes fit in one block), on one round of the files path's blocks
+    (the queries of the first FILES_BLOCK pairs of M_M and of P_P), then
+    its edge cases; K7 on the hybrid split of its 10 kb traditional
+    matrix with a random positive vector."""
     from hichap_master_tpu_torch.kernels import _build
     from hichap_master_tpu_torch.kernels import impute_vote as IV
     from hichap_master_tpu_torch.kernels.impute_vote import (
@@ -986,6 +1025,33 @@ def k67_compare(diploid, dev, results):
         f"{windows} disk windows holding an entry ({n_cum} prefix values "
         f"read): hits ({int(hk.sum())}) and targets identical, {ms:.3f} ms "
         f"per call ({dev_ms:.4f} ms device) vs {plain_ms:.3f} ms plain")
+    # one round of the files path: a block of each class in one vote
+    qb = vote_queries({k: tuple(t[:FILES_BLOCK] for t in classes[k])
+                       for k in ("M_M", "P_P")}, genome, res, device=dev)
+    args_b = (su.scols, su.cum, su.row_ptr, *qb, *disk, S, L, mn, rt)
+    hkb, tkb = impute_vote(*args_b)
+    hpb, tpb = impute_vote_plain(*args_b)
+    torch.cuda.synchronize()
+    check(torch.equal(hkb, hpb) and torch.equal(tkb, tpb),
+          f"K6 on a round of {FILES_BLOCK} pairs a class: hits differ at "
+          f"{int((hkb != hpb).sum())} queries, targets at "
+          f"{int((tkb != tpb).sum())}")
+    n_cum_b = k6_cum_reads(su.scols, su.row_ptr, *qb, *disk, S, L)[0]
+    block = dict(
+        queries=qb[0].numel(), ms=median_ms(lambda: impute_vote(*args_b)),
+        device_ms=event_ms(lambda: impute_vote(*args_b)),
+        plain_ms=median_ms(lambda: impute_vote_plain(*args_b), 3),
+        max_abs_err=float((tkb - tpb).abs().max()) if qb[0].numel()
+        else 0.0,
+        **bound(nbytes(su.scols, su.row_ptr, *qb, *disk, hkb, tkb)
+                + n_cum_b * su.cum.element_size()))
+    log(f"K6 impute_vote on one round of the files path (the first "
+        f"{FILES_BLOCK:,} pairs of M_M and of P_P), Q={block['queries']}: "
+        f"hits ({int(hkb.sum())}) and targets identical, {block['ms']:.3f} "
+        f"ms per call ({block['device_ms']:.4f} ms device) vs "
+        f"{block['plain_ms']:.3f} ms plain, bound {block['bound_ms']:.4f} "
+        "ms")
+    del qb, args_b, hkb, tkb, hpb, tpb
     for name, case, want_over in k6_edge_cases((su, q, L, mn, rt), dev):
         hke, tke = impute_vote(*case)
         hpe, tpe = impute_vote_plain(*case)
@@ -1007,7 +1073,9 @@ def k67_compare(diploid, dev, results):
         replaces="hichap_master_tpu/ops/sparse_impute.py:198",
         unit=f"ms per vote of pass 3's {Q} queries, hg19 10 kb diploid "
              f"(L = {L}); one launch counted per vote: a memset, the "
-             "bucketing's four small kernels and the band kernel",
+             "bucketing's four small kernels and the band kernel; "
+             "`files_round`: one vote of the files path's rounds",
+        files_round=block,
         max_abs_err=float((tk - tp).abs().max()) if Q else 0.0, ms=ms,
         device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
         # what the vote must move: U's columns and row slices, the queries,
@@ -1907,9 +1975,13 @@ def files_phase(allelic, al, dev):
     genome.write(sizes)
     _timed(walls, "bed write", lambda: write_allelic_beds(
         beds, FILES_PREFIX, classes, genome.labels))
-    files = _timed(walls, "matrix files", lambda: haplotype_matrix_files(
-        out, [beds], sizes, DIPLOID_WHOLE, DIPLOID_LOCAL, **DIPLOID_VOTE,
-        device=dev, walls=steps, stats=stats))[FILES_PREFIX]
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    files = _timed(walls, "matrix files", lambda: in_files_blocks(
+        lambda: haplotype_matrix_files(
+            out, [beds], sizes, DIPLOID_WHOLE, DIPLOID_LOCAL, **DIPLOID_VOTE,
+            device=dev, walls=steps, stats=stats)))[FILES_PREFIX]
+    matrix_peak = torch.cuda.max_memory_allocated() - base
     trad, imp, gap = files["tradition"], files["imputated"], files["gap"]
     calls = os.path.join(tmp, "calls")
     haps = ("Maternal", "Paternal")
@@ -1975,13 +2047,67 @@ def files_phase(allelic, al, dev):
     return dict(tmp=tmp, walls=walls, steps=steps, stats=stats, files=files,
                 res=res, loop_file=loop_file, bound_file=bound_file,
                 comp=comp, trad_pc=trad_pc, sizes=sizes, beds=beds,
-                calls=calls)
+                calls=calls, matrix_peak=matrix_peak)
 
 
 def files_checks(allelic, al, st, dev):
-    """The files phase's checks and report, then the valid-bed path."""
+    """The files phase's checks and report, then the valid-bed path, then
+    the peak device memory of both matrix file drivers at two sizes."""
     _files_checks(allelic, al, st, dev)
-    _valid_path(allelic, st, dev)
+    tenth = _haplotype_tenth(allelic, st, dev)
+    valid = _valid_path(allelic, st, dev)
+    n = sum(st["stats"]["pairs"][FILES_PREFIX].values())
+    for name, (lo, hi, n_lo, n_hi) in (
+            ("haplotype_matrix_files", (tenth[0], st["matrix_peak"],
+                                        tenth[1], n)),
+            ("traditional_matrix_files", valid)):
+        log(f"files:   peak device memory of {name} (above what was "
+            f"allocated before it; block {FILES_BLOCK:,} pairs): "
+            f"{lo / 2 ** 30:.3f} GiB at {n_lo:,} pairs, {hi / 2 ** 30:.3f} "
+            f"GiB at {n_hi:,}: {(hi - lo) / (n_hi - n_lo):.2f} bytes per "
+            f"pair")
+
+
+def _peak_of(fn):
+    """(fn's result, its peak device memory above the allocation before
+    it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _haplotype_tenth(allelic, st, dev):
+    """``haplotype_matrix_files`` on every VALID_EVERY-th pair of each class
+    with the files phase's block: (peak device memory, pairs); its pairs
+    parsed = the cut's."""
+    from hichap_master_tpu_torch.pipeline.matrix import haplotype_matrix_files
+    from hichap_master_tpu_torch.testing.synthetic import write_allelic_beds
+
+    genome, classes, _ = allelic
+    cut = {k: tuple(a[::VALID_EVERY] for a in v) for k, v in classes.items()}
+    beds = os.path.join(st["tmp"], "beds_tenth")
+    write_allelic_beds(beds, FILES_PREFIX, cut, genome.labels)
+    stats, steps = {}, {}
+    t0 = time.perf_counter()
+    _, peak = _peak_of(lambda: in_files_blocks(
+        lambda: haplotype_matrix_files(
+            os.path.join(st["tmp"], "out_tenth"), [beds], st["sizes"],
+            DIPLOID_WHOLE, DIPLOID_LOCAL, **DIPLOID_VOTE, device=dev,
+            walls=steps, stats=stats)))
+    wall = time.perf_counter() - t0
+    parsed = stats["pairs"][FILES_PREFIX]
+    for k, cols in cut.items():
+        check(parsed[k] == cols[0].numel(), f"tenth: {k}: {parsed[k]} "
+              f"pairs parsed, {cols[0].numel()} written")
+    n = sum(parsed.values())
+    log(f"files:   haplotype_matrix_files at 1/{VALID_EVERY} of the pairs "
+        f"({n:,}): {wall:.3f} s (parse {steps['parse']:.3f} s); pairs "
+        f"parsed = the cut's")
+    shutil.rmtree(beds, ignore_errors=True)
+    return peak, n
 
 
 def _files_checks(allelic, al, st, dev):
@@ -2148,26 +2274,32 @@ def _same_rows(a, b) -> bool:
 
 
 def _valid_path(allelic, st, dev):
-    """The valid-bed path at a tenth of the pairs: a 15-column valid bed
+    """The valid-bed path: a 15-column valid bed of a tenth of the pairs
     through ``traditional_matrix_files``, its tables and weights against
-    ``traditional_matrix_construction`` on the same pairs."""
+    ``traditional_matrix_construction`` on the same pairs; then all of the
+    pairs, whose tables must be the files phase's Traditional cooler's
+    (the same pairs) and its weights within 1e-4.  Both with the files
+    phase's block.  Returns (peak at a tenth, peak at all, pairs, pairs)."""
     from hichap_master_tpu_torch.io.cooler import CoolerReader
     from hichap_master_tpu_torch.pipeline.matrix import (
         traditional_matrix_construction, traditional_matrix_files)
     from hichap_master_tpu_torch.testing.synthetic import write_valid_bed
 
     genome, classes, _ = allelic
-    pairs = tuple(torch.cat([cols[i] for cols in classes.values()])
-                  [::VALID_EVERY] for i in range(4))
+    every = tuple(torch.cat([cols[i] for cols in classes.values()])
+                  for i in range(4))
+    pairs = tuple(a[::VALID_EVERY] for a in every)
     rep = os.path.join(st["tmp"], "valid")
     os.makedirs(rep)
     walls, steps = {}, {}
     bed = os.path.join(rep, FILES_PREFIX + "Valid.bed")
     _timed(walls, "bed write", lambda: write_valid_bed(bed, pairs,
                                                       genome.labels))
-    out = _timed(walls, "files", lambda: traditional_matrix_files(
-        os.path.join(st["tmp"], "out_valid"), [rep], st["sizes"],
-        DIPLOID_WHOLE, DIPLOID_LOCAL, device=dev, walls=steps))
+    out, peak = _peak_of(lambda: _timed(
+        walls, "files", lambda: in_files_blocks(
+            lambda: traditional_matrix_files(
+                os.path.join(st["tmp"], "out_valid"), [rep], st["sizes"],
+                DIPLOID_WHOLE, DIPLOID_LOCAL, device=dev, walls=steps))))
     want = traditional_matrix_construction(
         {FILES_PREFIX: pairs}, genome, DIPLOID_WHOLE, DIPLOID_LOCAL,
         device=dev)["Merged_Multi"]
@@ -2180,6 +2312,7 @@ def _valid_path(allelic, st, dev):
                 want[part][rs], genome, rs, "int"), f"valid {rs}", dev)
             w_err = max(w_err, _close_weights(
                 reader.bins_weight(), want["weights"][rs], f"valid {rs}"))
+    del want
     n = pairs[0].numel()
     log(f"files: valid-bed path, 1/{VALID_EVERY} of the pairs ({n} lines of "
         f"15 columns, {_mb(bed):.1f} MB; bed write {walls['bed write']:.3f} "
@@ -2191,6 +2324,41 @@ def _valid_path(allelic, st, dev):
         f"({_mb(out['merged']):.1f} MB a file, copied to Merged_Multi); "
         f"tables identical to traditional_matrix_construction's, weights "
         f"within {w_err:.1e}")
+    # all of the pairs: the same pairs as the files phase's Traditional
+    # cooler, so the same tables
+    shutil.rmtree(rep)
+    shutil.rmtree(os.path.join(st["tmp"], "out_valid"))
+    os.makedirs(rep)
+    walls, steps = {}, {}
+    _timed(walls, "bed write", lambda: write_valid_bed(bed, every,
+                                                      genome.labels))
+    del every
+    out, peak_all = _peak_of(lambda: _timed(
+        walls, "files", lambda: in_files_blocks(
+            lambda: traditional_matrix_files(
+                os.path.join(st["tmp"], "out_valid"), [rep], st["sizes"],
+                DIPLOID_WHOLE, DIPLOID_LOCAL, device=dev, walls=steps))))
+    n_all = sum(st["stats"]["pairs"][FILES_PREFIX].values())
+    w_err = 0.0
+    for rs in DIPLOID_WHOLE + DIPLOID_LOCAL:
+        got = CoolerReader(out["merged"], rs)
+        want = CoolerReader(st["files"]["tradition"], rs)
+        check(all(np.array_equal(a, b) for a, b in zip(
+            got.pixels_coo(), want.pixels_coo())),
+            f"valid: all pairs: {rs} pixels differ from the files phase's "
+            "Traditional cooler")
+        w_err = max(w_err, _close_weights(
+            got.bins_weight(), torch.from_numpy(want.bins_weight()).to(dev),
+            f"valid: all pairs: weights {rs}"))
+    log(f"files: valid-bed path, all {n_all:,} pairs ({_mb(bed):.1f} MB; "
+        f"bed write {walls['bed write']:.3f} s, not part of the path): "
+        f"`traditional_matrix_files` {walls['files']:.3f} s, parse "
+        f"{steps['parse']:.3f} s ({n_all / steps['parse'] / 1e6:.2f} M "
+        f"lines/s), build {steps['build']:.3f} s; pixel tables identical "
+        f"to the files phase's Traditional cooler (the same pairs), weights "
+        f"within {w_err:.1e}")
+    shutil.rmtree(rep)
+    return peak, peak_all, n, n_all
 
 
 def _cli(argv):
@@ -2343,6 +2511,18 @@ FILTER_CHUNKS = 4
 FILTER_CHECK_RECORDS = FILTER_RECORDS // 4
 FILTER_CELL = "GM12878_R1"
 FILTER_SEED = 13
+# the filtering stage's block (block_lines, HICHAP_FILTER_BLOCK): 3 blocks
+# of the check's records, 12 runs of the phase's; the phase runs under a
+# cap of device memory below half of what the stage needed when it held
+# the whole input (248.4 bytes a record of both haplotypes at 2 x 16 M
+# records, 7.98 GB: memory_measure, parent of the streamed stage)
+FILTER_BLOCK = FILTER_CHECK_RECORDS // 3 + 1
+FILTER_CAP = 2 << 30
+# the check's run with the block sized by the stage itself (no
+# block_lines, no HICHAP_FILTER_BLOCK) under a cap of this much device
+# memory above what is allocated before it: half of it holds about 2.4 M
+# records at DEVICE_BYTES_PER_RECORD, so a haplotype's 4 M make 2 runs
+FILTER_SIZED_CAP = 512 << 20
 
 
 class _Reports:
@@ -2377,19 +2557,22 @@ class _Reports:
         self.logger.setLevel(self.level)
 
 
-def _filter_functions(raw, out, dev, walls=None):
+def _filter_functions(raw, out, dev, walls=None, block=None):
     """``hic_filtering`` of both haplotypes and ``allelic_filtering`` on
-    ``dev`` (the chunk beds kept): (stats by haplotype, report)."""
+    ``dev`` with blocks of ``block`` records (the chunk beds kept): (stats
+    by haplotype, report)."""
     from hichap_master_tpu_torch.pipeline.filtering import (allelic_filtering,
                                                             hic_filtering)
 
     filt, alle = os.path.join(out, "Filtered_Bed"), os.path.join(
         out, "Allelic_Bed")
-    stats = {h: hic_filtering(raw, filt, h, clean=False, device=dev,
-                              walls=walls) for h in ("Maternal", "Paternal")}
+    stats = {h: hic_filtering(raw, filt, h, clean=False, block_lines=block,
+                              device=dev, walls=walls)
+             for h in ("Maternal", "Paternal")}
     report = allelic_filtering(
         *(os.path.join(filt, f"{FILTER_CELL}_{h}_Valid.bed")
-          for h in ("Maternal", "Paternal")), alle, device=dev, walls=walls)
+          for h in ("Maternal", "Paternal")), alle, device=dev, walls=walls,
+        block_lines=block)
     return stats, report
 
 
@@ -2414,10 +2597,15 @@ def _truth_checks(what, stats, report, truth):
 
 
 def filter_check(dev):
-    """Filtering at FILTER_CHECK_RECORDS per haplotype, on the card and on
-    the CPU, from the same chunk beds: statistics and report equal to the
-    draw's planted truth and to each other, every output file byte for
-    byte; the card's peak device memory at this size."""
+    """Filtering at FILTER_CHECK_RECORDS per haplotype, on the card in
+    blocks of FILTER_BLOCK records (3 runs a haplotype, the allelic beds
+    in read-name ranges), on the CPU in one block, and on the card with
+    the block sized by the stage (``filter_block``) under a cap of
+    FILTER_SIZED_CAP bytes of device memory, from the same chunk beds:
+    statistics and report equal to the draw's planted truth and to each
+    other, every output file byte for byte; the sized run in more than
+    one block with its peak under the cap; the card's peak device memory
+    at this size."""
     from hichap_master_tpu_torch.testing.synthetic import (HG19, HG19_NAMES,
                                                            record_beds)
 
@@ -2430,13 +2618,18 @@ def filter_check(dev):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        card = _filter_functions(raw, os.path.join(tmp, "card"), dev)
+        steps = {}
+        card = _filter_functions(raw, os.path.join(tmp, "card"), dev,
+                                 steps, FILTER_BLOCK)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
+        check("spill" in steps and "merge" in steps and "partition" in steps,
+              f"filter check: the card ran in one block ({sorted(steps)})")
         t0 = time.perf_counter()
         cpu = _filter_functions(raw, os.path.join(tmp, "cpu"),
-                                torch.device("cpu"))
+                                torch.device("cpu"),
+                                block=4 * FILTER_CHECK_RECORDS)
         cpu_wall = time.perf_counter() - t0
         _truth_checks("filter check (card)", *card, truth)
         check(card == cpu, "filter check: the card's statistics differ from "
@@ -2449,23 +2642,79 @@ def filter_check(dev):
         check(not differ, f"filter check: {differ} differ between the card "
               "and the CPU")
         n_bytes = sum(len(v) for v in a.values())
+        del a
+        sized, sized_steps, sized_peak, sized_wall = _filter_sized(
+            raw, os.path.join(tmp, "sized"), dev)
+        check(sized == cpu, "filter check: the sized run's statistics "
+              "differ from the CPU's")
+        c = _tree_bytes(os.path.join(tmp, "sized"))
+        differ = sorted(k for k in set(b) | set(c) if b.get(k) != c.get(k))
+        check(not differ, f"filter check: {differ} differ between the "
+              "sized run on the card and the CPU")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"filter check ({2 * FILTER_CHECK_RECORDS:,} records): card "
-        f"{wall:.3f} s, CPU {cpu_wall:.3f} s (host clock); the seven "
-        f"statistics of each haplotype and the 16 report entries equal the "
-        f"planted truth on both; the 7 output files ({n_bytes / 1e6:.1f} MB) "
-        f"identical byte for byte; peak device memory "
-        f"{peak / 2 ** 30:.3f} GiB")
+    runs = -(-FILTER_CHECK_RECORDS // FILTER_BLOCK)
+    log(f"filter check ({2 * FILTER_CHECK_RECORDS:,} records): card in "
+        f"blocks of {FILTER_BLOCK:,} records ({runs} runs a haplotype) "
+        f"{wall:.3f} s, CPU in one block {cpu_wall:.3f} s (host clock); "
+        f"the seven statistics of each haplotype and the 16 report entries "
+        f"equal the planted truth on both; the 7 output files "
+        f"({n_bytes / 1e6:.1f} MB) identical byte for byte; peak device "
+        f"memory {peak / 2 ** 30:.3f} GiB; card steps: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in steps.items()))
+    log(f"filter check: the card with the block sized by the stage under a "
+        f"cap of {FILTER_SIZED_CAP / 2 ** 20:.0f} MiB (HICHAP_FILTER_BLOCK "
+        f"unset): {sized_wall:.3f} s, in runs and read-name ranges, peak "
+        f"{sized_peak / 2 ** 20:.1f} MiB above what was allocated before "
+        f"it; statistics, report and the 7 files identical to the CPU's; "
+        "steps: " + ", ".join(f"{k} {v:.3f} s"
+                              for k, v in sized_steps.items()))
     return peak
+
+
+def _filter_sized(raw, out, dev):
+    """``_filter_functions`` on the card with no block given and
+    ``HICHAP_FILTER_BLOCK`` unset, under a per-process cap of
+    FILTER_SIZED_CAP bytes above what is allocated: (stats and report,
+    steps, peak above the allocation before it, wall).  Fails unless both
+    stages ran in more than one block and the peak kept to the cap."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    before = os.environ.pop("HICHAP_FILTER_BLOCK", None)
+    torch.cuda.set_per_process_memory_fraction(
+        (base + FILTER_SIZED_CAP) / total, dev)
+    torch.cuda.reset_peak_memory_stats()
+    steps = {}
+    t0 = time.perf_counter()
+    try:
+        got = _filter_functions(raw, out, dev, steps)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        if before is not None:
+            os.environ["HICHAP_FILTER_BLOCK"] = before
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    check("spill" in steps and "merge" in steps and "partition" in steps,
+          f"filter check: the sized run under a cap of {FILTER_SIZED_CAP} "
+          f"bytes ran in one block ({sorted(steps)})")
+    check(peak <= FILTER_SIZED_CAP, f"filter check: the sized run's peak "
+          f"{peak} above its cap of {FILTER_SIZED_CAP}")
+    return got, steps, peak, wall
 
 
 def filter_phase(dev):
     """The front of the user path on the card: chunk beds drawn
     (``testing.synthetic.record_beds``, FILTER_RECORDS per haplotype in
-    FILTER_CHUNKS files), ``hichap-torch filtering`` (the default device),
-    then ``hichap-torch matrix`` on its Allelic_Bed at whole 500 kb + 10 kb
-    and local 40 kb.  Returns the phase's state for ``filter_checks``."""
+    FILTER_CHUNKS files), ``hichap-torch filtering`` (the default device)
+    with ``HICHAP_FILTER_BLOCK`` = FILTER_BLOCK (12 runs a haplotype)
+    under a cap of FILTER_CAP bytes of device memory
+    (``torch.cuda.set_per_process_memory_fraction``; a failure there fails
+    the run), then ``hichap-torch matrix`` on its Allelic_Bed at whole
+    500 kb + 10 kb and local 40 kb.  Returns the phase's state for
+    ``filter_checks``."""
     from hichap_master_tpu_torch.core import Genome
     from hichap_master_tpu_torch.testing.synthetic import (HG19, HG19_NAMES,
                                                            record_beds)
@@ -2482,9 +2731,21 @@ def filter_phase(dev):
     raw_mb = sum(_mb(os.path.join(raw, f)) for f in os.listdir(raw))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with _Reports() as rep:
-        _timed(walls, "filtering", lambda: _cli(["filtering", "-w", ws]))
+    total = torch.cuda.get_device_properties(dev).total_memory
+    before = os.environ.get("HICHAP_FILTER_BLOCK")
+    os.environ["HICHAP_FILTER_BLOCK"] = str(FILTER_BLOCK)
+    torch.cuda.set_per_process_memory_fraction(FILTER_CAP / total, dev)
+    try:
+        with _Reports() as rep:
+            _timed(walls, "filtering", lambda: _cli(["filtering", "-w", ws]))
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        if before is None:
+            del os.environ["HICHAP_FILTER_BLOCK"]
+        else:
+            os.environ["HICHAP_FILTER_BLOCK"] = before
     peak = torch.cuda.max_memory_allocated()
+    check(peak <= FILTER_CAP, f"filtering: peak {peak} above the cap")
     alle = os.path.join(ws, "Allelic_Bed")
     shutil.rmtree(os.path.join(ws, "Filtered_Bed"))       # disk
     out = os.path.join(tmp, "out")
@@ -2560,10 +2821,11 @@ def filter_checks(fl, peak_check, dev):
         f"{k[len('filtering.'):]} {v:.3f}" for k, v in sorted(m.items())
         if k != "filtering.total"))
     slope = (fl["peak"] - peak_check) / (n - 2 * FILTER_CHECK_RECORDS)
-    log(f"filtering:   peak device memory (torch.cuda.max_memory_allocated) "
-        f"{fl['peak'] / 2 ** 30:.3f} GiB at {n:,} records, "
+    log(f"filtering:   peak device memory (torch.cuda.max_memory_allocated; "
+        f"blocks of {FILTER_BLOCK:,} records) {fl['peak'] / 2 ** 30:.3f} GiB "
+        f"at {n:,} records under a cap of {FILTER_CAP / 2 ** 30:.2f} GiB, "
         f"{peak_check / 2 ** 30:.3f} GiB at {2 * FILTER_CHECK_RECORDS:,}: "
-        f"{slope:.1f} bytes per record")
+        f"{slope:.2f} bytes per record")
     log(f"filtering:   checks: statistics and report equal the planted "
         f"truth; the five allelic beds' {sum(lines.values()):,} lines all "
         f"parsed by the matrix stage's reader "

@@ -46,7 +46,9 @@ tables (``-f``, Maternal then Paternal; one with ``-N``) and the SNP table
 ``filtering`` reads the chunk beds of ``<workspace>/UniqRawBed`` (``-b``)
 and writes ``<workspace>/Filtered_Bed`` (the valid beds) and, unless
 ``-N``, ``<workspace>/Allelic_Bed`` (``-o``: the five allelic beds that
-``matrix -b`` reads).
+``matrix -b`` reads); ``HICHAP_FILTER_BLOCK`` sets the records the card
+holds at a time, as in the JAX package (else the free device memory
+sizes it).
 
 Each command writes ``<workspace>/Metrics/<command>.json``: the command's
 wall seconds under ``<command>.total`` and the seconds of each step its

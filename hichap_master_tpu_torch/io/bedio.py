@@ -19,11 +19,12 @@ with an unknown chromosome, a missing field or a position that is not a
 decimal integer of at most 18 characters are dropped; ``\\r\\n`` line ends
 are accepted.
 
-The filtering stage reads chunk beds and valid beds whole, as records
-(``read_records``): every row is kept, chromosome strings stay as written
-(``chr`` included) in a table of their own, and each line's offset and
-length in the files' bytes let ``write_lines`` write chosen lines back
-verbatim (``\\r\\n`` as ``\\n``).  ``_format_rows`` writes new lines
+The filtering stage reads chunk beds a block of records at a time
+(``iter_record_blocks``) and valid beds whole (``read_records``): every
+row is kept, chromosome strings stay as written (``chr`` included) in a
+table of their own, and each line's offset and length in the block's
+bytes let ``write_lines`` write chosen lines back verbatim (``\\r\\n``
+as ``\\n``).  ``_format_rows`` writes new lines
 from columns.  Both are host C++ (``bedparse_gather``,
 ``bedparse_format``), with no Python loop per row.
 """
@@ -332,19 +333,16 @@ class Records:
         return self.ints[RECORD_INTS.index(c)]
 
 
-def read_records(paths: Sequence[str],
-                 read_bytes: int = RECORD_READ_BYTES) -> Records:
-    """The records of ``paths`` (whole files, in order).  A line with other
-    than 15 or 23 fields, or an integer column that does not parse, raises
-    ``ValueError`` naming its file and line."""
-    text = np.empty(sum(os.path.getsize(p) for p in paths), np.uint8)
-    labels = _Labels()
-    parts, pos = [], 0
+def _scan_records(paths: Sequence[str], labels: _Labels, read_bytes: int):
+    """(block of complete lines, its parsed columns (``_parse_record``'s
+    first six, offsets from the block's start)) of ``paths`` in (file,
+    line) order.  A line with other than 15 or 23 fields, or an integer
+    column that does not parse, raises ``ValueError`` naming its file and
+    line."""
     for path in paths:
         line = 0
         for buf in _iter_line_blocks(path, read_bytes):
-            text[pos:pos + len(buf)] = np.frombuffer(buf, np.uint8)
-            part = _parse_record(buf, pos, labels)
+            part = _parse_record(buf, 0, labels)
             nf, ok = part[6], part[7]
             bad = np.flatnonzero(((nf != 15) & (nf != 23)) | ~ok)
             if bad.size:
@@ -355,20 +353,71 @@ def read_records(paths: Sequence[str],
                     f"{RECORD_INTS[:10]} (and {RECORD_INTS[10:]} on 23); "
                     f"this line has {int(nf[i])} fields"
                     + ("" if ok[i] else " and a field that is no integer"))
-            parts.append(part[:6])
-            pos += len(buf)
+            yield buf, part[:6]
             line += len(part[0])
-    if parts:
-        off, length, name_len, chrom, ints, cand = (
-            np.concatenate(c, axis=-1) for c in zip(*parts))
-    else:
-        off = np.zeros(0, np.int64)
-        length = name_len = np.zeros(0, np.int32)
-        chrom = np.zeros((3, 0), np.int32)
-        ints = np.zeros((len(RECORD_INTS), 0), np.int64)
-        cand = np.zeros(0, np.int8)
-    return Records(text[:pos], off, length, name_len, chrom, ints, cand,
-                   labels.strings())
+
+
+def _records(texts, parts, labels: List[bytes]) -> Records:
+    """One ``Records`` of pieces: byte strings and their columns (offsets
+    from each piece's start), one after the other."""
+    if not parts:
+        return Records(np.zeros(0, np.uint8), np.zeros(0, np.int64),
+                       np.zeros(0, np.int32), np.zeros(0, np.int32),
+                       np.zeros((3, 0), np.int32),
+                       np.zeros((len(RECORD_INTS), 0), np.int64),
+                       np.zeros(0, np.int8), labels)
+    base = np.cumsum([0] + [len(t) for t in texts[:-1]])
+    text = np.empty(sum(len(t) for t in texts), np.uint8)
+    for b, t in zip(base, texts):
+        text[b:b + len(t)] = np.frombuffer(t, np.uint8)
+    off, length, name_len, chrom, ints, cand = (
+        np.concatenate(c, axis=-1) for c in zip(*parts))
+    off = off + np.repeat(base, [len(p[0]) for p in parts])
+    return Records(text, off, length, name_len, chrom, ints, cand, labels)
+
+
+def read_records(paths: Sequence[str],
+                 read_bytes: int = RECORD_READ_BYTES) -> Records:
+    """The records of ``paths`` (whole files, in order).  A line with other
+    than 15 or 23 fields, or an integer column that does not parse, raises
+    ``ValueError`` naming its file and line."""
+    labels = _Labels()
+    texts, parts = [], []
+    for buf, part in _scan_records(paths, labels, read_bytes):
+        texts.append(buf)
+        parts.append(part)
+    return _records(texts, parts, labels.strings())
+
+
+def iter_record_blocks(paths: Sequence[str], block: int,
+                       read_bytes: int = RECORD_READ_BYTES):
+    """The records of ``paths`` in (file, line) order as ``Records`` of
+    ``block`` rows (the last one fewer; one empty ``Records`` when the
+    files hold none), each with the bytes of its own lines only.  The
+    chromosome ids are those of one table for all blocks: a block's
+    ``labels`` are the strings met up to its end, so ids keep their
+    meaning from block to block.  Errors as ``read_records``."""
+    if block < 1:
+        raise ValueError(f"iter_record_blocks: block {block} < 1")
+    labels = _Labels()
+    texts, parts, n, emitted = [], [], 0, False
+    for buf, part in _scan_records(paths, labels, read_bytes):
+        off = part[0]
+        m, s = len(off), 0
+        while s < m:
+            e = min(m, s + block - n)
+            lo = int(off[s])
+            hi = int(off[e]) if e < m else len(buf)
+            texts.append(memoryview(buf)[lo:hi])
+            parts.append((off[s:e] - lo,) + tuple(a[..., s:e]
+                                                  for a in part[1:]))
+            n += e - s
+            s = e
+            if n == block:
+                yield _records(texts, parts, labels.strings())
+                texts, parts, n, emitted = [], [], 0, True
+    if n or not emitted:
+        yield _records(texts, parts, labels.strings())
 
 
 def write_lines(f, text: np.ndarray, off: np.ndarray, length: np.ndarray,
@@ -628,7 +677,10 @@ def bed_prefix(files: Sequence[str]) -> str:
 # ----------------------------------------------------------------- loaders
 def _upload(chunks, ncols: int, device):
     """Chunks of host columns concatenated on ``device``, one chunk on the
-    host at a time."""
+    host at a time: every pair on the device at once.  For callers that
+    want whole inputs as tensors (``allelic_classes``, ``valid_pairs``);
+    the matrix file drivers do not use it, they move the pairs a block at
+    a time (``pipeline.matrix``)."""
     parts = [[] for _ in range(ncols)]
     for chunk in chunks:
         for acc, a in zip(parts, chunk):

@@ -3,20 +3,34 @@
 Counterpart of ``hichap_master_tpu/pipeline/filtering.py``, with its
 public names and semantics and one argument more, ``device``.
 
-``hic_filtering``: the chunk beds are read whole as records
-(``io.bedio.read_records``: the host C++ scanner, every row kept, every
-chromosome string as written), their key columns go to the card, and the
-card sorts every record by (chrom1, strand1, pos1, chrom2, strand2, pos2)
-with stable sorts chained from the last key, marks the first record of
-each key, classifies self-circles, dangling ends, unknown-mechanism pairs
-and extra dangling ends (``filtering.py:87-104`` of the reference) and
-counts the seven statistics.  The valid lines are written in key order,
-verbatim, from the files' bytes (``io.bedio.write_lines``).  The JAX
-package sorts on the host with an external merge sort that spills to disk;
-the port holds the stage on the card (about 100 bytes of device memory a
-record, see ``chip_smoke.py``).
+``hic_filtering``: the chunk beds are scanned as records
+(``io.bedio.iter_record_blocks``: the host C++ scanner, every row kept,
+every chromosome string as written) in blocks of ``block_lines`` records
+(the JAX package's argument; else ``HICHAP_FILTER_BLOCK``; else
+``filter_block`` sizes it from the free device memory at
+``DEVICE_BYTES_PER_RECORD``).  The card sorts a block by (chrom1,
+strand1, pos1, chrom2, strand2, pos2) with stable sorts chained from the
+last key, marks the first record of each key, classifies self-circles,
+dangling ends, unknown-mechanism pairs and extra dangling ends
+(``filtering.py:87-104`` of the reference) and counts the seven
+statistics; the valid lines are written in key order, verbatim, from the
+files' bytes (``io.bedio.write_lines``).  An input of more than one block
+is sorted block by block into runs spilled under ``out_dir`` (lines in
+key order and a sidecar of their keys), which the card merges in rounds
+of at most a block, carrying the last key of a round into the next, as
+the JAX package carries ``prev_key`` across its blocks.  The JAX package
+sorts each chunk bed on the host with a native external sort that spills
+to disk, k-way merges the sorted files and classifies the merged order a
+block at a time (``filtering.py:112-172`` of it); the port holds at most
+a block of records on the card (248.4 bytes of device memory a record of
+both haplotypes when the stage held the whole input, H100 80GB HBM3,
+``testing/memory_measure.py``; see ``PERF.md``), and on the host the
+block being sorted and the next one.
 
-``allelic_filtering``: both valid beds are read as records; the read names
+``allelic_filtering``: both valid beds are read whole on the host as
+records (the JAX package holds both frames whole too) and, past a block,
+cut into read-name ranges of at most a block (``_splitters``), each joined
+and assigned on the card in turn; the read names
 become zero-padded big-endian int64 words on the card (sign bit flipped,
 so that signed word order is unsigned byte order, and byte order is ``str``
 order for ASCII); one chain of stable sorts over the words of both beds
@@ -58,20 +72,34 @@ Parity with the JAX package, and where trouble is likely:
 
 from __future__ import annotations
 
+import contextlib
+import io
 import os
+import shutil
+import tempfile
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from numpy.lib.stride_tricks import sliding_window_view
 
 from ..io.bedio import (ALLELIC_CLASSES, TAG_WORDS, Records, _format_rows,
-                        _table, read_records, write_lines)
+                        _table, iter_record_blocks, read_records,
+                        write_lines)
 from ..utils.logging import get_logger
 from .columns import lex_order, name_words, step, upload
 
 log = get_logger(__name__)
 
 MAX_DIFF_SCORE = 18  # filtering.py:447 of the reference
+# device bytes a record of a block takes at the peak of hic_filtering
+# (sort and classify) and of allelic_filtering (join and assign): H100
+# 80GB HBM3, testing/memory_measure.py, 104.3 and 275.0-278.9 measured;
+# and host bytes a record of a block (its columns, 141, and its line),
+# for sizing the default block
+DEVICE_BYTES_PER_RECORD = 110
+JOIN_BYTES_PER_RECORD = 290
+HOST_BYTES_PER_RECORD = 400
 STATS = ("Total", "Duplicates", "Valid", "SelfCircle", "DanglingEnds",
          "UnknownMechanism", "ExtraDanglingEnds")
 # the 16 entries of allelic_filtering's report, in the reference's order
@@ -104,16 +132,274 @@ def _byte_rank(labels: Sequence[bytes]) -> np.ndarray:
     return rank
 
 
+def _card_bytes(device) -> int:
+    """Bytes a stage may still take on the card ``device``: its free
+    memory and what PyTorch's allocator holds unused, within the process's
+    cap where one is set."""
+    i = torch.cuda.current_device() if device.index is None else device.index
+    free, total = torch.cuda.mem_get_info(i)
+    used = torch.cuda.memory_allocated(i)
+    avail = free + torch.cuda.memory_reserved(i) - used
+    cap = int(torch.cuda.get_per_process_memory_fraction(i) * total)
+    return max(min(avail, cap - used), 0)
+
+
+def _host_bytes() -> int:
+    """The host's available memory (``MemAvailable``, else the free
+    pages)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def filter_block(device, block_lines: Optional[int] = None,
+                 device_bytes: int = DEVICE_BYTES_PER_RECORD) -> int:
+    """The records a block of the filtering stage holds: ``block_lines``,
+    else ``HICHAP_FILTER_BLOCK``, else what half of the card's free memory
+    holds at ``device_bytes`` a record and a quarter of the host's at
+    ``HOST_BYTES_PER_RECORD`` (two blocks are on the host at once); on
+    the CPU the host holds both."""
+    block = block_lines or int(os.environ.get("HICHAP_FILTER_BLOCK", 0))
+    if block:
+        if block < 1:
+            raise ValueError(f"filtering: block of {block} records")
+        return int(block)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return max(_host_bytes() // 4 // (device_bytes
+                                          + HOST_BYTES_PER_RECORD), 1)
+    return max(min(_card_bytes(device) // 2 // device_bytes,
+                   _host_bytes() // 4 // HOST_BYTES_PER_RECORD), 1)
+
+
+@contextlib.contextmanager
+def _fits(stage: str, block: int, device):
+    """A device out of memory inside, re-raised naming the block."""
+    try:
+        yield
+    except torch.cuda.OutOfMemoryError as e:
+        raise MemoryError(
+            f"{stage}: a block of {block:,} records does not fit on "
+            f"{device}; set block_lines (or HICHAP_FILTER_BLOCK) lower"
+        ) from e
+
+
+def _first_of_key(keys, prev) -> torch.Tensor:
+    """Rows whose key (six sorted columns) differs from the row before;
+    row 0 compares with ``prev`` (a tuple of six ints, or None)."""
+    n = len(keys[0])
+    first = torch.ones(n, dtype=torch.bool, device=keys[0].device)
+    if n > 1:
+        same = keys[0][1:] == keys[0][:-1]
+        for k in keys[1:]:
+            same &= k[1:] == k[:-1]
+        first[1:] = ~same
+    if prev is not None and n:
+        eq = torch.stack([k[0] == v for k, v in zip(keys, prev)]).all()
+        first[0] = ~eq
+    return first
+
+
+def _classify(keys, f1, f2, prev):
+    """The reference's classification (filtering.py:87-104) of sorted
+    records with the previous block's last key ``prev``: (valid mask,
+    tensor of Duplicates, Valid, SelfCircle, DanglingEnds,
+    UnknownMechanism, ExtraDanglingEnds)."""
+    c1, s1, p1, c2, s2, p2 = keys
+    first = _first_of_key(keys, prev)
+    same_chrom = c1 == c2
+    same_frag = same_chrom & (f1 == f2)
+    fwd_rev = (s1 == 0) & (s2 == 16)
+    rev_fwd = (s1 == 16) & (s2 == 0)
+    lt = p1 < p2
+    facing = (lt & fwd_rev) | (~lt & rev_fwd)
+    de = same_frag & facing
+    sc = same_frag & ((lt & rev_fwd) | (~lt & fwd_rev))
+    um = same_frag & ~de & ~sc
+    ed = same_chrom & ~same_frag & ((p1 - p2).abs() <= 500) & facing
+    valid = first & ~sc & ~de & ~um & ~ed
+    return valid, torch.stack([(~first).sum(), valid.sum(), (sc & first).sum(),
+                               (de & first).sum(), (um & first).sum(),
+                               (ed & first).sum()])
+
+
+# a run's sidecar: each line's key (chromosome ids of one table for the
+# whole scan), fragments and length, in the run's order
+_RUN_KEYS = np.dtype([("c1", "<i4"), ("c2", "<i4"), ("len", "<i4"),
+                      ("pad", "<i4"), ("s1", "<i8"), ("p1", "<i8"),
+                      ("s2", "<i8"), ("p2", "<i8"), ("f1", "<i8"),
+                      ("f2", "<i8")])
+_KEY_FIELDS = ("c1", "s1", "p1", "c2", "s2", "p2")
+
+
+def _block_keys(rec: Records, device):
+    """A block's key columns on ``device`` (chromosomes as their byte-order
+    ranks among the block's labels) and its stable key order."""
+    rank = upload(_byte_rank(rec.labels), device)
+    c1, c2 = (rank[upload(rec.chrom[k], device).long()] for k in (0, 1))
+    s1, p1, s2, p2 = (upload(rec.col(c), device) for c in (2, 3, 9, 10))
+    keys = [c1, s1, p1, c2, s2, p2]
+    return keys, lex_order(keys)
+
+
+def _one_block(rec: Records, out_bed: str, device, walls):
+    """The whole-input path (one block): the records sorted, classified
+    and their valid lines written.  Returns the six counts after Total."""
+    with step(walls, "sort", device):
+        keys, order = _block_keys(rec, device)
+    with step(walls, "classify", device):
+        keys = [a[order] for a in keys]
+        f1, f2 = (upload(rec.col(c), device)[order] for c in (6, 13))
+        valid, counts = _classify(keys, f1, f2, None)
+        counts = counts.tolist()
+        rows = order[valid].cpu().numpy()
+    with step(walls, "write", device):
+        with open(out_bed, "wb") as f:
+            write_lines(f, rec.text, rec.off, rec.length, rows)
+    return counts
+
+
+def _spill(rec: Records, run_dir: str, k: int, device, walls) -> tuple:
+    """One block sorted on the card and written as run ``k``: its lines in
+    key order, and the sidecar of their keys.  Returns (lines path, keys
+    path, rows)."""
+    with step(walls, "sort", device):
+        _, order = _block_keys(rec, device)
+        order = order.cpu().numpy()
+    with step(walls, "spill", device):
+        side = np.zeros(len(rec), _RUN_KEYS)
+        side["c1"], side["c2"] = rec.chrom[0][order], rec.chrom[1][order]
+        side["len"] = rec.length[order]
+        for name, c in (("s1", 2), ("p1", 3), ("s2", 9), ("p2", 10),
+                        ("f1", 6), ("f2", 13)):
+            side[name] = rec.col(c)[order]
+        lines = os.path.join(run_dir, f"run{k}.bed")
+        keys = os.path.join(run_dir, f"run{k}.keys")
+        with open(lines, "wb") as f:
+            write_lines(f, rec.text, rec.off, rec.length, order)
+        side.tofile(keys)
+    return lines, keys, len(rec)
+
+
+class _Run:
+    """A spilled run read in order: its sidecar mapped, its lines read as
+    they are taken."""
+
+    def __init__(self, lines: str, keys: str, n: int):
+        self.keys = (np.memmap(keys, _RUN_KEYS, mode="r") if n
+                     else np.zeros(0, _RUN_KEYS))
+        self.f = open(lines, "rb")
+        self.pos = 0
+
+    def take(self, n: int):
+        """The next ``n`` records: (sidecar rows, their lines' bytes)."""
+        side = np.asarray(self.keys[self.pos:self.pos + n])
+        self.pos += n
+        return side, self.f.read(int(side["len"].sum()) + n)
+
+
+def _le(side: np.ndarray, rank: np.ndarray, cut: tuple) -> np.ndarray:
+    """Rows of a sidecar slice whose key is at most ``cut`` (chromosomes
+    compared by ``rank``)."""
+    le = np.ones(len(side), bool)
+    for name, v in reversed(list(zip(_KEY_FIELDS, cut))):
+        a = rank[side[name]] if name in ("c1", "c2") else side[name]
+        le = (a < v) | ((a == v) & le)
+    return le
+
+
+def _key_of(row, rank: np.ndarray) -> tuple:
+    return tuple(int(rank[row[n]]) if n in ("c1", "c2") else int(row[n])
+                 for n in _KEY_FIELDS)
+
+
+def _round_sizes(runs, rank, block: int):
+    """How many records each run gives the next round: every record up to a
+    cut key, and at most ``block`` records in all.  Each run shows its next
+    ``max(1, block // len(runs))`` records; the cut is the least of the
+    last keys shown by runs that hold more.  Where one record a run is
+    still more than ``block`` (more runs than ``block``), the ``block``
+    least keys go, ties in run order."""
+    c = max(1, block // len(runs))
+    heads = [r.keys[r.pos:r.pos + c] for r in runs]
+    more = [r.pos + c < len(r.keys) for r in runs]
+    cuts = [_key_of(h[-1], rank) for h, m in zip(heads, more) if m]
+    if not cuts:
+        sizes = [len(h) for h in heads]
+    else:
+        cut = min(cuts)
+        sizes = [int(_le(np.asarray(h), rank, cut).sum()) for h in heads]
+    if sum(sizes) > block:               # c == 1: one record a run
+        cand = sorted((_key_of(h[0], rank), i) for i, h in enumerate(heads)
+                      if sizes[i])
+        keep = {i for _, i in cand[:block]}
+        sizes = [s if i in keep else 0 for i, s in enumerate(sizes)]
+    return sizes
+
+
+def _merge(runs, labels, out_bed: str, block: int, device, walls):
+    """The runs merged in rounds of at most ``block`` records: each round
+    sorted on the card stably by key (its slices in run order, so ties
+    stay in (file, line) order), classified with the previous round's last
+    key, its valid lines written.  Returns the six counts after Total."""
+    rank_np = _byte_rank(labels)
+    rank = upload(rank_np, device)
+    totals = np.zeros(6, np.int64)
+    prev = None
+    with open(out_bed, "wb") as out:
+        while any(r.pos < len(r.keys) for r in runs):
+            live = [r for r in runs if r.pos < len(r.keys)]
+            with step(walls, "merge", device):
+                sizes = _round_sizes(live, rank_np, block)
+                parts = [r.take(n) for r, n in zip(live, sizes) if n]
+                side = np.concatenate([p[0] for p in parts])
+                text = np.frombuffer(b"".join(p[1] for p in parts), np.uint8)
+            with step(walls, "sort", device):
+                keys = [rank[upload(side[n], device).long()]
+                        if n in ("c1", "c2") else upload(side[n], device)
+                        for n in _KEY_FIELDS]
+                order = lex_order(keys)
+            with step(walls, "classify", device):
+                keys = [a[order] for a in keys]
+                f1, f2 = (upload(side[n], device)[order] for n in ("f1", "f2"))
+                valid, counts = _classify(keys, f1, f2, prev)
+                totals += np.asarray(counts.tolist(), np.int64)
+                prev = tuple(int(k[-1]) for k in keys)
+                rows = order[valid].cpu().numpy()
+            with step(walls, "write", device):
+                length = side["len"].astype(np.int32)
+                off = np.zeros(len(side), np.int64)
+                np.cumsum(length[:-1].astype(np.int64) + 1, out=off[1:])
+                write_lines(out, text, off, length, rows)
+    return [int(x) for x in totals]
+
+
 def hic_filtering(bed_dir: str, out_dir: str, allelic: str = "NonAllelic",
-                  clean: bool = True, *, device,
-                  walls: Optional[dict] = None) -> Dict[str, int]:
+                  clean: bool = True, block_lines: Optional[int] = None, *,
+                  device, walls: Optional[dict] = None) -> Dict[str, int]:
     """Duplicate removal and SC/DE/UM/ED classification of the chunk beds
     of ``bed_dir`` into ``{prefix}{allelic}_Valid.bed`` (``{prefix}Valid.bed``
     for NonAllelic) in ``out_dir``, ``prefix`` the first file's name up to
     ``chunk``.  With ``clean`` the chunk beds are deleted.  Returns the
-    seven statistics; ``walls`` (a dict) receives the seconds of ``scan``,
-    ``sort``, ``classify`` and ``write``."""
+    seven statistics.
+
+    The card holds at most ``block_lines`` records at a time (else
+    ``HICHAP_FILTER_BLOCK``, else what ``filter_block`` sizes from the free
+    memory): an input of one block is sorted, classified and written
+    whole; a larger one is scanned a block at a time, each block sorted on
+    the card and spilled as a run (its lines in key order and a sidecar of
+    their keys, under ``out_dir``, removed on success and on error), and
+    the runs merged in rounds of at most a block on the card.  The output
+    does not depend on the block.  ``walls`` (a dict) receives the seconds
+    of ``scan``, ``sort``, ``classify`` and ``write``, and with runs
+    ``spill`` and ``merge`` (reading them back)."""
     device = torch.device(device)
+    block = filter_block(device, block_lines)
     os.makedirs(out_dir, exist_ok=True)
     files = chunk_beds(bed_dir, allelic)
     if not files:
@@ -122,39 +408,36 @@ def hic_filtering(bed_dir: str, out_dir: str, allelic: str = "NonAllelic",
     out_bed = os.path.join(out_dir, f"{prefix}Valid.bed"
                            if allelic == "NonAllelic"
                            else f"{prefix}{allelic}_Valid.bed")
-    with step(walls, "scan", device):
-        rec = read_records(files)
-    with step(walls, "sort", device):
-        rank = upload(_byte_rank(rec.labels), device)
-        c1, c2 = (rank[upload(rec.chrom[k], device).long()] for k in (0, 1))
-        s1, p1, s2, p2 = (upload(rec.col(c), device) for c in (2, 3, 9, 10))
-        order = lex_order([c1, s1, p1, c2, s2, p2])
-    with step(walls, "classify", device):
-        c1, s1, p1, c2, s2, p2 = (a[order] for a in (c1, s1, p1, c2, s2, p2))
-        f1, f2 = (upload(rec.col(c), device)[order] for c in (6, 13))
-        first = torch.ones(len(rec), dtype=torch.bool, device=device)
-        first[1:] = ~((c1[1:] == c1[:-1]) & (s1[1:] == s1[:-1])
-                      & (p1[1:] == p1[:-1]) & (c2[1:] == c2[:-1])
-                      & (s2[1:] == s2[:-1]) & (p2[1:] == p2[:-1]))
-        same_chrom = c1 == c2
-        same_frag = same_chrom & (f1 == f2)
-        fwd_rev = (s1 == 0) & (s2 == 16)
-        rev_fwd = (s1 == 16) & (s2 == 0)
-        lt = p1 < p2
-        facing = (lt & fwd_rev) | (~lt & rev_fwd)
-        de = same_frag & facing
-        sc = same_frag & ((lt & rev_fwd) | (~lt & fwd_rev))
-        um = same_frag & ~de & ~sc
-        ed = same_chrom & ~same_frag & ((p1 - p2).abs() <= 500) & facing
-        valid = first & ~sc & ~de & ~um & ~ed
-        counts = torch.stack([(~first).sum(), valid.sum(), (sc & first).sum(),
-                              (de & first).sum(), (um & first).sum(),
-                              (ed & first).sum()]).tolist()
-        rows = order[valid].cpu().numpy()
-    stats = dict(zip(STATS, [len(rec)] + counts))
-    with step(walls, "write", device):
-        with open(out_bed, "wb") as f:
-            write_lines(f, rec.text, rec.off, rec.length, rows)
+    run_dir, runs, total = None, [], 0
+    try:
+        with _fits("hic_filtering", block, device):
+            blocks = iter_record_blocks(files, block)
+            with step(walls, "scan", device):
+                rec = next(blocks)
+                nxt = next(blocks, None)
+            if nxt is None:
+                total = len(rec)
+                counts = _one_block(rec, out_bed, device, walls)
+            else:
+                run_dir = tempfile.mkdtemp(prefix=".hic_filtering_runs_",
+                                           dir=out_dir)
+                while rec is not None:
+                    total += len(rec)
+                    runs.append(_spill(rec, run_dir, len(runs), device,
+                                       walls))
+                    labels = rec.labels
+                    rec = nxt
+                    with step(walls, "scan", device):
+                        nxt = next(blocks, None) if rec is not None else None
+                runs = [_Run(*r) for r in runs]
+                counts = _merge(runs, labels, out_bed, block, device, walls)
+    finally:
+        for r in runs:
+            if isinstance(r, _Run):
+                r.f.close()
+        if run_dir is not None:
+            shutil.rmtree(run_dir, ignore_errors=True)
+    stats = dict(zip(STATS, [total] + counts))
     log.log(21, "HiC filtering (%s): %s", allelic, stats)
     if clean:
         for f in files:
@@ -292,19 +575,25 @@ def _new_counts() -> Dict[str, int]:
                 Speci_M_both=0, Speci_P_single=0, Speci_P_both=0)
 
 
-def _sorted_rows(path: str) -> List[List[str]]:
-    """The lines of ``path`` sorted whole, in byte order (a last line
-    without ``\\n`` gets one), split on whitespace."""
-    with open(path, "rb") as f:
-        lines = f.read().split(b"\n")
+def _sorted_rows(src) -> List[List[str]]:
+    """The lines of ``src`` (a path, or the bytes of lines) sorted whole,
+    in byte order (a last line without ``\\n`` gets one), split on
+    whitespace."""
+    if isinstance(src, (bytes, bytearray)):
+        lines = bytes(src).split(b"\n")
+    else:
+        with open(src, "rb") as f:
+            lines = f.read().split(b"\n")
     if lines and not lines[-1]:
         lines.pop()
     return [ln.decode().split() for ln in sorted(lines)]
 
 
-def _rowwise(maternal_bed: str, paternal_bed: str, outs, save_id: bool):
+def _rowwise(maternal_bed, paternal_bed, outs, save_id: bool):
     """The reference's merge-join on whole-line-sorted rows (filtering.py:
-    786-815): the path for repeated read names.  Returns (counts, pairs)."""
+    786-815) of two beds (paths, or the bytes of their lines) into the text
+    files ``outs``: the path for repeated read names.  Returns (counts,
+    pairs)."""
     S = _new_counts()
 
     def emit_specific(info, side):
@@ -571,10 +860,11 @@ def _assign(m: Records, p: Records, order, start, device):
     return cls, tag, lines, name_row, labels, S, E
 
 
-def _write_events(paths, cls, tag, lines, name_row, labels, m: Records,
+def _write_events(outs, cls, tag, lines, name_row, labels, m: Records,
                   p: Records, save_id: bool) -> None:
     """The five allelic beds: each class's events in event order, as
-    ``[name] chrom1 frag1 chrom2 frag2 [tag]`` lines."""
+    ``[name] chrom1 frag1 chrom2 frag2 [tag]`` lines, to the binary files
+    ``outs``."""
     cls, tag = cls.cpu().numpy(), tag.cpu().numpy()
     lines = [a.cpu().numpy() for a in lines]
     name_row = name_row.cpu().numpy()
@@ -594,8 +884,7 @@ def _write_events(paths, cls, tag, lines, name_row, labels, m: Records,
         if save_id:
             r = name_row[sel]
             fields.insert(0, [("text", text, name_off[r], name_len[r])])
-        with open(paths[name], "wb") as f:
-            _format_rows(fields, sel.size, f)
+        _format_rows(fields, sel.size, outs[name])
 
 
 def _report(S: Dict[str, int], total: int) -> Dict[str, float]:
@@ -609,43 +898,179 @@ def _report(S: Dict[str, int], total: int) -> Dict[str, float]:
         allelic_n / total if total else 0.0)))
 
 
+class _Utf8:
+    """A binary file written with ``str``, as UTF-8 (the row-wise rules
+    write text)."""
+
+    def __init__(self, f):
+        self.f = f
+
+    def write(self, s: str) -> None:
+        self.f.write(s.encode())
+
+
+def _names(rec: Records, W: int, rows: int = 1 << 20) -> np.ndarray:
+    """The read names of ``rec`` as zero-padded ``S{8W}`` strings (numpy
+    orders them as the card's name words: unsigned bytes), ``rows`` at a
+    time: the 8W bytes at each line's start, cut to its name."""
+    w = 8 * W
+    out = np.zeros(len(rec), f"S{w}")
+    view = out.view(np.uint8).reshape(len(rec), w)
+    fits = rec.off + w <= rec.text.size
+    win = sliding_window_view(rec.text, w) if rec.text.size >= w else None
+    j = np.arange(w)
+    for s in range(0, len(rec), rows):
+        e = min(len(rec), s + rows)
+        if win is not None:
+            view[s:e] = win[np.where(fits[s:e], rec.off[s:e], 0)]
+        view[s:e][(j >= rec.name_len[s:e, None]) | ~fits[s:e, None]] = 0
+    for i in np.flatnonzero(~fits):     # the last line or two
+        name = rec.text[rec.off[i]:rec.off[i] + rec.name_len[i]]
+        view[i, :name.size] = name
+    return out
+
+
+def _subset(rec: Records, rows: np.ndarray) -> Records:
+    """The records ``rows`` (ascending) of ``rec`` as a ``Records`` with
+    the bytes of their lines only (each ended by ``\\n``)."""
+    length = rec.length[rows]
+    off = np.zeros(rows.size, np.int64)
+    np.cumsum(length[:-1].astype(np.int64) + 1, out=off[1:])
+    buf = io.BytesIO()
+    write_lines(buf, rec.text, rec.off, rec.length, rows)
+    return Records(np.frombuffer(buf.getbuffer(), np.uint8), off, length,
+                   rec.name_len[rows], rec.chrom[:, rows],
+                   rec.ints[:, rows], rec.cand[rows], rec.labels)
+
+
+def _splitters(names, block: int):
+    """Read-name splitters such that the names of both beds fall into
+    ranges of at most ``block`` names, where names allow it (one name
+    repeated more often stays one range): quantiles of a sample for ranges
+    of about three quarters of a block, then ranges still too large cut at
+    every ``block // 2``-th of their own sorted names.  Returns (the
+    splitters, each bed's range of each name)."""
+    n = sum(len(a) for a in names)
+    target = max(block // 2, 1)
+    parts = -(-n // max(3 * block // 4, 1))
+    every = max(1, n // (parts * 256))
+    sample = np.sort(np.concatenate([a[::every] for a in names]))
+    cut = np.unique(sample[(np.arange(1, parts) * sample.size) // parts])
+    while True:
+        ids = [np.searchsorted(cut, a, side="right").astype(
+            np.uint16 if cut.size < 1 << 16 else np.int64) for a in names]
+        size = sum(np.bincount(i, minlength=cut.size + 1) for i in ids)
+        big = np.flatnonzero(size > block)
+        new = []
+        for b in big:
+            within = np.sort(np.concatenate([a[i == b] for a, i in
+                                             zip(names, ids)]))
+            new.append(within[target::target])
+        grown = np.unique(np.concatenate([cut] + new))
+        if grown.size == cut.size:
+            return cut, ids
+        cut = grown
+
+
+def _assign_part(m: Records, p: Records, outs, save_id: bool, device,
+                 walls, what: str):
+    """One join and assignment on the card, or the row-wise rules where a
+    read name repeats within a bed.  Returns (counts, events)."""
+    with step(walls, "join", device):
+        joined = _join(m, p, device)
+    if joined is None:
+        log.log(21, "allelic filtering: a read name repeats within a bed%s; "
+                "the reference's row-wise merge-join assigns the pairs", what)
+        with step(walls, "assign", device):
+            return _rowwise(m.text.tobytes(), p.text.tobytes(),
+                            {k: _Utf8(f) for k, f in outs.items()}, save_id)
+    with step(walls, "assign", device):
+        cls, tag, lines, name_row, labels, S, total = _assign(
+            m, p, *joined, device)
+    with step(walls, "write", device):
+        _write_events(outs, cls, tag, lines, name_row, labels, m, p, save_id)
+    return S, total
+
+
 def allelic_filtering(maternal_bed: str, paternal_bed: str, out_dir: str,
                       save_id: bool = False, *, device,
-                      walls: Optional[dict] = None) -> Dict[str, float]:
+                      walls: Optional[dict] = None,
+                      block_lines: Optional[int] = None) -> Dict[str, float]:
     """The maternal and paternal valid beds joined on read name and every
     pair assigned to Bi_Allelic / M_M / P_P / M_P / P_M (the reference's
     filtering.py:989-1291): ``{prefix}_{class}.bed`` in ``out_dir``, with
     ``prefix`` the maternal file's name up to ``Maternal`` plus ``Valid``,
     and with the read name first when ``save_id``.  Returns the 16-entry
-    report; ``walls`` (a dict) receives the seconds of ``scan``, ``join``,
-    ``assign`` and ``write``."""
+    report.
+
+    Both beds are read whole on the host.  The card holds at most
+    ``block_lines`` records of both beds at a time (else
+    ``HICHAP_FILTER_BLOCK``, else ``filter_block``'s size): beds of more are
+    cut into read-name ranges (``_splitters``), each joined and assigned on
+    the card in name order and appended to the files.  With unique names
+    the files and the report do not depend on the block, byte for byte; a
+    range where a name repeats within a bed takes the row-wise rules for
+    that range only, and its lines then sort within the range (the
+    reference's row-wise order over whole lines), so the files equal the
+    one-block run's as multisets, and byte for byte only where those
+    orders agree.  ``walls`` (a dict) receives the seconds of ``scan``,
+    ``join``, ``assign`` and ``write``, and with ranges ``partition``."""
     device = torch.device(device)
+    block = filter_block(device, block_lines, JOIN_BYTES_PER_RECORD)
     os.makedirs(out_dir, exist_ok=True)
     prefix = os.path.split(maternal_bed)[-1].split("Maternal")[0] + "Valid"
     paths = {k: os.path.join(out_dir, f"{prefix}_{k}.bed")
              for k in ALLELIC_CLASSES}
     with step(walls, "scan", device):
         m, p = read_records([maternal_bed]), read_records([paternal_bed])
-    with step(walls, "join", device):
-        joined = _join(m, p, device)
-    if joined is None:
-        log.log(21, "allelic filtering: a read name repeats within a bed; "
-                "the reference's row-wise merge-join assigns the pairs")
-        del m, p
-        with step(walls, "assign", device):
-            outs = {k: open(v, "w") for k, v in paths.items()}
-            try:
-                S, total = _rowwise(maternal_bed, paternal_bed, outs, save_id)
-            finally:
-                for f in outs.values():
-                    f.close()
-    else:
-        with step(walls, "assign", device):
-            cls, tag, lines, name_row, labels, S, total = _assign(
-                m, p, *joined, device)
-        with step(walls, "write", device):
-            _write_events(paths, cls, tag, lines, name_row, labels, m, p,
-                          save_id)
+    outs = {k: open(v, "wb") for k, v in paths.items()}
+    try:
+        with _fits("allelic_filtering", block, device):
+            if len(m) + len(p) <= block:
+                S, total = _assign_part(m, p, outs, save_id, device, walls,
+                                        "")
+            else:
+                S, total = _assign_ranges(m, p, outs, save_id, block, device,
+                                          walls)
+    finally:
+        for f in outs.values():
+            f.close()
     report = _report(S, total)
     log.log(21, "allelic filtering: %s", report)
     return report
+
+
+def _assign_ranges(m: Records, p: Records, outs, save_id: bool, block: int,
+                   device, walls):
+    """``_assign_part`` over read-name ranges of at most ``block`` records,
+    in name order.  Returns (counts, events)."""
+    with step(walls, "partition", device):
+        W = (max(int(m.name_len.max(initial=0)),
+                 int(p.name_len.max(initial=0)), 1) + 7) // 8
+        cut, ids = _splitters([_names(rec, W) for rec in (m, p)], block)
+        order = [np.argsort(i, kind="stable") for i in ids]   # radix sort
+        ends = [np.cumsum(np.bincount(i, minlength=cut.size + 1))
+                for i in ids]
+    S, total = _new_counts(), 0
+    for r in range(cut.size + 1):
+        with step(walls, "partition", device):
+            sub = [_subset(rec, o[(e[r - 1] if r else 0):e[r]])
+                   for rec, o, e in zip((m, p), order, ends)]
+        if not len(sub[0]) + len(sub[1]):
+            continue
+        what = f" (names {r + 1} of {cut.size + 1})"
+        if len(sub[0]) + len(sub[1]) > block:
+            # one name more often than the block: no card join can hold it
+            log.log(21, "allelic filtering: a read name repeats within a "
+                    "bed%s; the reference's row-wise merge-join assigns the "
+                    "pairs", what)
+            with step(walls, "assign", device):
+                got = _rowwise(sub[0].text.tobytes(), sub[1].text.tobytes(),
+                               {k: _Utf8(f) for k, f in outs.items()},
+                               save_id)
+        else:
+            got = _assign_part(*sub, outs, save_id, device, walls, what)
+        for k, v in got[0].items():
+            S[k] += v
+        total += got[1]
+    return S, total

@@ -8,7 +8,15 @@ matrices, corrected matrices, gap lists and ICE weights as tensors (the
 weights in cooler bins, as ``cooler balance`` would store them); the file
 drivers (``haplotype_matrix_files``, ``traditional_matrix_files``) read
 bed directories through ``io.bedio`` and write each cooler once, weights
-included, through ``io.cooler``.
+included, through ``io.cooler``.  Every build feeds its pairs to the
+targets MATRIX_BLOCK pairs at a time, the traditional matrices through
+one loop (``_traditional_loop``, also the haplotype build's first pass):
+the in-memory drivers slices of their tensors, the file drivers blocks
+moved from the host (``build_traditional_stream`` streams the valid beds, as
+the JAX package's does; the haplotype build parses the allelic beds once
+into host columns and moves them block by block in each of its passes).
+The device holds a block of pairs beside what grows with bins and unique
+pixels, and no block size moves a bit of the output.
 
 Where the JAX package keeps most of this stage on the host (TPU scatter
 serialises, so it bins with ``np.bincount`` and a native hash), the port
@@ -28,11 +36,13 @@ the reference's P_P and R2 bugs (DIVERGENCES.md):
    [b2, b1]);
 3. the single-side inter M_M/P_P contacts vote between their same- and
    cross-haplotype candidates against the finished un-imputed matrix
-   (dense disk gather under the cap, K6 past it).
+   (dense disk gather under the cap, K6 past it), a block of M_M and a
+   block of P_P in one vote.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import shutil
 from typing import Dict, Mapping, Sequence
@@ -41,9 +51,9 @@ import numpy as np
 import torch
 
 from ..core import Genome, bucket_groups, pad_to_shape
-from ..io.bedio import (ALLELIC_CLASSES, TAG_BOTH, TAG_R1, TAG_R2,
-                        allelic_classes, bed_prefix, discover_allelic_beds,
-                        valid_pairs)
+from ..io.bedio import (ALLELIC_CLASSES, TAG_BOTH, TAG_R1, TAGGED,
+                        bed_prefix, discover_allelic_beds, iter_valid_bed,
+                        read_allelic_bed)
 from ..io.cooler import cooler_group, write_multi_cooler
 from ..ops.balance import ice_balance, ice_balance_batch
 from ..ops.binning import (bin_genomewide_bins,
@@ -56,18 +66,26 @@ from ..ops.sparse import bin_sums, genomewide_correction_coo
 from ..ops.sparse_hybrid import hybrid_from_coo, ice_balance_hybrid
 from ..ops.sparse_impute import (SparseU, disk_row_intervals,
                                  sparse_impute_vote_rowptr)
-from .columns import step
+from .columns import step, upload
 
 DENSE_GW_MAX_BINS = 65_536
+# pairs a block of the matrix stage moves to the device at a time
+MATRIX_BLOCK = 1 << 24
+# bytes of pending keys and weights a sparse accumulator holds before it
+# merges them into its sorted keys
+COMPACT_BYTES = 1 << 28
 
 
 # ---------------------------------------------------------- accumulators
 class _SparseAcc:
     """Sorted-unique int64 keys with float64 counts on the device.  Pending
-    keys merge in by one sort once ``compact_every`` have arrived (and on
-    every read)."""
+    keys (16 bytes each with their weight) merge in by one sort once
+    ``compact_every`` have arrived (and on every read): COMPACT_BYTES of
+    them, so that a merge's transient (a few copies of the held and the
+    pending keys) grows with the unique pixels and not with the pairs."""
 
-    def __init__(self, S: int, device, compact_every: int = 1 << 26):
+    def __init__(self, S: int, device,
+                 compact_every: int = COMPACT_BYTES // 16):
         self.S = S
         self.device = torch.device(device)
         self.keys = torch.zeros(0, dtype=torch.int64, device=self.device)
@@ -243,12 +261,44 @@ def _offsets(genome: Genome, res: int, device) -> torch.Tensor:
                            dtype=torch.int64, device=device)
 
 
+def _tensor(a, device) -> torch.Tensor:
+    """A column on ``device``: a tensor as it is, a host array uploaded."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    return upload(a, device)
+
+
 def _columns(part, device):
     """Pair columns as int64 tensors (a tag column, when present, int8)."""
-    cols = [torch.as_tensor(a, device=device).long() for a in part[:4]]
+    cols = [_tensor(a, device).long() for a in part[:4]]
     if len(part) > 4:
-        cols.append(torch.as_tensor(part[4], device=device).to(torch.int8))
+        cols.append(_tensor(part[4], device).to(torch.int8))
     return tuple(cols)
+
+
+def _slices(cols, block: int):
+    """Pair columns (tensors or host arrays) in blocks of ``block`` rows."""
+    n = len(cols[0])
+    for s in range(0, n, block):
+        yield tuple(a[s:s + block] for a in cols)
+
+
+def _regroup(chunks, block: int):
+    """Host column chunks (as ``io.bedio``'s readers yield them) regrouped
+    into blocks of ``block`` rows (the last one fewer)."""
+    pend, n = [], 0
+    for chunk in chunks:
+        m, s = len(chunk[0]), 0
+        while s < m:
+            e = min(m, s + block - n)
+            pend.append(tuple(a[s:e] for a in chunk))
+            n += e - s
+            s = e
+            if n == block:
+                yield tuple(np.concatenate(c) for c in zip(*pend))
+                pend, n = [], 0
+    if pend:
+        yield tuple(np.concatenate(c) for c in zip(*pend))
 
 
 def _gw_sparse(genome: Genome, res: int, dense_max_bins: int) -> bool:
@@ -256,27 +306,78 @@ def _gw_sparse(genome: Genome, res: int, dense_max_bins: int) -> bool:
 
 
 # ------------------------------------------------------ traditional build
+def _traditional_loop(blocks, genome: Genome, whole_res, local_res, device,
+                      dense_max_bins: int):
+    """The one accumulation loop of the traditional matrices: each block of
+    valid pairs ``(c1, p1, c2, p2)`` (tensors or host arrays) moved to
+    ``device`` and added to every resolution's target.  Returns (whole,
+    local, pairs)."""
+    twhole = {res: _GWAcc(genome.total_bins(res),
+                          _gw_sparse(genome, res, dense_max_bins), device)
+              for res in whole_res}
+    offs = {res: _offsets(genome, res, device) for res in whole_res}
+    tlocal = {res: _IntraAcc(genome, res, device) for res in local_res}
+    total = 0
+    for part in blocks:
+        c1, p1, c2, p2 = _columns(part, device)[:4]
+        total += c1.numel()
+        for res in whole_res:
+            twhole[res].add_sym(p1 // res + offs[res][c1],
+                                p2 // res + offs[res][c2])
+        for res in local_res:
+            tlocal[res].add(c1, p1, c2, p2)
+    return ({res: acc.finish() for res, acc in twhole.items()},
+            {res: acc.finish() for res, acc in tlocal.items()}, total)
+
+
 def build_traditional(pairs, genome: Genome, whole_res: Sequence[int],
                       local_res: Sequence[int], *, device,
                       dense_max_bins: int = DENSE_GW_MAX_BINS):
     """Traditional matrices of one replicate from valid pairs
     ``(c1, p1, c2, p2)`` (chromosome indices into ``genome.labels``,
-    positions in bp).  Returns (whole {res: [S, S] tensor or SparseGW},
-    local {res: {chrom: [n, n]}})."""
-    c1, p1, c2, p2 = _columns(pairs, device)
-    whole = {}
-    for res in whole_res:
-        acc = _GWAcc(genome.total_bins(res),
-                     _gw_sparse(genome, res, dense_max_bins), device)
-        offs = _offsets(genome, res, device)
-        acc.add_sym(p1 // res + offs[c1], p2 // res + offs[c2])
-        whole[res] = acc.finish()
-    local = {}
-    for res in local_res:
-        acc = _IntraAcc(genome, res, device)
-        acc.add(c1, p1, c2, p2)
-        local[res] = acc.finish()
+    positions in bp), fed to the targets MATRIX_BLOCK at a time.  Returns
+    (whole {res: [S, S] tensor or SparseGW}, local {res: {chrom:
+    [n, n]}})."""
+    whole, local, _ = _traditional_loop(
+        _slices(pairs, MATRIX_BLOCK), genome, list(whole_res or []),
+        list(local_res or []), device, dense_max_bins)
     return whole, local
+
+
+def _timed(blocks, walls: dict, device):
+    """``blocks`` with the seconds spent making them in ``walls["parse"]``."""
+    it = iter(blocks)
+    while True:
+        with step(walls, "parse", device):
+            part = next(it, None)
+        if part is None:
+            return
+        yield part
+
+
+def build_traditional_stream(files: Sequence[str], genome: Genome,
+                             whole_res: Sequence[int],
+                             local_res: Sequence[int], *, device,
+                             dense_max_bins: int = DENSE_GW_MAX_BINS,
+                             walls: dict | None = None):
+    """The traditional matrices of valid-bed files in one streaming pass
+    (the JAX package's name and return value): the host scanner's chunks
+    regrouped into blocks of MATRIX_BLOCK pairs, each moved to ``device``
+    and added to every resolution's target, so the device holds one block
+    of pairs beside the matrices.  Returns (whole, local, pairs read);
+    ``walls`` (a dict) receives the seconds of ``parse`` (the host
+    scanner) and ``build`` (the rest)."""
+    parse = {}
+    with step(parse, "stream", device):
+        out = _traditional_loop(
+            _timed(_regroup(iter_valid_bed(files, genome), MATRIX_BLOCK),
+                   parse, device), genome, list(whole_res or []),
+            list(local_res or []), device, dense_max_bins)
+    if walls is not None:
+        for k, v in (("parse", parse.get("parse", 0.0)),
+                     ("build", parse["stream"] - parse.get("parse", 0.0))):
+            walls[k] = walls.get(k, 0.0) + v
+    return out
 
 
 # -------------------------------------------------------- haplotype build
@@ -290,35 +391,39 @@ def build_haplotype_datasets(
 
     ``classes`` maps each of ``ALLELIC_CLASSES`` to ``(c1, p1, c2, p2)``
     arrays, with a tag column (``TAG_BOTH``/``TAG_R1``/``TAG_R2``) for M_M
-    and P_P.  Returns a dict with Tradition_Whole/Tradition_Local/
+    and P_P (tensors or host arrays), fed to the targets MATRIX_BLOCK at a
+    time.  Returns a dict with
+    Tradition_Whole/Tradition_Local/
     UnImputated_*/Imputated_* (genome-wide entries dense ``[S, S]`` float32
     up to ``dense_max_bins`` bins, ``SparseGW``/``SparseDirectedGW`` past
     it; local entries ``{label: [n, n]}``) and ``stats``: the single-side
     increments, vote queries and vote hits per genome-wide resolution.
     ``walls`` (a dict) receives the seconds of pass1, pass2, vote_setup and
     vote."""
+    return _haplotype_passes(
+        lambda k: _slices(classes[k], MATRIX_BLOCK), genome, whole_res,
+        local_res,
+        imputation_region, imputation_min, imputation_ratio, device,
+        dense_max_bins, walls)
+
+
+def _haplotype_passes(blocks, genome: Genome, whole_res, local_res,
+                      imputation_region: int, imputation_min: int,
+                      imputation_ratio: float, device, dense_max_bins: int,
+                      walls):
+    """The three passes of ``build_haplotype_datasets`` over ``blocks(k)``,
+    the blocks of class ``k`` (an iterable made anew for each pass), each
+    moved to ``device`` as it comes."""
     hap = genome.haplotype()
     nc = len(genome.labels)
     whole_res, local_res = list(whole_res or []), list(local_res or [])
-    cols = {k: _columns(classes[k], device) for k in ALLELIC_CLASSES}
     offs = {res: _offsets(hap, res, device) for res in whole_res}
     stats = {"single_side": {}, "vote_queries": {}, "vote_hits": {}}
 
-    with step(walls, "pass1", device):
-        twhole = {res: _GWAcc(genome.total_bins(res),
-                              _gw_sparse(genome, res, dense_max_bins),
-                              device) for res in whole_res}
-        tlocal = {res: _IntraAcc(genome, res, device) for res in local_res}
-        base = {res: _offsets(genome, res, device) for res in whole_res}
-        for k in ALLELIC_CLASSES:
-            c1, p1, c2, p2 = cols[k][:4]
-            for res in whole_res:
-                twhole[res].add_sym(p1 // res + base[res][c1],
-                                    p2 // res + base[res][c2])
-            for res in local_res:
-                tlocal[res].add(c1, p1, c2, p2)
-        tradition_whole = {res: twhole[res].finish() for res in whole_res}
-        tradition_local = {res: tlocal[res].finish() for res in local_res}
+    with step(walls, "pass1", device):        # the traditional build
+        tradition_whole, tradition_local, _ = _traditional_loop(
+            (part[:4] for k in ALLELIC_CLASSES for part in blocks(k)),
+            genome, whole_res, local_res, device, dense_max_bins)
 
     with step(walls, "pass2", device):
         sparse = {res: _gw_sparse(hap, res, dense_max_bins)
@@ -335,33 +440,35 @@ def build_haplotype_datasets(
         for k, h1, h2 in (("M_M", 0, 0), ("P_P", 1, 1), ("M_P", 0, 1),
                           ("P_M", 1, 0)):
             side = "M" if h1 == 0 else "P"
-            c1, p1, c2, p2 = cols[k][:4]
             tagged = k in ("M_M", "P_P")
-            both = (cols[k][4] == TAG_BOTH) if tagged else None
-            bc1, bp1, bc2, bp2 = ((t[both] for t in (c1, p1, c2, p2))
-                                  if tagged else (c1, p1, c2, p2))
-            for res in whole_res:
-                o = offs[res]
-                uwhole[res].add_sym(bp1 // res + o[bc1 + h1 * nc],
-                                    bp2 // res + o[bc2 + h2 * nc])
-            if not tagged:
-                continue
-            for res in local_res:
-                ulocal[res][side].add(bc1, bp1, bc2, bp2)
-            single = ~both
-            tag = cols[k][4][single]
-            s1, q1, s2, q2 = (t[single] for t in (c1, p1, c2, p2))
-            intra = s1 == s2
-            r1 = tag[intra] == TAG_R1
-            for res in whole_res:
-                o = offs[res]
-                b1 = q1[intra] // res + o[s1[intra] + h1 * nc]
-                b2 = q2[intra] // res + o[s2[intra] + h1 * nc]
-                swhole[res].add_directed(torch.where(r1, b1, b2),
-                                         torch.where(r1, b2, b1))
-            for res in local_res:
-                slocal[res][side].add(s1[intra], q1[intra], s2[intra],
-                                      q2[intra], tags=tag[intra])
+            for part in blocks(k):
+                cols = _columns(part, device)
+                c1, p1, c2, p2 = cols[:4]
+                both = (cols[4] == TAG_BOTH) if tagged else None
+                bc1, bp1, bc2, bp2 = ((t[both] for t in (c1, p1, c2, p2))
+                                      if tagged else (c1, p1, c2, p2))
+                for res in whole_res:
+                    o = offs[res]
+                    uwhole[res].add_sym(bp1 // res + o[bc1 + h1 * nc],
+                                        bp2 // res + o[bc2 + h2 * nc])
+                if not tagged:
+                    continue
+                for res in local_res:
+                    ulocal[res][side].add(bc1, bp1, bc2, bp2)
+                single = ~both
+                tag = cols[4][single]
+                s1, q1, s2, q2 = (t[single] for t in (c1, p1, c2, p2))
+                intra = s1 == s2
+                r1 = tag[intra] == TAG_R1
+                for res in whole_res:
+                    o = offs[res]
+                    b1 = q1[intra] // res + o[s1[intra] + h1 * nc]
+                    b2 = q2[intra] // res + o[s2[intra] + h1 * nc]
+                    swhole[res].add_directed(torch.where(r1, b1, b2),
+                                             torch.where(r1, b2, b1))
+                for res in local_res:
+                    slocal[res][side].add(s1[intra], q1[intra], s2[intra],
+                                          q2[intra], tags=tag[intra])
         unimp_whole = {res: uwhole[res].finish() for res in whole_res}
         unimp_local, imp_local = {}, {}
         for res in local_res:
@@ -398,27 +505,37 @@ def build_haplotype_datasets(
                                   torch.as_tensor(dj, device=device))
                     st["L"] = L
             state[res] = st
-        queries = {res: vote_queries(cols, genome, res, device=device)
-                   for res in whole_res if state[res]["L"] is not None}
+        voting = [res for res in whole_res if state[res]["L"] is not None]
+        for res in voting:
+            stats["vote_queries"][res] = stats["vote_hits"][res] = 0
 
     with step(walls, "vote", device):
-        imp_whole = {}
-        for res in whole_res:
-            st = state[res]
-            if st["L"] is not None:
-                rk, cs, cc = queries[res]
-                stats["vote_queries"][res] = int(rk.numel())
+        rounds = (itertools.zip_longest(blocks("M_M"), blocks("P_P"))
+                  if voting else ())
+        for parts in rounds:           # a block of M_M and one of P_P
+            cols = [(k, _columns(part, device)) for k, part in
+                    zip(("M_M", "P_P"), parts) if part is not None]
+            for res in voting:
+                st = state[res]
+                rk, cs, cc = (torch.cat(t) for t in zip(*(
+                    _class_queries(c, k, nc, offs[res], res)
+                    for k, c in cols)))
+                stats["vote_queries"][res] += int(rk.numel())
                 if sparse[res]:
                     hit, tgt = sparse_impute_vote_rowptr(
                         st["su"], rk, cs, cc, *st["disk"], st["L"],
                         float(imputation_min), float(imputation_ratio))
                     st["acc"].add_directed(rk[hit], tgt[hit])
-                    stats["vote_hits"][res] = int(hit.sum())
+                    stats["vote_hits"][res] += int(hit.sum())
                 else:
-                    _, stats["vote_hits"][res] = impute_inter_chunk(
+                    _, hits = impute_inter_chunk(
                         st["imp"], st["U"], rk, cs, cc, *st["disk"],
                         st["L"], float(imputation_min),
                         float(imputation_ratio))
+                    stats["vote_hits"][res] += hits
+        imp_whole = {}
+        for res in whole_res:
+            st = state[res]
             if sparse[res]:
                 st["acc"].add_symmetric(*st["base_coo"])
                 imp_whole[res] = st["acc"]
@@ -436,6 +553,23 @@ def build_haplotype_datasets(
     }
 
 
+def _class_queries(cols, k: str, nc: int, o: torch.Tensor, res: int):
+    """Pass 3's queries of one block of class ``k`` (M_M or P_P) at
+    ``res``, ``o`` the diploid bin offsets: (row_known, col_same,
+    col_cross)."""
+    base = 0 if k == "M_M" else nc
+    other = nc if base == 0 else -nc
+    c1, p1, c2, p2, tag = cols
+    inter = (tag != TAG_BOTH) & (c1 != c2)
+    ic1, ip1, ic2, ip2 = (t[inter] for t in (c1, p1, c2, p2))
+    r1 = tag[inter] == TAG_R1
+    known = torch.where(r1, ip1 // res + o[ic1 + base],
+                        ip2 // res + o[ic2 + base])
+    unk_c = torch.where(r1, ic2, ic1)
+    unk_b = torch.where(r1, ip2, ip1) // res
+    return known, unk_b + o[unk_c + base], unk_b + o[unk_c + base + other]
+
+
 def vote_queries(classes: Mapping[str, tuple], genome: Genome, res: int, *,
                  device):
     """Pass 3's queries at ``res``: (row_known, col_same, col_cross)
@@ -444,19 +578,8 @@ def vote_queries(classes: Mapping[str, tuple], genome: Genome, res: int, *,
     chromosome, in the same and in the other haplotype."""
     nc = len(genome.labels)
     o = _offsets(genome.haplotype(), res, device)
-    out = []
-    for k, base in (("M_M", 0), ("P_P", nc)):
-        other = nc if base == 0 else -nc
-        c1, p1, c2, p2, tag = _columns(classes[k], device)
-        inter = (tag != TAG_BOTH) & (c1 != c2)
-        ic1, ip1, ic2, ip2 = (t[inter] for t in (c1, p1, c2, p2))
-        r1 = tag[inter] == TAG_R1
-        known = torch.where(r1, ip1 // res + o[ic1 + base],
-                            ip2 // res + o[ic2 + base])
-        unk_c = torch.where(r1, ic2, ic1)
-        unk_b = torch.where(r1, ip2, ip1) // res
-        out.append((known, unk_b + o[unk_c + base],
-                    unk_b + o[unk_c + base + other]))
+    out = [_class_queries(_columns(classes[k], device), k, nc, o, res)
+           for k in ("M_M", "P_P")]
     return tuple(torch.cat(t) for t in zip(*out))
 
 
@@ -857,6 +980,10 @@ def haplotype_matrix_files(
     ``<prefix>Imputated_Gap.npz``, as the JAX package's
     ``haplotype_matrix_construction`` writes them.  Returns
     ``{prefix: {"tradition", "unimputated", "imputated", "gap"}: path}``.
+    Each replicate's beds are parsed once into host columns (24 bytes a
+    pair, and a tag byte), and each of the build's three passes moves them
+    to ``device`` MATRIX_BLOCK pairs at a time: the device holds one block
+    of pairs of each class beside the matrices.
     ``walls`` receives the seconds of ``parse``, the build's steps and
     ``cooler_write``; ``stats`` the pairs parsed per prefix and class."""
     genome = Genome.from_file(genome_size, chroms)
@@ -866,18 +993,19 @@ def haplotype_matrix_files(
     whole_res, local_res = list(whole_res or []), list(local_res or [])
     out, total = {}, None
     for rep in rep_paths:
-        prefix = bed_prefix([f for v in discover_allelic_beds(rep).values()
-                             for f in v])
+        beds = discover_allelic_beds(rep)
+        prefix = bed_prefix([f for v in beds.values() for f in v])
         with step(walls, "parse", device):
-            classes = allelic_classes(rep, genome, device=device)
+            host = {k: read_allelic_bed(beds[k], genome, k in TAGGED)
+                    for k in ALLELIC_CLASSES}
         if stats is not None:
             stats.setdefault("pairs", {})[prefix] = {
-                k: int(v[0].numel()) for k, v in classes.items()}
-        data = build_haplotype_datasets(
-            classes, genome, whole_res, local_res, imputation_region,
-            imputation_min, imputation_ratio, device=device,
-            dense_max_bins=dense_max_bins, walls=walls)
-        del classes
+                k: len(v[0]) for k, v in host.items()}
+        data = _haplotype_passes(
+            lambda k: _slices(host[k], MATRIX_BLOCK), genome, whole_res, local_res,
+            imputation_region, imputation_min, imputation_ratio, device,
+            dense_max_bins, walls)
+        del host
         res_out = _hap_outputs(data, genome, whole_res, local_res,
                                dense_max_bins, walls, device)
         with step(walls, "cooler_write", device):
@@ -905,8 +1033,11 @@ def traditional_matrix_files(
     ``*_Valid.bed`` of each) to ``out_path/Cooler/<prefix>Multi.cool`` per
     replicate and ``Merged_Multi.cool`` (a copy of the replicate's file for
     one replicate), with ICE weights when ``balance``, as the JAX package's
-    ``traditional_matrix_construction`` writes them.  Returns
-    ``{"coolers": [paths], "merged": path}``."""
+    ``traditional_matrix_construction`` writes them.  Each replicate's beds
+    stream through ``build_traditional_stream``, MATRIX_BLOCK pairs at a
+    time.  Returns ``{"coolers": [paths], "merged": path}``; ``walls``
+    receives the seconds of ``parse`` (the host scanner), ``build`` (the
+    device), ``matrix`` (both and the weights) and ``cooler_write``."""
     genome = Genome.from_file(genome_size, chroms)
     cooler_dir = os.path.join(out_path, "Cooler")
     os.makedirs(cooler_dir, exist_ok=True)
@@ -918,13 +1049,10 @@ def traditional_matrix_files(
                      if f.endswith("_Valid.bed")]
             if not files:
                 raise FileNotFoundError(f"no *_Valid.bed under {rep}")
-            with step(walls, "parse", device):
-                pairs = valid_pairs(files, genome, device=device)
-            with step(walls, "build", device):
-                built = build_traditional(pairs, genome, whole_res,
-                                          local_res, device=device,
-                                          dense_max_bins=dense_max_bins)
-            yield bed_prefix(files), built
+            whole, local, _ = build_traditional_stream(
+                files, genome, whole_res, local_res, device=device,
+                dense_max_bins=dense_max_bins, walls=walls)
+            yield bed_prefix(files), (whole, local)
 
     with step(walls, "matrix", device):
         entries = _traditional(builds(), genome, whole_res, local_res,
