@@ -7,8 +7,8 @@ Needs one CUDA device, ``nvcc`` and this repository (the kernels build from
 ``hichap_master_tpu_torch/csrc`` at first use); imports nothing of JAX.
 Phases, each printed on its own line, any failure raising:
 
-1. the card (name and power limit, as nvidia-smi reports them) and the
-   kernel build time;
+1. the card (name and power limit, as nvidia-smi reports them), whether
+   matplotlib is importable, and the kernel build time;
 2. every hand-written kernel against its plain PyTorch version on the same
    tensors at main-path shapes, with the largest difference and both times
    (median of 5 warm runs, synchronized around each; "device" times are
@@ -25,13 +25,16 @@ Phases, each printed on its own line, any failure raising:
    (identical outputs) and the ladder kernel alone; K4 the HMM
    forward-backward and K5 the HMM Viterbi on the 23 DI segments of the
    40 kb TAD input (T = 8,192, 3 states, float64), each also on its edge
-   cases (K5: paths identical and scores bit for bit, exact ties included,
-   with its maps in shared memory and in the scratch); K6 the imputation
+   cases (K4: rows of length 0, as a rank of the sharded EM pads its
+   batch, exactly zero; K5: paths identical and scores bit for bit, exact
+   ties included, with its maps in shared memory and in the scratch, and
+   a row of length 0 refused); K6 the imputation
    vote of the 10 kb diploid build (all of pass 3's queries, one vote,
    and one round of the files path: the first FILES_BLOCK pairs of M_M
    and of P_P, its time in ``files_round``) and K7 its scattered marginal
-   (uint16 and float32 values, two runs bit for bit, its edge cases, and
-   torch.index_select of the same gather as the floor of its L2 traffic);
+   (uint16 and float32 values, two runs bit for bit, its edge cases, two
+   ranks' shards with clamped bounds among them, and torch.index_select
+   of the same gather as the floor of its L2 traffic);
    K3 again at the allelic 40 kb shape (chr1's corrected M matrix of the
    same draw, its pixels cut by the allelic prefilter; pw 1, ww 3, 18
    levels, B = 71), identical to plain; K8 and K9 on the genomes and reads
@@ -55,7 +58,21 @@ Phases, each printed on its own line, any failure raising:
    set, and chr1's TAD segments again through the plain Viterbi, which
    must give the same paths, boundaries and domains; then the diploid
    matrix stage (26.6 M allelic pairs) with its own counters, and its
-   10 kb hybrid weights again through the plain K2 and K7;
+   10 kb hybrid weights again through the plain K2 and K7; then, with its
+   own counters, the sharded functions (``hichap_master_tpu_torch.
+   parallel``) at those shapes: the hybrid ICE of the 10 kb layout, the
+   sparse ICE of the genome-wide tiles, the TAD EM of the 23 DI segment
+   sets, the loop escalation of the 23 chromosomes at 10 kb in one batch,
+   the two-step correction at 40 kb by bucket, the dense ICE and the dense
+   correction
+   of the 500 kb whole-genome matrices, the sparse genome-wide correction
+   of the maternal 10 kb directed COO in the blocks on and beside the
+   diagonal, and the compartments at 500 kb, first in this process as a
+   one-rank NCCL group, then the first four on SHARD_RANKS ranks spawned
+   on the card over gloo (and on NCCL with a rank a card when several
+   cards are visible); each rank's K2, K3, K4 and K7 launches > 0 and
+   every result within testing/sharding_check.py's tolerance of its
+   single-process reference;
 4. the allelic analysis with its own counters: the same draw with planted
    loops and domains (``testing.synthetic.planted_loops``) through the
    matrix stage (whole 500 kb, local 40 kb), the traditional and allelic
@@ -180,18 +197,20 @@ Phases, each printed on its own line, any failure raising:
    command; then the phase's wall and the run's;
 11. the launch counters of each path, each kernel of the path > 0, and one
    JSON line with the per-kernel results (``launches_by_path``: analysis,
-   diploid, allelic, files, cli, filtering, bamprocess, front, mapping;
-   bamprocess and front launch no kernel).
+   diploid, sharded (this process's and every spawned rank's), allelic,
+   files, cli, filtering, bamprocess, front, mapping; bamprocess and front
+   launch no kernel).
 
 The diploid, files, CLI, filtering, bamProcess, Rescue, rebuildG and
 mapping paths each report their peak device memory
-(``torch.cuda.max_memory_allocated``); the last phase's line reports the
-whole run's wall.
+(``torch.cuda.max_memory_allocated``); each phase's wall has a line of its
+own, and the whole run's wall a line before the JSON lines.
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
 every phase passed.
 """
 
+import importlib.util
 import json
 import os
 import shutil
@@ -703,6 +722,9 @@ def hmm_compare(tads, dev, results):
         e, _ = fb_errors(*case)
         check(max(e) <= 1e-10, f"K4 {name}: differs from plain: gamma "
               f"{e[0]:.2e}, xi {e[1]:.2e}, log-likelihood {e[2]:.2e}")
+        if name == PADDING_CASE:
+            check(padding_adds_nothing(hmm_scan.forward_backward, *case),
+                  f"K4 {name}: a row of length 0 is not all zeros")
         log(f"K4 edge case {name}: max rel err gamma {e[0]:.3e} xi "
             f"{e[1]:.3e} loglik {e[2]:.3e} (tol 1e-10)")
     steps = int(L.sum())
@@ -740,6 +762,8 @@ def hmm_compare(tads, dev, results):
         pe, _, _ = viterbi_check(name, *case)
         log(f"K5 edge case {name}: paths identical, logprob bit for bit; "
             f"states used {sorted(set(pe.unique().tolist()))}")
+    check(viterbi_refuses_padding(dev), "K5's wrapper took a sequence of "
+          "length 0")
     results["hmm_viterbi"] = dict(
         route="cuda", source="hichap_master_tpu_torch/csrc/hmm_scan.cu",
         replaces="hichap_master_tpu/ops/hmm.py:251",
@@ -771,18 +795,49 @@ def fb_edge_cases(dev):
     return [("3 states, L = 1, 50, 9,999, 16,000, emissions to 1e-300",
              case(3, 16384, [1, 50, 9999, 16000], True)),
             ("6 states (structural zeros), L = 6,222, 1, 777",
-             case(6, 8192, [6222, 1, 777], False))]
+             case(6, 8192, [6222, 1, 777], False)),
+            (PADDING_CASE, case(3, 1024, [0, 700, 0, 1, 0], True))]
+
+
+# K4's batch as a rank of sharded_tads_em pads it: sequences of length 0
+PADDING_CASE = "3 states, zero-length padding rows, L = 0, 700, 0, 1, 0"
+
+
+def padding_adds_nothing(forward_backward, b, A, pi, L) -> bool:
+    """The rows of length 0 of K4's (or its plain version's) output are
+    exactly zero: gamma, xi and the log scale, so that they add nothing to
+    the sufficient statistics that ranks sum."""
+    gamma, xi, logc = forward_backward(b, A, pi, L)
+    pad = L == 0
+    return bool((gamma[pad] == 0).all() and (xi[pad] == 0).all()
+                and (logc[pad] == 0).all())
+
+
+def viterbi_refuses_padding(dev) -> bool:
+    """K5's wrapper raises on a sequence of length 0 (its path is not
+    defined; the JAX scan would read its last padded step)."""
+    from hichap_master_tpu_torch.kernels import hmm_scan
+
+    b, A, pi, L = dict(fb_edge_cases(dev))[PADDING_CASE]
+    try:
+        hmm_scan.viterbi(torch.log(b), torch.log(A), torch.log(pi), L)
+    except ValueError:
+        return True
+    return False
 
 
 def viterbi_edge_cases(dev):
-    """K5's edge cases: K4's as log emissions (one step, ragged lengths, a
-    sequence of 64 staged tiles at T = 16,384, the 6-state prior's -inf
-    transitions), and exact ties, seed 5: three states with a uniform logA
+    """K5's edge cases: K4's as log emissions but the padding rows (one
+    step, ragged lengths, a sequence of 64 staged tiles at T = 16,384, the
+    6-state prior's -inf transitions; a path of length 0 is not defined,
+    and the wrapper refuses it, ``viterbi_refuses_padding``), and exact
+    ties, seed 5: three states with a uniform logA
     and logpi whose states 0 and 1 emit alike (state 1 must never win), and
     constant emission rows (every score ties: all paths are state 0)."""
     with np.errstate(divide="ignore"):
         cases = [(name, (torch.log(b), torch.log(A), torch.log(pi), L))
-                 for name, (b, A, pi, L) in fb_edge_cases(dev)]
+                 for name, (b, A, pi, L) in fb_edge_cases(dev)
+                 if name != PADDING_CASE]
     rng = np.random.default_rng(5)
     lengths = np.asarray([1, 2, 700, 4096, 3333], np.int64)
     logb = np.log(rng.random((len(lengths), 4096, 3)) + 0.01)
@@ -1109,12 +1164,18 @@ def k7_errors(cols, vals, bounds, b):
             yp)
 
 
+# K7's input as a rank of the sharded hybrid ICE holds it
+SHARD_CASE = "a rank's shard"
+
+
 def k7_edge_cases(dev):
-    """K7's edge cases, seed 13 (a block takes a tile of 2,048 pixels): no
-    pixel at all, one row holding every pixel of 49 tiles, a row spanning
-    15 tiles between runs of thousands of empty rows, bounds padded past
-    the last row, a last tile that is not full, and views that are not
-    aligned for the vector loads."""
+    """K7's edge cases, seed 13 (a block takes a tile of 2,048 pixels): two
+    ranks' shards of a row-sorted COO with clamped bounds (empty rows, a
+    row cut at both ends, one cut at its start), no pixel at all, one row
+    holding every pixel of 49 tiles, a row spanning 15 tiles between runs
+    of thousands of empty rows, bounds padded past the last row, a last
+    tile that is not full, and views that are not aligned for the vector
+    loads."""
     g = torch.Generator(device=dev)
     g.manual_seed(13)
     n_b = 50_000
@@ -1130,9 +1191,24 @@ def k7_edge_cases(dev):
         b = torch.rand(n_b, generator=g, device=dev) + 0.5
         return cols, vals, bounds, b
 
+    def shard(lens, lo, hi, dtype):
+        """Pixels [lo, hi) of a row-sorted COO with its bounds shifted by
+        lo and clamped to the range, as a rank of sharded_hybrid_ice holds
+        them (shard_hybrid_layout)."""
+        cols, vals, bounds, b = case(lens, dtype)
+        lb = (bounds - lo).clamp(0, hi - lo).int()
+        return cols[lo:hi], vals[lo:hi], lb, b
+
     z = lambda k: [0] * k
     ragged = torch.randint(0, 130, (4_000,), generator=g, device=dev).tolist()
+    cut = z(300) + [9_000] + z(200) + ragged[:300] + z(50)
     return [
+        (SHARD_CASE + ": a 9,000-pixel row cut at both ends (pixels "
+         "1,000-5,000), empty rows around it",
+         shard(cut, 1_000, 5_000, torch.uint16)),
+        (SHARD_CASE + ": a row cut at the start, ragged rows, the range "
+         "past the last pixel",
+         shard(cut, 8_500, 8_500 + 30_000, torch.float32)),
         ("no pixels, 1,000 rows", case(z(1000), torch.uint16)),
         ("one row holds all 100,000 pixels",
          case(z(2) + [100_000] + z(3), torch.uint16)),
@@ -1237,6 +1313,7 @@ def gw_ice(gw):
         f"(median of 3), {it / wall:.1f} iters/s, "
         f"{int(torch.isfinite(w[:n]).sum())} finite weights, balanced "
         f"marginals within {dev1:.1e} of 1")
+    return w, st
 
 
 def dense_ice(dev):
@@ -1383,6 +1460,7 @@ def compartments(dev):
     log(f"main: compartments 500 kb, {len(tracks)} chromosomes: PC sign "
         f"agrees with the planted A/B on >= {worst:.1%} of non-gap bins "
         f"({checked} chromosomes checked), {wall:.3f} s")
+    return inputs
 
 
 def tad_call(tads, dev):
@@ -1403,7 +1481,7 @@ def tad_call(tads, dev):
         f"{with_domains} chromosomes, "
         f"{sum(len(r['domains'][0]) for r in out.values())} domains, "
         f"{wall:.3f} s")
-    return out, stats["model"]
+    return out, stats
 
 
 def chr1_plain_viterbi(called, model, dev, label="1"):
@@ -1579,22 +1657,32 @@ def diploid_stage(diploid, dev):
     return r, genome
 
 
-def hybrid_plain(stage, dev):
-    """The 10 kb hybrid weights again through the plain K2 and K7."""
-    from hichap_master_tpu_torch.kernels.segment_marginal import \
-        segment_marginal_plain
-    from hichap_master_tpu_torch.kernels.sparse_marginal import \
-        block_sym_matvec_plain
-    from hichap_master_tpu_torch.ops.sparse_hybrid import (hybrid_from_coo,
-                                                           ice_balance_hybrid)
+def hybrid_layout(stage):
+    """The hybrid layout of the diploid stage's 10 kb traditional matrix,
+    as ``pipeline.matrix.matrix_weights`` builds it."""
+    from hichap_master_tpu_torch.ops.sparse_hybrid import hybrid_from_coo
     from hichap_master_tpu_torch.pipeline.matrix import cooler_coo
 
     r, genome = stage
     res = min(DIPLOID_WHOLE)
     rows, cols, vals = cooler_coo(r["tradition"]["whole"][res], genome, res)
     n = sum(genome.cooler_n_bins(c, res) for c in genome.labels)
-    h = hybrid_from_coo(rows, cols, vals.round().long(), n,
-                        assume_unique=True)
+    return hybrid_from_coo(rows, cols, vals.round().long(), n,
+                           assume_unique=True)
+
+
+def hybrid_plain(stage, dev):
+    """The 10 kb hybrid weights again through the plain K2 and K7; returns
+    the hybrid layout."""
+    from hichap_master_tpu_torch.kernels.segment_marginal import \
+        segment_marginal_plain
+    from hichap_master_tpu_torch.kernels.sparse_marginal import \
+        block_sym_matvec_plain
+    from hichap_master_tpu_torch.ops.sparse_hybrid import ice_balance_hybrid
+
+    r, _ = stage
+    res = min(DIPLOID_WHOLE)
+    h = hybrid_layout(stage)
     wp, sp = ice_balance_hybrid(h, tile_matvec=block_sym_matvec_plain,
                                 scattered=segment_marginal_plain)
     wk = r["tradition"]["weights"][res]
@@ -1608,6 +1696,7 @@ def hybrid_plain(stage, dev):
         f"{int(sp['iters'])} iterations (kernels: "
         f"{r['tradition']['ice'][res]['iters'][0]}), same NaN set, max rel "
         f"diff {err:.2e} (tol 1e-4)")
+    return h
 
 
 # ------------------------------------------------------- allelic phase
@@ -4076,6 +4165,402 @@ def mapping_checks(st, mc):
         + ", ".join(f"{k} {v:.3f} s" for k, v in a.items() if k != "lines"))
 
 
+# ------------------------------------------------------------ sharded
+SHARD_RANKS = 2         # gloo ranks on one card in the spawned run
+SHARD_BACKEND = "nccl"  # the in-process one-rank group's backend
+SHARD_DEVICE = "cuda:0"  # where the spawned gloo ranks compute
+SHARD_CARDS_MAX = 4     # NCCL ranks, one a card, when several are visible
+SHARD_TIMEOUT = 600     # seconds a collective, or a spawned run, may take
+# the kernels of the sharded path: each rank of a spawned run launches each
+SHARD_KERNELS = ("sparse_marginal", "escalation_prefix", "escalation",
+                 "hmm_forward_backward", "segment_marginal")
+# the sparse genome-wide correction's input: the maternal 10 kb directed
+# COO of the diploid draw cut to the blocks on and beside the diagonal
+# (the tile layout's own regime: the whole haplotype's scattered pixels
+# would occupy nearly all of its ~2.8 M block pairs)
+SHARD_GW_BAND = 1
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _close(got, want, rtol, atol=0.0):
+    """Largest |got - want| / (atol + rtol |want|) over the finite entries
+    (<= 1 passes), with equal NaN sets required (None when they differ)."""
+    got = torch.as_tensor(got).to(want.device, torch.float64)
+    want = want.to(torch.float64)
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        return None
+    m = ~torch.isnan(want)
+    if not bool(m.any()):
+        return 0.0
+    return float(((got[m] - want[m]).abs()
+                  / (atol + rtol * want[m].abs()).clamp_min(1e-300)).max())
+
+
+def sharded_inputs(gw, gw_ref, loops, tad_out, comp_inputs, stage, h, dev):
+    """The sharded phase's inputs at the main path's shapes and the
+    single-process results to hold the sharded ones to: the jobs of
+    ``testing/sharding_ranks.py`` (name, factory, its arguments, the call's
+    arguments) and {name: (kind, reference)}.  The references are the
+    main path's own results where it has them (the genome-wide sparse ICE,
+    the diploid stage's weights and corrected 500 kb matrix, the TAD EM);
+    the others are single-process calls made here, before the phase's
+    launch counters are zeroed."""
+    from hichap_master_tpu_torch.core import pad_to_bucket, pad_to_shape
+    from hichap_master_tpu_torch.kernels.escalation import escalation_batch
+    from hichap_master_tpu_torch.models.compartment import (compartment_fused,
+                                                            dense_from_coo)
+    from hichap_master_tpu_torch.models.loops import (_packed_inputs_batch,
+                                                      _pcaller_prep)
+    from hichap_master_tpu_torch.models.tads import init_parameters
+    from hichap_master_tpu_torch.ops import hmm
+    from hichap_master_tpu_torch.ops.correct import two_step_correction_batch
+    from hichap_master_tpu_torch.ops.expected import default_compartment_gap
+    from hichap_master_tpu_torch.ops.pca import start_block
+    from hichap_master_tpu_torch.ops.sparse import (asym_blocks_from_coo,
+                                                    genomewide_correction_coo,
+                                                    sparse_genomewide_correction)
+    from hichap_master_tpu_torch.pipeline.matrix import (_cooler_index,
+                                                         whole_alpha)
+    from hichap_master_tpu_torch.testing.synthetic import chrom_bins, hap_batch
+
+    jobs, refs = [], {}
+    # hybrid ICE: the diploid stage's 10 kb traditional layout
+    r, genome = stage
+    res = min(DIPLOID_WHOLE)
+    jobs.append(("hybrid_ice", "sharded_hybrid_ice", (h.bm.R, h.bm.T), {},
+                 ("layout", h)))
+    refs["hybrid_ice"] = ("weights", (r["tradition"]["weights"][res],
+                                      r["tradition"]["ice"][res]["iters"][0]))
+    # sparse ICE: the genome-wide tiles of the analysis suite
+    tiles, brow, bcol, n, R, T = gw
+    jobs.append(("sparse_ice", "sharded_sparse_ice", (R, T),
+                 {"max_iters": 200}, (tiles, brow, bcol, n)))
+    refs["sparse_ice"] = ("weights", (gw_ref[0][:n], int(gw_ref[1]["iters"])))
+    # TAD EM: the DI segments that call_tads trained on
+    tads_called, st = tad_out
+    seqs = [tads_called[c]["segments"][k] for c in tads_called
+            for k in sorted(tads_called[c]["segments"])]
+    X, L = hmm._pad_sequences(seqs)
+    m = init_parameters(3)
+    jobs.append(("tads_em", "sharded_tads_em", (), {},
+                 (X, L.astype(np.int64), m.A, m.pi, m.means, m.varis,
+                  m.weights, m.A <= 0, m.pi <= 0)))
+    refs["tads_em"] = ("em", (st["em_iters"], st["loglik"], st["model"]))
+    # loop escalation: the 23 chromosomes of loop_inputs in one batch (the
+    # JAX function's genome-wide batch), each same-shape group's packed maps
+    # and pixels padded to the widest with zeros and invalid pixels, which
+    # change no chromosome's result: checked against each group alone
+    inputs, params, lres = loops
+    groups = {}
+    for c, (rows, cols, vals, wt, nb) in inputs.items():
+        pr = _pcaller_prep(rows, cols, vals, wt, nb, lres, params)
+        groups.setdefault((pr["Xp"], pr["cap"], pr["P2"]), []).append(pr)
+    packed = [_packed_inputs_batch(prs, dev) for prs in groups.values()]
+    p0 = next(iter(groups.values()))[0]
+    esc = (p0["ww"], p0["maxww"], p0["pw"], p0["e_lo"], p0["x_pad"])
+    check(all((pr["ww"], pr["maxww"], pr["pw"], pr["e_lo"], pr["x_pad"],
+               pr["num"]) == esc + (p0["num"],)
+              for prs in groups.values() for pr in prs)
+          and packed[0][0].shape[1] - 2 * p0["e_lo"] == p0["num"],
+          "loop groups: the ladder's parameters or E differ")
+
+    def ladder(args):
+        return escalation_batch(*args, p0["ww"], p0["maxww"], p0["pw"],
+                                p0["num"], p0["e_lo"], p0["x_pad"])
+
+    def widen(ts):
+        out = ts[0].new_zeros((sum(t.shape[0] for t in ts),)
+                              + tuple(ts[0].shape[1:-1])
+                              + (max(t.shape[-1] for t in ts),))
+        at = 0
+        for t in ts:
+            out[at:at + t.shape[0], ..., :t.shape[-1]] = t
+            at += t.shape[0]
+        return out
+
+    args = tuple(widen([a[k] for a in packed]) for k in range(6))
+    ref = ladder(args)
+    at = 0
+    for a in packed:
+        C, P = a[3].shape
+        for k, o in enumerate(ladder(a)):
+            check(torch.equal(ref[k][at:at + C, :P], o)
+                  and not bool(ref[k][at:at + C, P:].any()),
+                  "loop escalation: a chromosome's result changed in the "
+                  "padded genome-wide batch")
+        at += C
+    log(f"sharded: loop escalation of {at} chromosomes in one batch "
+        f"[{at}, {args[0].shape[1]}, {args[0].shape[2]}], {args[3].shape[1]}"
+        f" pixel slots: identical to the {len(packed)} same-shape groups "
+        "alone")
+    jobs.append(("loop_escalation", "sharded_loop_escalation", esc, {},
+                 args))
+    refs["loop_escalation"] = ("escalation", ref)
+    spawned = list(jobs)   # the spawned ranks run the jobs up to here
+    # two-step at 40 kb, by size bucket, as two_step_ice draws it
+    buckets = {}
+    for nb in chrom_bins(40_000).values():
+        buckets.setdefault(pad_to_bucket(nb, 512), []).append(nb)
+    for N, sizes in sorted(buckets.items()):
+        mm = hap_batch(sizes, N, seed=2 * N, device=dev,
+                       background=BACKGROUND_40KB)
+        pm = hap_batch(sizes, N, seed=2 * N + 1, device=dev,
+                       background=BACKGROUND_40KB)
+        nb = torch.tensor(sizes, device=dev)
+        args = (mm + pm, mm, pm, nb)
+        jobs.append((f"two_step_{N}", "sharded_two_step", (), {}, args))
+        refs[f"two_step_{N}"] = ("two_step", two_step_correction_batch(*args))
+    # the 500 kb whole-genome matrices: dense ICE of the traditional one (as
+    # matrix_weights pads it) and the dense correction of the imputed one
+    res = max(DIPLOID_WHOLE)
+    M = r["tradition"]["whole"][res]
+    idx = _cooler_index(genome, res, dev)
+    S = idx.numel()
+    Mc = torch.zeros(pad_to_shape(S), pad_to_shape(S), device=dev)
+    Mc[:S, :S] = M[idx][:, idx]
+    jobs.append(("dense_ice", "sharded_ice_balance", (), {"max_iters": 200},
+                 (Mc, S)))
+    refs["dense_ice"] = ("weights", (r["tradition"]["weights"][res],
+                                     r["tradition"]["ice"][res]["iters"][0]))
+    H = r["data"]["Imputated_Whole"][res]
+    alpha = whole_alpha(r["data"]["Tradition_Whole"][res], H, genome, res)
+    jobs.append(("dense_correction", "sharded_genomewide_correction", (), {},
+                 (H, torch.cat([alpha, alpha]).to(torch.float32), H.shape[0])))
+    refs["dense_correction"] = ("correction", r["imputated"]["whole"][res])
+    # the sparse genome-wide correction at 10 kb: one haplotype's pixels in
+    # the blocks within SHARD_GW_BAND of the diagonal
+    res = min(DIPLOID_WHOLE)
+    H = r["data"]["Imputated_Whole"][res]
+    alpha = whole_alpha(r["data"]["Tradition_Whole"][res], H, genome, res)
+    rows, cols, vals = H.coo()
+    nh, T = H.S // 2, 128
+    sel = ((rows < nh) & (cols < nh)
+           & ((rows // T - cols // T).abs() <= SHARD_GW_BAND))
+    rows, cols, vals = rows[sel], cols[sel], vals[sel]
+    ab = asym_blocks_from_coo(rows, cols, vals, nh, T)
+    af = torch.ones(ab.R * T, device=dev)
+    af[:nh] = alpha.to(torch.float32)
+    args = (ab.U, ab.L, ab.brow, ab.bcol, af)
+    jobs.append(("sparse_genomewide", "sharded_sparse_genomewide",
+                 (ab.R, T), {}, args))
+    ru, cu, cv = genomewide_correction_coo(rows, cols, vals, alpha, nh)
+    refs["sparse_genomewide"] = ("tiles", (
+        sparse_genomewide_correction(*args, R=ab.R, T=T), ab,
+        (ru, cu, cv)))
+    # compartments at 500 kb, by padded size, as call_compartments batches
+    res = 500_000
+    by_pad = {}
+    for c, (rows, cols, vals, nb) in comp_inputs.items():
+        by_pad.setdefault(pad_to_shape(nb), []).append(c)
+    for N, group in sorted(by_pad.items()):
+        Mb = dense_from_coo([comp_inputs[c][:3] for c in group], N, dev)
+        nb = torch.tensor([comp_inputs[c][3] for c in group], device=dev)
+        gap = default_compartment_gap(Mb, nb)
+        ng = torch.zeros(len(group), N, dtype=torch.int64, device=dev)
+        g = []
+        for k in range(len(group)):
+            nz = torch.nonzero(~gap[k, :int(nb[k])]).flatten()
+            ng[k, :nz.numel()] = nz
+            g.append(nz.numel())
+        g = torch.tensor(g, device=dev)
+        args = (Mb, gap, nb, ng, g)
+        q0 = start_block(N, 7, device=dev)
+        jobs.append((f"compartment_{N}", "sharded_compartment", (),
+                     {"q0": q0}, args))
+        refs[f"compartment_{N}"] = ("compartment", (compartment_fused(
+            *args, 0, "subspace", True, q0), g))
+    torch.cuda.synchronize()
+    return jobs, spawned, refs
+
+
+def _shard_job_args(job, world):
+    """A job's call arguments for ``world`` ranks (the hybrid layout is
+    laid out for the world size)."""
+    from hichap_master_tpu_torch.parallel import shard_hybrid_layout
+
+    name, factory, fargs, fkw, args = job
+    if args and isinstance(args[0], str) and args[0] == "layout":
+        h = args[1]
+        bm, scc, scv, lb, snz = shard_hybrid_layout(h, world)
+        args = (bm.tiles, bm.brow, bm.bcol, scc, scv, lb, snz, h.n)
+    return name, factory, fargs, fkw, args
+
+
+def shard_checks(got, refs, where):
+    """Every sharded result against its single-process reference, within
+    testing/sharding_check.py's tolerances; one line a check."""
+    for name, out in got.items():
+        kind, ref = refs[name]
+        what = f"sharded {name} ({where})"
+        if kind == "weights":
+            w, st = out
+            want, iters = ref
+            n = want.numel()
+            e = _close(w[:n], want, 1e-4)
+            check(e is not None, f"{what}: NaN sets differ")
+            check(e <= 1, f"{what}: weights off by {e:.3g} x rtol 1e-4")
+            check(int(st["iters"]) == iters, f"{what}: {int(st['iters'])} "
+                  f"iterations, single-process {iters}")
+            msg = (f"{int(st['iters'])} iterations as single-process, same "
+                   f"NaN set, max err {e:.3g} of rtol 1e-4")
+        elif kind == "em":
+            it, params, ll = out
+            iters, ll_ref, model = ref
+            check(int(it) == iters, f"{what}: {int(it)} EM iterations, "
+                  f"single-process {iters}")
+            e_ll = abs(float(ll) - ll_ref) / abs(ll_ref)
+            check(e_ll <= 1e-4, f"{what}: log-likelihood off by {e_ll:.2e}")
+            e = max(_close(p, torch.as_tensor(getattr(model, f)), 2e-3, 1e-5)
+                    for p, f in zip(params, ("A", "pi", "means", "varis",
+                                             "weights")))
+            check(e <= 1, f"{what}: parameters off by {e:.3g} x (rtol 2e-3, "
+                  "atol 1e-5)")
+            msg = (f"{int(it)} EM iterations as single-process, loglik rel "
+                   f"err {e_ll:.2e} (tol 1e-4), parameters max err {e:.3g} "
+                   "of (rtol 2e-3, atol 1e-5)")
+        elif kind == "escalation":
+            check(torch.equal(out[0].to(ref[0].device), ref[0]),
+                  f"{what}: resolved pixels differ")
+            e = max(_close(o, w, 1e-6) for o, w in zip(out[1:], ref[1:]))
+            check(e <= 1, f"{what}: backgrounds off by {e:.3g} x rtol 1e-6")
+            msg = (f"resolved identical ({int(ref[0].sum())} pixels), "
+                   f"backgrounds max err {e:.3g} of rtol 1e-6")
+        elif kind == "two_step":
+            e = max(_close(o, w, 2e-5, 1e-6) for o, w in zip(out[:2],
+                                                             ref[:2]))
+            check(e <= 1, f"{what}: off by {e:.3g} x (rtol 2e-5, atol 1e-6)")
+            check(all(torch.equal(o.to(w.device), w)
+                      for o, w in zip(out[2:], ref[2:])),
+                  f"{what}: gap masks differ")
+            msg = (f"{ref[0].shape[0]} chromosomes, gaps identical, max err "
+                   f"{e:.3g} of (rtol 2e-5, atol 1e-6)")
+        elif kind == "correction":
+            e = _close(out, ref, 5e-4, 1e-6)
+            check(e is not None and e <= 1,
+                  f"{what}: off by {e} x (rtol 5e-4, atol 1e-6)")
+            msg = f"max err {e:.3g} of (rtol 5e-4, atol 1e-6)"
+        elif kind == "tiles":
+            tiles, ab, (ru, cu, cv) = ref
+            e = _close(out, tiles, 5e-4, 1e-6)
+            check(e is not None and e <= 1,
+                  f"{what}: tiles off by {e} x (rtol 5e-4, atol 1e-6)")
+            # the pixels' values against the float64 closed form on COO
+            out = torch.as_tensor(out).to(tiles.device)
+            T, R = ab.T, ab.R
+            key = ab.brow.long() * R + ab.bcol.long()
+            k = torch.searchsorted(key, (ru // T) * R + cu // T)
+            e2 = _close(out[k, ru % T, cu % T], cv, 5e-4, 1e-6)
+            check(e2 is not None and e2 <= 1, f"{what}: pixels off the "
+                  f"COO closed form by {e2} x (rtol 5e-4, atol 1e-6)")
+            msg = (f"K = {ab.K} tile pairs, {cv.numel()} pixels: tiles max "
+                   f"err {e:.3g}, against genomewide_correction_coo "
+                   f"{e2:.3g} of (rtol 5e-4, atol 1e-6)")
+        elif kind == "compartment":
+            (_, _, _, pc), g = ref
+            pc_s = torch.as_tensor(out[3]).to(pc.device)
+            worst = 0.0
+            for i in range(pc.shape[0]):
+                a, b = pc_s[i, :int(g[i])], pc[i, :int(g[i])]
+                worst = max(worst, min(float((a - b).abs().max()),
+                                       float((a + b).abs().max())))
+            check(worst < 1e-3, f"{what}: PC off by {worst:.2e} (tol 1e-3 "
+                  "up to sign)")
+            msg = (f"{pc.shape[0]} chromosomes, PC within {worst:.2e} up to "
+                   "sign (tol 1e-3)")
+        log(f"{what}: {msg}")
+
+
+def sharded_spawned(jobs, refs, backend, world, where):
+    """``jobs`` on ``world`` spawned ranks (``backend``, rank r on
+    ``where.format(rank=r)``), each rank's K2, K3, K4 and K7 launches > 0
+    and its results held to ``refs``; returns the ranks' launches summed."""
+    from hichap_master_tpu_torch.testing.sharding_ranks import run_ranks
+
+    tag = f"{world} {backend} ranks on {where}"
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hichap_shard_") as tmp:
+        recs = run_ranks([_shard_job_args(j, world) for j in jobs], world,
+                         tmp, backend=backend, device=where,
+                         timeout=SHARD_TIMEOUT, threads=2)
+    wall = time.perf_counter() - t
+    total = dict.fromkeys(SHARD_KERNELS, 0)
+    for rank, rec in enumerate(recs):
+        log(f"sharded ({tag}): rank {rank} launches {rec['launches']}, "
+            "walls " + ", ".join(f"{k} {v:.3f} s"
+                                 for k, v in rec["walls"].items()))
+        for k in SHARD_KERNELS:
+            check(rec["launches"][k] > 0, f"sharded ({tag}): rank {rank} "
+                  f"launched no {k}")
+            total[k] += rec["launches"][k]
+        shard_checks(rec["results"], refs, f"{tag}, rank {rank}")
+    log(f"sharded ({tag}): wall {wall:.1f} s with the spawn")
+    return total
+
+
+def sharded_phase(parts, dev, counters):
+    """The sharded functions (``hichap_master_tpu_torch.parallel``) at the
+    main path's shapes, (a) in this process as a one-rank NCCL group, every
+    function, (b) on SHARD_RANKS ranks spawned on this card over gloo, the
+    hybrid ICE, sparse ICE, TAD EM and loop escalation, and (c) when
+    several cards are visible, those on NCCL with a rank a card (up to
+    SHARD_CARDS_MAX); every result against its single-process reference.
+    Returns the phase's launches: (a)'s by this process's counters plus
+    every rank's of K2, K3, K4 and K7."""
+    import torch.distributed as dist
+
+    from hichap_master_tpu_torch.parallel import sharding
+
+    t0 = time.perf_counter()
+    jobs, spawned, refs = sharded_inputs(*parts, dev)
+    log(f"sharded: inputs and single-process references "
+        f"{time.perf_counter() - t0:.1f} s")
+    for fn in counters.values():
+        fn.launches = 0
+    t1 = time.perf_counter()
+    one = f"one {SHARD_BACKEND} rank"
+    sharding.init_ranks(SHARD_BACKEND, f"tcp://localhost:{_free_port()}", 1,
+                        0)
+    try:
+        mesh = sharding.make_mesh(1, device=dev)
+        got = {}
+        for job in jobs:
+            name, factory, fargs, fkw, args = _shard_job_args(job, 1)
+            fn = getattr(sharding, factory)(mesh, *fargs, **fkw)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got[name] = fn(*args)
+            torch.cuda.synchronize()
+            log(f"sharded ({one}): {name} {time.perf_counter() - t:.3f} s")
+    finally:
+        dist.destroy_process_group()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    wall_a = time.perf_counter() - t1
+    log(f"sharded ({one}): launches {launches}, wall {wall_a:.1f} s")
+    for k in SHARD_KERNELS:
+        check(launches[k] > 0, f"sharded ({one}): no {k} launched")
+    shard_checks(got, refs, one)
+    del got
+    torch.cuda.empty_cache()
+
+    runs = [("gloo", SHARD_RANKS, SHARD_DEVICE)]
+    cards = min(torch.cuda.device_count(), SHARD_CARDS_MAX)
+    if cards > 1:
+        runs.append(("nccl", cards, "cuda:{rank}"))
+    for backend, world, where in runs:
+        for k, v in sharded_spawned(spawned, refs, backend, world,
+                                    where).items():
+            launches[k] += v
+    log(f"sharded phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device visible")
@@ -4100,12 +4585,19 @@ def main() -> None:
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    log("matplotlib importable (importlib.util.find_spec): "
+        f"{importlib.util.find_spec('matplotlib') is not None}")
     built = not _build.library_path().exists()
     t0 = time.perf_counter()
     _build.load()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"({'built' if built else 'cached'}: {_build.library_path().name})")
 
+    def phase(name, since):
+        log(f"phase {name}: {time.perf_counter() - since:.1f} s")
+        return time.perf_counter()
+
+    t_phase = time.perf_counter()
     results = {}
     k1_compare(dev, results)
     gw = gw_tiles(dev)
@@ -4120,6 +4612,7 @@ def main() -> None:
     k3_allelic_compare(diploid, dev, results)
     torch.cuda.empty_cache()
     k89_edge_cases(dev, results)
+    t_phase = phase("kernels against their plain versions", t_phase)
 
     counters = {"ice_sweep": ice_sweeps, "sparse_marginal": block_sym_matvec,
                 "escalation_prefix": prefix_maps, "escalation": ladder,
@@ -4151,18 +4644,18 @@ def main() -> None:
 
     # the analysis suite: matrices in, weights and calls out
     reset()
-    gw_ice(gw)
-    del gw
+    gw_ref = gw_ice(gw)
     torch.cuda.empty_cache()
     dense_ice(dev)
     called = loop_call(loops, dev)
     two_step_ice(dev)
     torch.cuda.empty_cache()
-    compartments(dev)
-    tad_called, model = tad_call(tads, dev)
+    comp_inputs = compartments(dev)
+    tad_called, tad_stats = tad_call(tads, dev)
     analysis = read("analysis", ("ice_sweep", "sparse_marginal",
                                  "escalation_prefix", "escalation",
                                  "hmm_forward_backward", "hmm_viterbi"))
+    t_phase = phase("analysis suite", t_phase)
     # the diploid matrix stage: allelic pairs in, matrices and weights out
     reset()
     torch.cuda.reset_peak_memory_stats()
@@ -4173,10 +4666,16 @@ def main() -> None:
     del diploid
     torch.cuda.empty_cache()
     chr1_plain_ladder(loops, dev, called)
-    chr1_plain_viterbi(tad_called, model, dev)
-    hybrid_plain(stage, dev)
-    del stage, loops, tads, called, tad_called
+    chr1_plain_viterbi(tad_called, tad_stats["model"], dev)
+    h = hybrid_plain(stage, dev)
+    t_phase = phase("diploid stage", t_phase)
+    # the sharded functions at the same shapes: one NCCL rank in this
+    # process, then ranks spawned on the card
+    sharded_l = sharded_phase((gw, gw_ref, loops, (tad_called, tad_stats),
+                               comp_inputs, stage, h), dev, counters)
+    del stage, loops, tads, called, tad_called, gw, gw_ref, h, comp_inputs
     torch.cuda.empty_cache()
+    t_phase = phase("sharded", t_phase)
     # the allelic analysis: allelic pairs with planted loops in, compartment
     # tracks, TADs, loops and the specificity tests out
     allelic = allelic_inputs(dev)
@@ -4188,6 +4687,7 @@ def main() -> None:
     m1_plain_ladder(al, dev)
     chr1_plain_viterbi(al["tads"], al["model"], dev, label="M1")
     torch.cuda.empty_cache()
+    t_phase = phase("allelic", t_phase)
     # the same draw through files: beds in, coolers out, the cooler-backed
     # drivers on them; then the same beds through the command line; the
     # checks run after the counters are read
@@ -4209,6 +4709,7 @@ def main() -> None:
     finally:
         shutil.rmtree(st["tmp"], ignore_errors=True)
     torch.cuda.empty_cache()
+    t_phase = phase("files and command line", t_phase)
     # the front of the user path: chunk beds through `hichap-torch
     # filtering` on the card, then `matrix` on its allelic beds; first
     # the card against the CPU at a quarter of the size
@@ -4223,6 +4724,7 @@ def main() -> None:
     finally:
         shutil.rmtree(fl["tmp"], ignore_errors=True)
     torch.cuda.empty_cache()
+    t_phase = phase("filtering", t_phase)
     # the alignments before it: `hichap-torch bamProcess` on one chunk,
     # chained into `filtering`; first the card against the CPU and SAM
     # against BAM at an eighth of the size
@@ -4236,6 +4738,7 @@ def main() -> None:
     finally:
         shutil.rmtree(bp["tmp"], ignore_errors=True)
     torch.cuda.empty_cache()
+    t_phase = phase("bamProcess and Rescue", t_phase)
     # the front: the genome and the reads before the alignments
     t_front = time.perf_counter()
     reset()
@@ -4260,13 +4763,13 @@ def main() -> None:
         mapping_checks(mp, mc)
     finally:
         shutil.rmtree(gst["tmp"], ignore_errors=True)
-    log(f"mapping phase: {time.perf_counter() - t_map:.1f} s; whole run "
-        f"{time.perf_counter() - T_START:.1f} s")
+    log(f"mapping phase: {time.perf_counter() - t_map:.1f} s")
+    log(f"whole run: {time.perf_counter() - T_START:.1f} s")
 
     paths = {"analysis": analysis, "diploid": diploid_l,
-             "allelic": allelic_l, "files": files_l, "cli": cli_l,
-             "filtering": filter_l, "bamprocess": bam_l, "front": front_l,
-             "mapping": map_l}
+             "sharded": sharded_l, "allelic": allelic_l, "files": files_l,
+             "cli": cli_l, "filtering": filter_l, "bamprocess": bam_l,
+             "front": front_l, "mapping": map_l}
     kernels = [dict(name=k, launches=sum(p[k] for p in paths.values()),
                     launches_by_path={n: p[k] for n, p in paths.items()},
                     **results[k]) for k in counters]
@@ -4276,5 +4779,44 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def sharded_cards() -> None:
+    """``python3 chip_smoke.py --sharded-cards``: only the sharded phase's
+    NCCL run with a rank a card (two cards or more), after the steps whose
+    results it reads and is held to (kernel build, genome-wide ICE, TAD
+    calling, the compartments' draw, the diploid stage and its hybrid
+    layout).  Prints no "ok" line: it is not the smoke run."""
+    if torch.cuda.device_count() < 2:
+        raise SystemExit("chip_smoke.py --sharded-cards: needs two cards")
+    from hichap_master_tpu_torch.kernels import _build
+    from hichap_master_tpu_torch.testing.synthetic import ab_coo, chrom_bins
+
+    dev = torch.device("cuda:0")
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True).stdout.strip())
+    t0 = time.perf_counter()
+    _build.load()
+    log(f"kernel build {time.perf_counter() - t0:.1f} s")
+    gw = gw_tiles(dev)
+    gw_ref = gw_ice(gw)
+    tad_out = tad_call(tad_inputs(), dev)
+    rng = np.random.default_rng(1)   # compartments(dev)'s draw
+    comp = {c: (*ab_coo(rng, n), n) for c, n in chrom_bins(500_000).items()}
+    stage = diploid_stage(diploid_inputs(dev), dev)
+    _, spawned, refs = sharded_inputs(gw, gw_ref, loop_inputs(), tad_out,
+                                      comp, stage, hybrid_layout(stage), dev)
+    log(f"sharded inputs and their steps {time.perf_counter() - t0:.1f} s")
+    cards = min(torch.cuda.device_count(), SHARD_CARDS_MAX)
+    launches = sharded_spawned(spawned, refs, "nccl", cards, "cuda:{rank}")
+    log(f"sharded launches {launches}; {time.perf_counter() - t0:.1f} s")
+
+
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if sys.argv[1:] == ["--sharded-cards"]:
+        sharded_cards()
+    elif sys.argv[1:]:
+        raise SystemExit(f"chip_smoke.py: unknown arguments {sys.argv[1:]}")
+    else:
+        main()

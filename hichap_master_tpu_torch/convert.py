@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .ops.hmm import GMMHMM
-from .ops.sparse import BlockMatrix
+from .ops.sparse import AsymBlocks, BlockMatrix
 
 
 def tensor(a, device, dtype=None) -> torch.Tensor:
@@ -33,6 +33,16 @@ def block_matrix(bm, device, dtype=torch.float32) -> BlockMatrix:
                        brow=tensor(bm.brow, device, torch.int32),
                        bcol=tensor(bm.bcol, device, torch.int32),
                        n=int(bm.n), T=int(bm.T), R=int(bm.R))
+
+
+def asym_blocks(ab, device, dtype=torch.float32) -> AsymBlocks:
+    """An object with ``.U/.L/.brow/.bcol/.n/.T/.R`` (the JAX package's
+    ``AsymBlocks``) as the port's, with tensor fields on ``device``."""
+    return AsymBlocks(U=tensor(ab.U, device, dtype),
+                      L=tensor(ab.L, device, dtype),
+                      brow=tensor(ab.brow, device, torch.int32),
+                      bcol=tensor(ab.bcol, device, torch.int32),
+                      n=int(ab.n), T=int(ab.T), R=int(ab.R))
 
 
 def contact_batch(cb, device, dtype=torch.float32):

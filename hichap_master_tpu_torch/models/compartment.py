@@ -165,18 +165,19 @@ def _gather_rows(X: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(X, -2, idx[:, :, None].expand_as(X))
 
 
-def compartment_batch(M: torch.Tensor, gap: torch.Tensor, n: torch.Tensor,
+def compartment_fused(M: torch.Tensor, gap: torch.Tensor, n: torch.Tensor,
                       ng: torch.Tensor, g: torch.Tensor, step: int,
                       pca_method: str = "subspace",
                       with_selection: bool = True, q0=None):
-    """Decay -> O/E -> correlation -> PCA -> signed PC for a batch.
+    """Decay -> O/E -> correlation -> PCA -> signed PC for a batch, as the
+    JAX package's ``_compartment_fused`` (vmapped).
 
     M  : [C, N, N] raw symmetric matrices; gap : [C, N] gap masks
     n  : [C] true sizes; ng : [C, N] non-gap bin indices (padded with 0)
     g  : [C] non-gap counts; step : sliding half-window (0 = plain O/E)
     q0 : subspace start block [N, 7] (see ``ops.pca``)
-    Returns (cor [C, N, N], pcs [C, 3, N], signed PC [C, N]); without
-    selection the signed PC is the first component.
+    Returns (oe [C, N, N], cor [C, N, N], pcs [C, 3, N], signed PC [C, N]);
+    without selection the signed PC is the first component.
     """
     decay = distance_decay(M, gap, n)
     oe = (oe_matrix_sliding(M, decay, n, step) if step > 0
@@ -188,9 +189,18 @@ def compartment_batch(M: torch.Tensor, gap: torch.Tensor, n: torch.Tensor,
     kw = {"q0": q0} if pca_method == "subspace" else {}
     pcs, _ = pca_components(cor, g, k=3, method=pca_method, **kw)
     if not with_selection:
-        return cor, pcs, pcs[:, 0]
+        return oe, cor, pcs, pcs[:, 0]
     oe_ng = _gather_rows(Xp, ng) * col_valid[:, :, None]
-    return cor, pcs, select_pc_new_device(cor, oe_ng, pcs, g)
+    return oe, cor, pcs, select_pc_new_device(cor, oe_ng, pcs, g)
+
+
+def compartment_batch(M: torch.Tensor, gap: torch.Tensor, n: torch.Tensor,
+                      ng: torch.Tensor, g: torch.Tensor, step: int,
+                      pca_method: str = "subspace",
+                      with_selection: bool = True, q0=None):
+    """``compartment_fused`` without the O/E maps: (cor, pcs, signed PC)."""
+    return compartment_fused(M, gap, n, ng, g, step, pca_method,
+                             with_selection, q0)[1:]
 
 
 def _run_batches(inputs, chroms, res: int, device, sliding: bool,

@@ -76,8 +76,11 @@ def _log_mix(x: torch.Tensor, means, varis, weights):
     return lse, torch.exp(lp - lse[..., None])
 
 
-def _e_step(X, L, A, pi, means, varis, weights):
-    """Batched scaled forward-backward; returns the sufficient statistics."""
+def _e_sums(X, L, A, pi, means, varis, weights):
+    """Batched scaled forward-backward; returns the sufficient statistics,
+    each a sum over the sequences, so that the statistics of disjoint
+    batches add up to those of their union (``pi_sum`` is the sum of the
+    first posteriors).  A sequence of length 0 adds nothing."""
     B, T = X.shape
     logb, comp_post = _log_mix(X, means, varis, weights)   # [B,T,S], [B,T,S,K]
     tmask = (torch.arange(T, device=X.device)[None, :] < L[:, None]).to(_F64)
@@ -92,7 +95,7 @@ def _e_step(X, L, A, pi, means, varis, weights):
     last = gamma[torch.arange(B, device=X.device), (L - 1).clamp_min(0)]
     gk = gamma[..., None] * comp_post
     return dict(A_num=xi_sum.sum(0), gsum_nolast=gsum - last.sum(0),
-                pi_new=gamma[:, 0, :].mean(0), gk_sum=gk.sum((0, 1)),
+                pi_sum=gamma[:, 0, :].sum(0), gk_sum=gk.sum((0, 1)),
                 x_sum=torch.einsum("btsk,bt->sk", gk, X),
                 x2_sum=torch.einsum("btsk,bt->sk", gk, X * X),
                 loglik=loglik)
@@ -112,6 +115,14 @@ def _m_step(st, zero_A, zero_pi):
     return A_new, pi_new, mu_new, var_new, w_new
 
 
+def _e_step(X, L, A, pi, means, varis, weights):
+    """The sufficient statistics of one batch, as the JAX package's
+    ``_e_step`` returns them (``pi_new`` the mean first posterior)."""
+    st = _e_sums(X, L, A, pi, means, varis, weights)
+    st["pi_new"] = st.pop("pi_sum") / X.shape[0]
+    return st
+
+
 def _params(model: GMMHMM, device):
     return tuple(torch.as_tensor(np.asarray(a, np.float64), device=device)
                  for a in (model.A, model.pi, model.means, model.varis,
@@ -124,25 +135,25 @@ def _inputs(seqs, device):
             torch.as_tensor(L.astype(np.int64), device=device), L)
 
 
-def baum_welch_fused(model: GMMHMM, seqs: Sequence[np.ndarray], *, device,
-                     tol: float = 1e-6, max_iters: int = 500
-                     ) -> Tuple[GMMHMM, int, float]:
-    """EM to convergence (relative log-likelihood change < tol) over all
-    sequences at once.  Returns (model, iterations, last log-likelihood).
-
-    As in the JAX package's single-program loop, the returned parameters are
-    those after the last M-step; the host reads one convergence flag per
-    iteration.
-    """
-    device = torch.device(device)
-    X, L, _ = _inputs(seqs, device)
-    params = _params(model, device)
-    zero_A = torch.as_tensor(model.A <= 0, device=device)
-    zero_pi = torch.as_tensor(model.pi <= 0, device=device)
-    prev = torch.tensor(-np.inf, dtype=_F64, device=device)
+def baum_welch_device(X, L, A0, pi0, means0, varis0, weights0, zero_A,
+                      zero_pi, tol: float, max_iters: int, *,
+                      psum=None, n_seqs: int | None = None):
+    """The EM loop of ``_baum_welch_device`` (the JAX package's one device
+    ``while_loop``) on tensors: E-step, M-step, stop when the relative
+    log-likelihood change is below ``tol`` or after ``max_iters``; the host
+    reads one flag an iteration.  ``psum`` adds the E-step's statistics
+    over every shard of the sequences (the identity for one process) and
+    ``n_seqs`` is their total count (default ``X.shape[0]``).  Returns
+    (iterations, params after the last M-step, last log-likelihood)."""
+    n_seqs = X.shape[0] if n_seqs is None else n_seqs
+    params = (A0, pi0, means0, varis0, weights0)
+    prev = torch.tensor(-np.inf, dtype=_F64, device=X.device)
     it = 0
     while it < max_iters:
-        st = _e_step(X, L, *params)
+        st = _e_sums(X, L, *params)
+        if psum is not None:
+            st = psum(st)
+        st["pi_new"] = st.pop("pi_sum") / n_seqs
         ll = st["loglik"]
         params = _m_step(st, zero_A, zero_pi)
         it += 1
@@ -150,8 +161,45 @@ def baum_welch_fused(model: GMMHMM, seqs: Sequence[np.ndarray], *, device,
         prev = ll
         if bool(converged):
             break
-    out = GMMHMM(*(p.cpu().numpy() for p in params))
-    return out, it, float(prev)
+    return it, params, prev
+
+
+def _device_args(model: GMMHMM, seqs, device):
+    X, L, _ = _inputs(seqs, device)
+    return (X, L, *_params(model, device),
+            torch.as_tensor(model.A <= 0, device=device),
+            torch.as_tensor(model.pi <= 0, device=device))
+
+
+def baum_welch_fused(model: GMMHMM, seqs: Sequence[np.ndarray], *, device,
+                     tol: float = 1e-6, max_iters: int = 500
+                     ) -> Tuple[GMMHMM, int, float]:
+    """EM to convergence (relative log-likelihood change < tol) over all
+    sequences at once (``baum_welch_device``).  Returns (model, iterations,
+    last log-likelihood)."""
+    it, params, ll = baum_welch_device(
+        *_device_args(model, seqs, torch.device(device)), tol, max_iters)
+    return GMMHMM(*(p.cpu().numpy() for p in params)), it, float(ll)
+
+
+def baum_welch(model: GMMHMM, seqs: Sequence[np.ndarray], tol: float = 1e-6,
+               max_iters: int = 500, *, device
+               ) -> Tuple[GMMHMM, List[float]]:
+    """EM to convergence, as the JAX package's ``baum_welch``: returns the
+    model after the last M-step and every iteration's log-likelihood."""
+    X, L, *params, zero_A, zero_pi = _device_args(model, seqs,
+                                                  torch.device(device))
+    hist: List[float] = []
+    prev = -np.inf
+    for _ in range(max_iters):
+        st = _e_step(X, L, *params)
+        ll = float(st["loglik"])
+        hist.append(ll)
+        params = _m_step(st, zero_A, zero_pi)
+        if np.isfinite(prev) and abs(ll - prev) < tol * (abs(prev) + 1.0):
+            break
+        prev = ll
+    return GMMHMM(*(p.cpu().numpy() for p in params)), hist
 
 
 def _log_params(model: GMMHMM):

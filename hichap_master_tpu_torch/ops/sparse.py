@@ -319,3 +319,133 @@ def ice_balance_blocks(bm: BlockMatrix, device, **kw):
     w, stats = sparse_ice_balance(t.tiles, t.brow, t.bcol, t.n, R=t.R, T=t.T,
                                   **kw)
     return w[:t.n], stats
+
+
+# ------------------------------------------------ asymmetric (imputation)
+@dataclasses.dataclass
+class AsymBlocks:
+    """Asymmetric genome-wide matrix as (upper, transposed-lower) tile pairs
+    on one coordinate list: ``U[k][i, j] = H[brow*T + i, bcol*T + j]`` for
+    upper-triangle pixels and ``L[k][i, j] = H[bcol*T + j, brow*T + i]`` for
+    lower-triangle ones, so that the reference's triangle fold
+    ``triu(H) + tril(H, -1)^T`` (HiCHap/matrixBuilding.py:945-979) is
+    ``U + L``."""
+
+    U: np.ndarray | torch.Tensor      # [K, T, T]
+    L: np.ndarray | torch.Tensor      # [K, T, T]
+    brow: np.ndarray | torch.Tensor   # [K] int32, brow <= bcol
+    bcol: np.ndarray | torch.Tensor   # [K] int32
+    n: int
+    T: int
+    R: int
+
+    @property
+    def K(self) -> int:
+        return int(self.U.shape[0])
+
+
+def asym_blocks_from_coo(rows, cols, vals, n: int, T: int = 128,
+                         dtype=torch.float32) -> AsymBlocks:
+    """Asymmetric block storage from directed COO (either triangle), built
+    with tensors on the device of ``rows`` (the CPU for numpy input);
+    duplicate pixels accumulate."""
+    rows = torch.as_tensor(rows).long()
+    dev = rows.device
+    cols = torch.as_tensor(cols, device=dev).long()
+    vals = torch.as_tensor(vals, device=dev).to(dtype)
+    R = _block_shape(n, T)
+    lower = rows > cols
+    r_c = torch.where(lower, cols, rows)
+    c_c = torch.where(lower, rows, cols)
+    uniq, inv = torch.unique((r_c // T) * R + c_c // T, return_inverse=True)
+    K = max(uniq.numel(), 1)
+    flat = inv * (T * T) + (r_c % T) * T + c_c % T
+    U = torch.zeros(K * T * T, dtype=dtype, device=dev)
+    L = torch.zeros(K * T * T, dtype=dtype, device=dev)
+    U.index_put_((flat[~lower],), vals[~lower], accumulate=True)
+    L.index_put_((flat[lower],), vals[lower], accumulate=True)
+    if uniq.numel():
+        brow, bcol = (uniq // R).to(torch.int32), (uniq % R).to(torch.int32)
+    else:
+        brow = bcol = torch.zeros(1, dtype=torch.int32, device=dev)
+    return AsymBlocks(U=U.view(K, T, T), L=L.view(K, T, T), brow=brow,
+                      bcol=bcol, n=n, T=T, R=R)
+
+
+def asym_blocks_to_dense(ab: AsymBlocks) -> np.ndarray:
+    """The asymmetric matrix the blocks hold (test helper)."""
+    N = ab.R * ab.T
+    U, L = _np(ab.U), _np(ab.L)
+    brow, bcol = _np(ab.brow), _np(ab.bcol)
+    M = np.zeros((N, N), U.dtype)
+    for k in range(U.shape[0]):
+        r0, c0 = int(brow[k]) * ab.T, int(bcol[k]) * ab.T
+        M[r0:r0 + ab.T, c0:c0 + ab.T] += U[k]
+        M[c0:c0 + ab.T, r0:r0 + ab.T] += L[k].T
+    return M[:ab.n, :ab.n]
+
+
+def _genomewide_tiles(U, L, brow, bcol, alpha_full, R: int, T: int,
+                      vc_alpha: float, psum):
+    """``sparse_genomewide_correction`` over a subset of the tile pairs:
+    ``psum`` adds a partial row-sum vector or total over every subset (the
+    identity when the subset is the whole matrix)."""
+    if not U.dtype.is_floating_point:
+        U, L = U.to(torch.float32), L.to(torch.float32)
+    dev = U.device
+    brow = brow.to(device=dev, dtype=torch.int32).contiguous()
+    bcol = bcol.to(device=dev, dtype=torch.int32).contiguous()
+    br, bc = brow.long(), bcol.long()
+    ab = alpha_full.to(device=dev, dtype=U.dtype).reshape(R, T)
+    # rows scaled by 1/alpha (U's rows on the brow side, L's on the bcol
+    # side), the triangles folded by summation, diagonal tiles mirrored
+    S = U / ab[br][:, :, None] + L / ab[bc][:, None, :]
+    S = torch.where((br == bc)[:, None, None],
+                    S + torch.triu(S, 1).transpose(-1, -2), S).contiguous()
+    ones = torch.ones(R * T, dtype=U.dtype, device=dev)
+    s1 = psum(block_sym_matvec(S, brow, bcol, ones, R=R, T=T))
+    f = torch.where(s1 == 0, torch.ones_like(s1), s1 ** vc_alpha)
+    f = f.reshape(R, T)
+    cor = (S / (f[br][:, :, None] * f[bc][:, None, :])).contiguous()
+    raw_total = psum(U.sum() + L.sum())
+    cor_total = psum(block_sym_matvec(cor, brow, bcol, ones, R=R, T=T).sum())
+    rf = raw_total / cor_total.clamp_min(torch.finfo(U.dtype).tiny)
+    return rf * cor
+
+
+def sparse_genomewide_correction(U: torch.Tensor, L: torch.Tensor,
+                                 brow: torch.Tensor, bcol: torch.Tensor,
+                                 alpha_full: torch.Tensor, *, R: int, T: int,
+                                 vc_alpha: float = 2.0 / 3.0) -> torch.Tensor:
+    """Genome-wide two-step correction on asymmetric block storage, as
+    ``ops.correct.genomewide_correction`` (HiCHap/matrixBuilding.py:
+    857-901): rows scaled by 1/alpha, triangles folded, VC(2/3), rescaled
+    to the raw total.  ``alpha_full`` is the per-bin alpha padded to R*T
+    with 1.0.  Its two row-sum passes run through K2.  Returns the
+    corrected symmetric tiles (same coordinates, diagonal tiles full)."""
+    return _genomewide_tiles(U, L, brow, bcol, alpha_full, R, T, vc_alpha,
+                             lambda t: t)
+
+
+def genomewide_correction_blocks(ab: AsymBlocks, alpha,
+                                 vc_alpha: float = 2.0 / 3.0, *,
+                                 device) -> BlockMatrix:
+    """``sparse_genomewide_correction`` of an ``AsymBlocks`` moved to
+    ``device`` (no default), with the per-bin ``alpha[:n]``; returns the
+    corrected symmetric BlockMatrix."""
+    U, L = (_on(t, device, torch.float32) for t in (ab.U, ab.L))
+    brow, bcol = (_on(t, device, torch.int32) for t in (ab.brow, ab.bcol))
+    af = torch.ones(ab.R * ab.T, dtype=U.dtype, device=U.device)
+    a = _on(alpha, device, U.dtype).reshape(-1)[:ab.n]
+    af[:a.numel()] = a
+    tiles = sparse_genomewide_correction(U, L, brow, bcol, af, R=ab.R,
+                                         T=ab.T, vc_alpha=vc_alpha)
+    return BlockMatrix(tiles=tiles, brow=brow, bcol=bcol, n=ab.n, T=ab.T,
+                       R=ab.R)
+
+
+def _on(a, device, dtype) -> torch.Tensor:
+    """An array or tensor as a tensor of ``dtype`` on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(a), device=device).to(dtype)

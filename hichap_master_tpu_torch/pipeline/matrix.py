@@ -612,65 +612,74 @@ def _pad_rows(vs: Sequence[torch.Tensor]) -> torch.Tensor:
     return out
 
 
+def whole_alpha(T, H, genome: Genome, res: int) -> torch.Tensor:
+    """The genome-wide correction's per-bin alpha at ``res`` over one
+    haplotype's bins (``[S / 2]``; the correction applies it to both):
+    each chromosome's from its traditional block ``T`` and its maternal
+    and paternal intra blocks of the imputed matrix ``H`` (dense, or from
+    row margins when ``H`` is a ``SparseDirectedGW``)."""
+    hap = genome.haplotype()
+    t_offs = genome.bin_offsets(res)
+    h_offs = hap.bin_offsets(res)
+    spans = [(t_offs[c], h_offs["M" + c], h_offs["P" + c])
+             for c in genome.labels]
+    if isinstance(H, SparseDirectedGW):
+        dev = H.device
+        t_bounds = torch.as_tensor([t_offs[c][1] for c in genome.labels],
+                                   device=dev)
+        h_bounds = torch.as_tensor([h_offs[c][1] for c in hap.labels],
+                                   device=dev)
+        if isinstance(T, SparseGW):
+            trs, tnz = _intra_margins(*T.coo(), t_bounds, T.S, True)
+            t_rows = [(trs[s:e + 1], tnz[s:e + 1])
+                      for (s, e), _, _ in spans]
+        else:  # the mixed regime: traditional under the cap
+            t_rows = [(T[s:e + 1, s:e + 1].sum(1),
+                       (T[s:e + 1, s:e + 1] != 0).sum(1))
+                      for (s, e), _, _ in spans]
+        hrs = _intra_margins(*H.coo(), h_bounds, H.S, False)
+        ns = [e - s + 1 for (s, e), _, _ in spans]
+        a = genomewide_alpha_margins(
+            _pad_rows([t for t, _ in t_rows]),
+            _pad_rows([z for _, z in t_rows]),
+            _pad_rows([hrs[m[0]:m[1] + 1] for _, m, _ in spans]),
+            _pad_rows([hrs[p[0]:p[1] + 1] for _, _, p in spans]),
+            torch.as_tensor(ns, device=dev))
+        return torch.cat([a[i, :n] for i, n in enumerate(ns)])
+    alphas = []
+    for (s, e), (ms, me), (ps, pe) in spans:
+        n = e - s + 1
+        N = pad_to_shape(n)
+        blocks = torch.zeros(3, N, N, dtype=torch.float32, device=H.device)
+        blocks[0, :n, :n] = T[s:e + 1, s:e + 1]
+        blocks[1, :n, :n] = H[ms:me + 1, ms:me + 1]
+        blocks[2, :n, :n] = H[ps:pe + 1, ps:pe + 1]
+        alphas.append(genomewide_alpha(*blocks, n)[:n])
+    return torch.cat(alphas)
+
+
 def correct_haplotype_datasets(data, genome: Genome,
                                whole_res: Sequence[int],
                                local_res: Sequence[int]):
     """Two-step corrections -> (balanced_whole, balanced_local, gaps).
 
     Genome-wide: per-chromosome alpha from the traditional and imputed
-    intra blocks, then one correction of the whole imputed matrix (dense
-    ``[S, S]`` float32, or upper-triangle float64 COO past the cap,
-    ``ops.sparse.genomewide_correction_coo``).  Local: the two-step
-    correction of each chromosome's maternal/paternal pair, batched by the
-    ``pad_to_shape`` ladder.  Gaps are numpy arrays of bin indices."""
-    hap = genome.haplotype()
+    intra blocks (``whole_alpha``), then one correction of the whole
+    imputed matrix (dense ``[S, S]`` float32, or upper-triangle float64
+    COO past the cap, ``ops.sparse.genomewide_correction_coo``).  Local:
+    the two-step correction of each chromosome's maternal/paternal pair,
+    batched by the ``pad_to_shape`` ladder.  Gaps are numpy arrays of bin
+    indices."""
     balanced_whole = {}
     for res in whole_res:
-        T = data["Tradition_Whole"][res]
         H = data["Imputated_Whole"][res]
-        t_offs = genome.bin_offsets(res)
-        h_offs = hap.bin_offsets(res)
-        spans = [(t_offs[c], h_offs["M" + c], h_offs["P" + c])
-                 for c in genome.labels]
+        alpha = whole_alpha(data["Tradition_Whole"][res], H, genome, res)
         if isinstance(H, SparseDirectedGW):
-            dev = H.device
-            t_bounds = torch.as_tensor([t_offs[c][1] for c in genome.labels],
-                                       device=dev)
-            h_bounds = torch.as_tensor([h_offs[c][1] for c in hap.labels],
-                                       device=dev)
-            if isinstance(T, SparseGW):
-                trs, tnz = _intra_margins(*T.coo(), t_bounds, T.S, True)
-                t_rows = [(trs[s:e + 1], tnz[s:e + 1])
-                          for (s, e), _, _ in spans]
-            else:  # the mixed regime: traditional under the cap
-                t_rows = [(T[s:e + 1, s:e + 1].sum(1),
-                           (T[s:e + 1, s:e + 1] != 0).sum(1))
-                          for (s, e), _, _ in spans]
-            hrs = _intra_margins(*H.coo(), h_bounds, H.S, False)
-            ns = [e - s + 1 for (s, e), _, _ in spans]
-            a = genomewide_alpha_margins(
-                _pad_rows([t for t, _ in t_rows]),
-                _pad_rows([z for _, z in t_rows]),
-                _pad_rows([hrs[m[0]:m[1] + 1] for _, m, _ in spans]),
-                _pad_rows([hrs[p[0]:p[1] + 1] for _, _, p in spans]),
-                torch.as_tensor(ns, device=dev))
-            alpha = torch.cat([a[i, :n] for i, n in enumerate(ns)])
             balanced_whole[res] = genomewide_correction_coo(
                 *H.coo(), alpha=torch.cat([alpha, alpha]), n=H.S)
-            continue
-        alphas = []
-        for (s, e), (ms, me), (ps, pe) in spans:
-            n = e - s + 1
-            N = pad_to_shape(n)
-            blocks = torch.zeros(3, N, N, dtype=torch.float32,
-                                 device=H.device)
-            blocks[0, :n, :n] = T[s:e + 1, s:e + 1]
-            blocks[1, :n, :n] = H[ms:me + 1, ms:me + 1]
-            blocks[2, :n, :n] = H[ps:pe + 1, ps:pe + 1]
-            alphas.append(genomewide_alpha(*blocks, n)[:n])
-        alpha = torch.cat(alphas)
-        balanced_whole[res] = genomewide_correction(
-            H, torch.cat([alpha, alpha]).to(torch.float32))
+        else:
+            balanced_whole[res] = genomewide_correction(
+                H, torch.cat([alpha, alpha]).to(torch.float32))
 
     balanced_local, gaps = {}, {}
     for res in local_res:

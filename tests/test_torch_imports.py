@@ -26,10 +26,27 @@ for mod in ("exact_index", "exact_hits"):
     assert f"hichap_master_tpu_torch.kernels.{mod}" in names, names
 for io in ("bedio", "cooler", "hdf5", "sam", "bam", "fasta"):
     assert f"hichap_master_tpu_torch.io.{io}" in names, names
-for mod in ("cli", "utils", "utils.logging", "utils.profiling"):
+for mod in ("cli", "utils", "utils.logging", "utils.profiling", "parallel",
+            "parallel.sharding", "testing.sharding_ranks"):
     assert f"hichap_master_tpu_torch.{mod}" in names, names
 for name in names:
     importlib.import_module(name)
+# the JAX package's public names of parallel/, ops/sparse's asymmetric
+# blocks and ops/hmm's baum_welch
+par = importlib.import_module("hichap_master_tpu_torch.parallel")
+for n in ("make_mesh", "shard_chrom_batch", "sharded_ice_balance",
+          "sharded_two_step", "sharded_genomewide_correction",
+          "sharded_sparse_ice", "sharded_sparse_genomewide",
+          "shard_hybrid_layout", "sharded_hybrid_ice", "sharded_tads_em",
+          "analysis_train_step", "sharded_loop_escalation",
+          "sharded_compartment"):
+    assert callable(getattr(par, n)), n
+sp = importlib.import_module("hichap_master_tpu_torch.ops.sparse")
+for n in ("AsymBlocks", "asym_blocks_from_coo", "sparse_genomewide_correction",
+          "genomewide_correction_blocks", "asym_blocks_to_dense"):
+    assert callable(getattr(sp, n)), n
+assert callable(importlib.import_module("hichap_master_tpu_torch.ops.hmm")
+                .baum_welch)
 loaded = [k for k, v in sys.modules.items()
           if v is not None and k.split(".")[0] in ("jax", "jaxlib")]
 assert not loaded, loaded
