@@ -7,8 +7,9 @@ Needs one CUDA device, ``nvcc`` and this repository (the kernels build from
 ``hichap_master_tpu_torch/csrc`` at first use); imports nothing of JAX.
 Phases, each printed on its own line, any failure raising:
 
-1. the card (name and power limit, as nvidia-smi reports them), whether
-   matplotlib is importable, and the kernel build time;
+1. the card (name and power limit, as nvidia-smi reports them), the
+   host's CPU model and core counts, whether matplotlib is importable, and
+   the kernel build time;
 2. every hand-written kernel against its plain PyTorch version on the same
    tensors at main-path shapes, with the largest difference and both times
    (median of 5 warm runs, synchronized around each; "device" times are
@@ -59,6 +60,16 @@ Phases, each printed on its own line, any failure raising:
    must give the same paths, boundaries and domains; then the diploid
    matrix stage (26.6 M allelic pairs) with its own counters, and its
    10 kb hybrid weights again through the plain K2 and K7; then, with its
+   own counters (``surface``), the JAX package's remaining entry points,
+   each held to the path the port already has: ``escalation_packed_batch``
+   (K3) on the 23 chromosomes at 10 kb identical to ``escalation_batch``,
+   ``sparse_impute_vote`` (the JAX arguments, K6) on pass 3's queries
+   identical to ``sparse_impute_vote_rowptr``, ``accumulate_genomewide`` at
+   500 kb and ``accumulate_intra`` at 40 kb on the 26.6 M pairs identical
+   to the stage's Traditional tables, ``pcaller_chrom_coo(packed=False)``
+   on chr1 at 10 kb with the loop set of ``packed=True``, and
+   ``single_chrom_compartment`` / ``chrom_di_segments`` on chr1 against
+   ``call_compartments`` / ``call_tads``; then, with its
    own counters, the sharded functions (``hichap_master_tpu_torch.
    parallel``) at those shapes: the hybrid ICE of the 10 kb layout, the
    sparse ICE of the genome-wide tiles, the TAD EM of the 23 DI segment
@@ -74,14 +85,18 @@ Phases, each printed on its own line, any failure raising:
    every result within testing/sharding_check.py's tolerance of its
    single-process reference;
 4. the allelic analysis with its own counters: the same draw with planted
-   loops and domains (``testing.synthetic.planted_loops``) through the
+   loops, domains (``testing.synthetic.planted_loops``) and A/B
+   compartments with a maternal flipped block (``allelic_pairs(ab=True)``)
+   through the
    matrix stage (whole 500 kb, local 40 kb), the traditional and allelic
    compartment tracks at 500 kb, allelic TADs and loops (``call_loops``)
    at 40 kb on the corrected M/P matrices cut to their cooler bins, and
    the loop, boundary and compartment specificity tests on those calls,
    each step's wall on its own line; checks: tracks finite, every p and q
    in [0, 1] with q >= p, a share of the maternal-only loops called in M
-   and their loop-test median p below the shared loops'; then M1 through
+   and their loop-test median p below the shared loops', the M and P
+   compartment signs against the planted A/B (>= 90% of non-gap bins) and
+   the compartment test's discordant bins mostly in the flipped block; then M1 through
    the plain ladder and the plain Viterbi;
 5. the user path through files, with its own counters: the allelic draw
    written as the five allelic beds of ``GM12878_R1_`` and an hg19
@@ -106,6 +121,9 @@ Phases, each printed on its own line, any failure raising:
    and weights against ``traditional_matrix_construction``) and at all of
    them (pixel tables identical to the files phase's Traditional cooler,
    weights within 1e-4), each step's wall and rate on its own line; then
+   ``run_compartment(plot=True)`` on the Traditional cooler (without
+   matplotlib: the track file, then the ImportError naming it; with it:
+   the PDF's pages holding the tracks); then
    the peak device memory of both drivers at both sizes with the same
    block and its slope in bytes per pair, each on its own line;
 6. the same beds through the command line, with its own counters: the
@@ -122,7 +140,7 @@ Phases, each printed on its own line, any failure raising:
 7. the front of the user path, chunk beds in: first the filtering stage
    at FILTER_CHECK_RECORDS records per haplotype (chunk beds drawn by
    ``testing.synthetic.record_beds``) on the card in blocks of
-   FILTER_BLOCK records (3 sorted runs a haplotype merged on the card,
+   FILTER_BLOCK records (2 sorted runs a haplotype merged on the card,
    the allelic beds joined in read-name ranges) and on the CPU in one
    block, and again on the card with the block sized by the stage
    (``filter_block``, HICHAP_FILTER_BLOCK unset) under a cap of
@@ -151,7 +169,9 @@ Phases, each printed on its own line, any failure raising:
    the planted truth, then ``Rescue`` of its Global_bams on the card, on
    the CPU and from the BAM, the rescue FASTQs identical byte for byte
    and equal to the planted junction truth (and the columns that
-   bamProcess reads carry no QUAL); then, with its own counters, one chunk
+   bamProcess reads carry no QUAL), then ``read_sam_sorted_by_name`` on
+   SAM_SORT_RECORDS of its records, every record in bamProcess's name
+   order; then, with its own counters, one chunk
    of BAM_PAIRS per haplotype (~7.5 GB of SAM; BAM_CUT_PAIRS where the
    temporary disk cannot hold it) through ``hichap-torch bamProcess``,
    ``hichap-torch Rescue`` on its Global_bams and ``hichap-torch
@@ -197,7 +217,7 @@ Phases, each printed on its own line, any failure raising:
    command; then the phase's wall and the run's;
 11. the launch counters of each path, each kernel of the path > 0, and one
    JSON line with the per-kernel results (``launches_by_path``: analysis,
-   diploid, sharded (this process's and every spawned rank's), allelic,
+   diploid, surface, sharded (this process's and every spawned rank's), allelic,
    files, cli, filtering, bamprocess, front, mapping; bamprocess and front
    launch no kernel).
 
@@ -698,7 +718,10 @@ def hmm_compare(tads, dev, results):
         plain(*args)
         torch.cuda.synchronize()
         first = time.perf_counter() - t0
-        plain_ms = median_ms(lambda: plain(*args), 3 if first > 1.0 else REPS)
+        # a plain call of more than a second (warm: the comparison ran it)
+        # is timed once
+        plain_ms = (first * 1e3 if first > 1.0
+                    else median_ms(lambda: plain(*args)))
         return ms, plain_ms
 
     def fb_errors(b, A, pi, L):
@@ -854,12 +877,14 @@ def viterbi_edge_cases(dev):
 
 
 # -------------------------------------------------------------- K6/K7
-def diploid_inputs(dev, lengths=None, names=None, counts=None, loops=None):
+def diploid_inputs(dev, lengths=None, names=None, counts=None, loops=None,
+                   ab=False):
     """The diploid build's input: allelic pair classes drawn on the card
     (GM12878-like mix of ``scripts/perf_e2e_hap.py``, 26.6 M pairs on the
     23 hg19 chromosomes, seed 7, 10% of the intra pairs at a uniform
     distance) and the base genome; ``loops`` (``planted_loops`` rows)
-    plants those loops and domains (``allelic_pairs``)."""
+    plants those loops and domains, ``ab`` A/B compartments with a
+    maternal flipped block (``allelic_pairs``)."""
     from hichap_master_tpu_torch.core import Genome
     from hichap_master_tpu_torch.testing.synthetic import (GM12878_MIX, HG19,
                                                            HG19_NAMES,
@@ -870,7 +895,8 @@ def diploid_inputs(dev, lengths=None, names=None, counts=None, loops=None):
     genome = Genome(dict(zip(names, lengths)))
     assert genome.labels == list(names)
     classes = allelic_pairs(lengths, counts or GM12878_MIX, seed=7,
-                            device=dev, cis_floor=CIS_FLOOR, loops=loops)
+                            device=dev, cis_floor=CIS_FLOOR, loops=loops,
+                            ab=ab)
     return genome, classes
 
 
@@ -1733,15 +1759,356 @@ def cooler_local(r, hap, res):
     return local, gaps
 
 
+def surface_escalation(loops, dev):
+    """``ops.loops_packed.escalation_packed_batch`` (the JAX package's
+    entry point, K3) on the analysis suite's 23 chromosomes at 10 kb, one
+    call per same-shape group as ``pcaller_multi`` groups them: every
+    output identical to ``kernels.escalation.escalation_batch``'s."""
+    from hichap_master_tpu_torch.kernels.escalation import escalation_batch
+    from hichap_master_tpu_torch.models.loops import (_packed_inputs_batch,
+                                                      _pcaller_prep)
+    from hichap_master_tpu_torch.ops.loops_packed import \
+        escalation_packed_batch
+
+    inputs, params, res = loops
+    groups = {}
+    for c, (rows, cols, vals, w, n) in inputs.items():
+        pr = _pcaller_prep(rows, cols, vals, w, n, res, params)
+        groups.setdefault((pr["Xp"], pr["cap"], pr["P2"]), []).append(pr)
+    wall, resolved = [0.0, 0.0], 0
+    for prs in groups.values():
+        pr0 = prs[0]
+        args = _packed_inputs_batch(prs, dev) + (
+            pr0["ww"], pr0["maxww"], pr0["pw"], pr0["num"], pr0["e_lo"],
+            pr0["x_pad"])
+        walls = {}
+        got = _timed(walls, 0, lambda: escalation_packed_batch(*args))
+        want = _timed(walls, 1, lambda: escalation_batch(*args))
+        wall = [wall[i] + walls[i] for i in (0, 1)]
+        for name, a, b in zip(("resolved", "bS_K", "bE_K", "bS_Y", "bE_Y"),
+                              got, want):
+            check(torch.equal(a, b), f"surface: escalation_packed_batch "
+                  f"{name} differs from escalation_batch")
+        resolved += int(got[0].sum())
+    check(resolved > 0, "surface: escalation_packed_batch resolved nothing")
+    log(f"surface: escalation_packed_batch, {len(inputs)} chromosomes at "
+        f"{res // 1000} kb in {len(groups)} groups: {resolved} resolved "
+        f"pixels, every output identical to escalation_batch; "
+        f"{wall[0]:.3f} s (escalation_batch {wall[1]:.3f} s)")
+
+
+def surface_vote(diploid, stage, dev):
+    """``ops.sparse_impute.sparse_impute_vote`` (the JAX arguments: U as
+    its sorted pair list with the prefix wrapped to int32, a ``valid``
+    mask; K6) on pass 3's queries of the 10 kb diploid build: hits and
+    targets identical to ``sparse_impute_vote_rowptr``'s."""
+    from hichap_master_tpu_torch.ops.sparse_impute import (
+        SparseU, disk_row_intervals, sparse_impute_vote,
+        sparse_impute_vote_rowptr)
+    from hichap_master_tpu_torch.pipeline.matrix import vote_queries
+
+    genome, classes = diploid
+    r, _ = stage
+    res = min(DIPLOID_WHOLE)
+    S = genome.haplotype().total_bins(res)
+    su = SparseU(*r["data"]["UnImputated_Whole"][res].coo(), S)
+    L = DIPLOID_VOTE["imputation_region"] // res
+    disk = [torch.as_tensor(a, device=dev) for a in disk_row_intervals(L)]
+    q = vote_queries(classes, genome, res, device=dev)
+    mn = float(DIPLOID_VOTE["imputation_min"])
+    rt = float(DIPLOID_VOTE["imputation_ratio"])
+    valid = torch.ones_like(q[0], dtype=torch.bool)
+    walls = {}
+    hit, tgt = _timed(walls, "vote", lambda: sparse_impute_vote(
+        su.srows, su.scols, su.cum32, *q, valid, *disk, S, L, mn, rt,
+        su.iters))
+    hr, tr = _timed(walls, "rowptr", lambda: sparse_impute_vote_rowptr(
+        su, *q, *disk, L, mn, rt))
+    check(torch.equal(hit, hr) and torch.equal(tgt, tr),
+          f"surface: sparse_impute_vote differs from "
+          f"sparse_impute_vote_rowptr at {int((hit != hr).sum())} hits, "
+          f"{int((tgt != tr).sum())} targets")
+    check(int(hit.sum()) > 0, "surface: the vote hit nothing")
+    log(f"surface: sparse_impute_vote, {q[0].numel():,} queries of the 10 "
+        f"kb diploid vote (U nnz {su.nnz:,}): {int(hit.sum()):,} hits, "
+        f"hits and targets identical to sparse_impute_vote_rowptr; "
+        f"{walls['vote']:.3f} s (rowptr {walls['rowptr']:.3f} s)")
+
+
+def surface_accumulators(diploid, stage, dev):
+    """``pipeline.matrix.accumulate_genomewide`` at 500 kb and
+    ``accumulate_intra`` at 40 kb on every pair of the diploid draw:
+    identical to the stage's Traditional tables of the same pairs."""
+    from hichap_master_tpu_torch.pipeline.matrix import (
+        accumulate_genomewide, accumulate_intra)
+
+    genome, classes = diploid
+    r, _ = stage
+    cols = [torch.cat([c[i] for c in classes.values()]) for i in range(4)]
+    res_w, res_l = max(DIPLOID_WHOLE), DIPLOID_LOCAL[0]
+    walls = {}
+    gw = _timed(walls, "gw", lambda: accumulate_genomewide(
+        *cols, genome, res_w, device=dev))
+    want = r["data"]["Tradition_Whole"][res_w]
+    check(isinstance(want, torch.Tensor) and torch.equal(gw, want),
+          f"surface: accumulate_genomewide {res_w} differs from the stage's "
+          "Traditional table")
+    intra = _timed(walls, "intra", lambda: accumulate_intra(
+        *cols, genome, res_l, device=dev))
+    want = r["data"]["Tradition_Local"][res_l]
+    check(list(intra) == list(want)
+          and all(torch.equal(intra[c], want[c]) for c in want),
+          f"surface: accumulate_intra {res_l} differs from the stage's "
+          "Traditional tables")
+    log(f"surface: accumulate_genomewide {res_w // 1000} kb and "
+        f"accumulate_intra {res_l // 1000} kb on {cols[0].numel():,} pairs: "
+        f"identical to the stage's Traditional tables; {walls['gw']:.3f} s "
+        f"and {walls['intra']:.3f} s")
+
+
+# The packed ladder's expected backgrounds (K3, bit for bit the JAX
+# package's float32 anti-diagonal prefix) are up to ~5.5e-4 relative off a
+# float64 sum of the same cells at 10 kb; the summed-area form's (float64
+# column prefix) within ~1e-5 (tests/test_torch_loops_kernel.py).  The
+# JAX package's own bar between the two, rtol 1e-4, holds at its test's
+# 150 bins only.
+UNPACKED_RTOL = 1e-3
+
+
+def surface_unpacked(loops, dev):
+    """``pcaller_chrom_coo(packed=False)`` (the summed-area formulation,
+    three ``[P, P + 1]`` prefixes on the card) on chr1 at 10 kb against
+    ``packed=True`` (K3), both with the float64 host post
+    (``HICHAP_HOST_STATS=1``): the same loop set, every value within rtol
+    1e-4 (the JAX package's bar, tests/test_loops_packed.py:69-73)."""
+    from hichap_master_tpu_torch.models.loops import pcaller_chrom_coo
+
+    inputs, params, res = loops
+    rows, cols, vals, w, n = inputs["1"]
+    prev = os.environ.get("HICHAP_HOST_STATS")
+    os.environ["HICHAP_HOST_STATS"] = "1"
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        walls = {}
+        full = _timed(walls, "full", lambda: pcaller_chrom_coo(
+            rows, cols, vals, w, n, res, params, packed=False, device=dev))
+        peak = torch.cuda.max_memory_allocated() - base
+        packed = _timed(walls, "packed", lambda: pcaller_chrom_coo(
+            rows, cols, vals, w, n, res, params, device=dev))
+    finally:
+        if prev is None:
+            os.environ.pop("HICHAP_HOST_STATS")
+        else:
+            os.environ["HICHAP_HOST_STATS"] = prev
+    worst, worst_pq = 0.0, 0.0
+    for a, b, what in ((full[0], packed[0], "donut"),
+                       (full[1], packed[1], "lower-left")):
+        check(set(a) == set(b), f"surface: chr1 unpacked {what} loop set "
+              f"differs from packed ({len(set(a) ^ set(b))} loops)")
+        for pos in b:
+            x, y = np.asarray(a[pos]), np.asarray(b[pos])
+            rel = np.abs(x - y) / np.maximum(np.abs(y), 1e-300)
+            check(x[0] == y[0], f"surface: chr1 {what} count differs at "
+                  f"{pos}")
+            worst = max(worst, float(rel[1]))      # o / e: the backgrounds
+            worst_pq = max(worst_pq, float(rel[2:].max()))
+    check(worst <= UNPACKED_RTOL, f"surface: chr1 unpacked enrichments "
+          f"(o / e, the backgrounds) off by {worst:.2e}")
+    check(len(full[0]) > 0, "surface: chr1 unpacked called nothing")
+    torch.cuda.empty_cache()
+    log(f"surface: pcaller_chrom_coo(packed=False) chr1 {res // 1000} kb "
+        f"(n {n}): the same {len(full[0])} loops as packed=True, "
+        f"enrichments within {worst:.1e} relative (p and q {worst_pq:.1e}); "
+        f"{walls['full']:.3f} s (packed {walls['packed']:.3f} s), peak "
+        f"device memory "
+        f"{peak / 2 ** 30:.2f} GiB")
+
+
+def surface_single_chrom(comp_inputs, tads, tad_called, dev):
+    """``single_chrom_compartment`` (chr1, 500 kb) against
+    ``call_compartments`` and ``chrom_di_segments`` (chr1, 40 kb) against
+    ``call_tads`` on that chromosome: gap sets and segment keys identical,
+    the first component within atol 1e-4 up to its sign, DI within rtol
+    1e-6 / atol 1e-6."""
+    from hichap_master_tpu_torch.models.compartment import (
+        call_compartments, single_chrom_compartment)
+    from hichap_master_tpu_torch.models.tads import chrom_di_segments
+
+    rows, cols, vals, n = comp_inputs["1"]
+    M = np.zeros((n, n), np.float32)
+    M[rows, cols] = vals
+    M = np.triu(M) + np.triu(M, 1).T
+    walls = {}
+    one = _timed(walls, "comp", lambda: single_chrom_compartment(
+        M, 500_000, device=dev))
+    extras = {}
+    call_compartments({"1": comp_inputs["1"]}, 500_000, False, dev,
+                      extras=extras)
+    want = extras["1"]
+    check(np.array_equal(one["gap"], want["gap"])
+          and np.array_equal(one["nongap"], want["nongap"]),
+          "surface: single_chrom_compartment gaps differ")
+    a, b = one["pcs"][0], want["pcs"][0]
+    sign = 1.0 if float(np.dot(a, b)) >= 0 else -1.0
+    err_c = float(np.abs(sign * a - b).max())
+    check(err_c <= 1e-4, f"surface: single_chrom_compartment PC1 off by "
+          f"{err_c:.2e}")
+    rows, cols, vals, wt, n = tads["1"]
+    M = np.zeros((n, n), np.float32)
+    M[rows, cols] = vals * wt[rows] * wt[cols]
+    M = np.triu(M) + np.triu(M, 1).T
+    di, gap, segs = _timed(walls, "tads", lambda: chrom_di_segments(
+        M, 40_000, 200_000, 600_000, "ttest", device=dev))
+    want = tad_called["1"]
+    err_t = float(np.abs(di - want["di"]).max())
+    check(np.allclose(di, want["di"], rtol=1e-6, atol=1e-6)
+          and np.array_equal(gap, want["gap"])
+          and list(segs) == list(want["segments"]),
+          f"surface: chrom_di_segments differs from call_tads (DI off by "
+          f"{err_t:.2e})")
+    log(f"surface: single_chrom_compartment chr1 500 kb: gaps identical, "
+        f"PC1 within {err_c:.1e} of call_compartments', "
+        f"{walls['comp']:.3f} s; "
+        f"chrom_di_segments chr1 40 kb: gaps and {len(segs)} segments "
+        f"identical, DI within {err_t:.1e} of call_tads', "
+        f"{walls['tads']:.3f} s")
+
+
+def surface_phase(loops, diploid, stage, comp_inputs, tads, tad_called,
+                  dev):
+    """The JAX package's remaining entry points on the card, each held to
+    the path the port already has, at the main path's shapes."""
+    t0 = time.perf_counter()
+    surface_escalation(loops, dev)
+    surface_vote(diploid, stage, dev)
+    surface_accumulators(diploid, stage, dev)
+    torch.cuda.empty_cache()
+    surface_unpacked(loops, dev)
+    surface_single_chrom(comp_inputs, tads, tad_called, dev)
+    log(f"surface: {time.perf_counter() - t0:.1f} s")
+
+
+def sam_sort_check(ws, truth, dev):
+    """``io.sam.read_sam_sorted_by_name`` on the first SAM_SORT_RECORDS
+    records of the bamProcess check's Maternal chunk (its four files cut
+    to a quarter each): its records, field by field, those of the name
+    order that bamProcess's ``PairResolver`` gives the same columns."""
+    from hichap_master_tpu_torch.io.sam import (merge, read_alignments,
+                                                read_sam_sorted_by_name,
+                                                records)
+    from hichap_master_tpu_torch.pipeline.bam_process import (_chunk_files,
+                                                              get_chunks)
+    from hichap_master_tpu_torch.pipeline.columns import upload
+    from hichap_master_tpu_torch.pipeline.pairs import (PairResolver,
+                                                        load_fragments)
+
+    aln_dir = os.path.join(ws, "Global_bams")
+    re_dir = os.path.join(ws, "ReMap_bams")
+    files = _chunk_files(aln_dir, re_dir, get_chunks(aln_dir)[0],
+                         get_chunks(re_dir)[0], 0, "Maternal")
+    cut = os.path.join(ws, "sort_check")
+    os.makedirs(cut)
+    paths = []
+    for f in files:
+        out = os.path.join(cut, os.path.basename(f))
+        with open(f, "rb") as src, open(out, "wb") as dst:
+            n = 0
+            for line in src:
+                dst.write(line)
+                n += not line.startswith(b"@")
+                if n == SAM_SORT_RECORDS // len(files):
+                    break
+        paths.append(out)
+    walls = {}
+    got = _timed(walls, "sort", lambda: read_sam_sorted_by_name(
+        paths, device=dev))
+    aln = merge([read_alignments(p, qual=True, mapq=True) for p in paths])
+    resolver = PairResolver(load_fragments(truth["fragments"][0]),
+                            device=dev)
+    d = {k: upload(getattr(aln, k), dev).long()
+         for k in ("name_off", "name_len", "base_len")}
+    order, _ = resolver.order(aln, d)
+    want = records(aln, order.cpu().numpy())
+    check(len(got) == len(want) == SAM_SORT_RECORDS and got == want,
+          f"surface: read_sam_sorted_by_name gives {len(got)} records, not "
+          f"bamProcess's order of {len(want)}")
+    log(f"surface: read_sam_sorted_by_name, {len(got):,} records of the "
+        f"bamProcess check's draw (4 SAM files): every record in "
+        f"bamProcess's name order; {walls['sort']:.3f} s")
+
+
+def plot_check(st, dev):
+    """``run_compartment(plot=True)`` on the files phase's Traditional
+    cooler.  Without matplotlib (``importlib.util.find_spec``): the track
+    file written, then the ImportError naming matplotlib; with it: the PDF
+    written and its pages holding the tracks."""
+    from hichap_master_tpu_torch.models.compartment import run_compartment
+
+    res = ALLELIC_WHOLE[0]
+    out = os.path.join(st["tmp"], "plot", "P")
+    have = importlib.util.find_spec("matplotlib") is not None
+    txt = os.path.join(out, f"P_Compartment_{res // 1000}K.txt")
+    pdf = os.path.join(out, f"P_Compartment_IF_{res // 1000}K.pdf")
+    figs = []
+    if have:   # record every page the run draws (still written)
+        import matplotlib
+        matplotlib.use("Agg")
+        from matplotlib.backends.backend_pdf import PdfPages
+
+        orig = PdfPages.savefig
+
+        def spy(self, figure=None, **kw):
+            figs.append(figure)
+            return orig(self, figure, **kw)
+
+        PdfPages.savefig = spy
+    t0 = time.perf_counter()
+    err = tracks = None
+    try:
+        tracks = run_compartment(st["files"]["tradition"], res, False, out,
+                                 plot=True, device=dev)
+    except ImportError as e:
+        err = e
+    finally:
+        if have:
+            PdfPages.savefig = orig
+    wall = time.perf_counter() - t0
+    if not have:
+        check(err is not None and "matplotlib" in str(err)
+              and os.path.exists(txt) and not os.path.exists(pdf),
+              f"surface: plot without matplotlib: error {err!r}, track "
+              f"file {os.path.exists(txt)}, PDF {os.path.exists(pdf)}")
+        log(f"surface: run_compartment(plot=True) without matplotlib: the "
+            f"track file written, then {type(err).__name__}: {err}; "
+            f"{wall:.3f} s")
+        return
+    check(err is None and os.path.exists(pdf), f"surface: plot: {err!r}")
+    check(len(figs) == len(tracks), "surface: plot pages != chromosomes")
+    for fig, (c, t) in zip(figs, tracks.items()):
+        ys = np.zeros(len(t))
+        for coll in fig.axes[0].collections:
+            for path in coll.get_paths():
+                for x, y in path.vertices:
+                    xi = int(round(x))
+                    if 0 <= xi < len(t) and abs(y) > abs(ys[xi]):
+                        ys[xi] = y
+        nz = t != 0
+        check(np.allclose(ys[nz], t[nz], atol=1e-9),
+              f"surface: the plot's track of {c} differs")
+    log(f"surface: run_compartment(plot=True): {pdf} with {len(figs)} "
+        f"pages holding the tracks; {wall:.3f} s")
+
+
 def allelic_inputs(dev):
     """The allelic phase's input: the diploid draw (GM12878_MIX, seed 7)
-    with loops planted on the 23 chromosomes."""
+    with loops and A/B compartments planted on the 23 chromosomes."""
     from hichap_master_tpu_torch.testing.synthetic import (HG19, LOOP_RES,
                                                            planted_loops)
 
     check(LOOP_RES == DIPLOID_LOCAL[0], "planted loops not at 40 kb")
     planted = planted_loops(HG19)
-    return (*diploid_inputs(dev, loops=planted), planted)
+    return (*diploid_inputs(dev, loops=planted, ab=True), planted)
 
 
 def _timed(walls, name, fn):
@@ -1943,6 +2310,7 @@ def allelic_phase(allelic, dev):
     for bad in (bad_l, bad_b, bad_c):
         check(bad is None, f"{bad} outside [0, 1] or q < p")
     check(n_l > 0 and n_b > 0 and n_c > 0, "specificity: a test gave no p")
+    ab_checks(genome, tracks, cres, res_w)
     hit, tot = shares[("maternal", "M")]
     check(tot > 0 and hit / tot >= MATERNAL_CALLED_MIN,
           f"maternal-only loops called in M: {hit} of {tot}, below "
@@ -1952,6 +2320,44 @@ def allelic_phase(allelic, dev):
           f"loops) not below the shared loops' {med[0]:.3g} ({len(pv[0])})")
     return dict(local=local, gaps=gaps, cands=cands, tads=tad_out,
                 model=models["M"][0], calls=calls, tracks=tracks)
+
+
+def ab_checks(genome, tracks, cres, res):
+    """The planted A/B compartments: each haplotype track's sign against
+    its planted signs (``ab_compartments``) on >= 90% of the non-gap bins
+    of every chromosome with 20 or more, as the traditional compartment
+    check asks; the compartment test's sign-discordant bins mostly in the
+    maternal flipped block (AB_FLIP), and most of the block discordant."""
+    from hichap_master_tpu_torch.testing.synthetic import (AB_FLIP,
+                                                           ab_compartments)
+
+    lengths = [genome.sizes[c] for c in genome.labels]
+    worst, checked = 1.0, 0
+    for h in "MP":
+        planted = ab_compartments(lengths, res, h)
+        for ci, c in enumerate(genome.labels):
+            t = tracks[h + c]
+            ng = t != 0
+            if ng.sum() < 20:
+                continue
+            agree = float((np.sign(t[ng]) == planted[ci][ng]).mean())
+            check(agree >= 0.9, f"allelic compartments {h}{c}: sign agrees "
+                  f"with the planted A/B on {agree:.1%} of non-gap bins")
+            worst, checked = min(worst, agree), checked + 1
+    fc, lo, hi = AB_FLIP
+    label = genome.labels[fc]
+    inside = sum(1 for r in cres if r[0] == label and lo <= r[1] < hi)
+    block = tracks["M" + label][lo // res:hi // res] != 0
+    share = inside / max(len(cres), 1)
+    cover = inside / max(int(block.sum()), 1)
+    check(share >= 0.5 and cover >= 0.8, f"compartment test: {inside} of "
+          f"{len(cres)} discordant bins in the flipped block ({share:.1%}), "
+          f"{cover:.1%} of the block's non-gap bins")
+    log(f"allelic:   planted A/B: PC sign agrees on >= {worst:.1%} of "
+        f"non-gap bins ({checked} haplotype chromosomes checked); "
+        f"{inside} of {len(cres)} discordant bins ({share:.1%}) in the "
+        f"flipped block chr{label}:{lo // 10 ** 6}-{hi // 10 ** 6} Mb, "
+        f"{cover:.1%} of its non-gap bins")
 
 
 def m1_plain_ladder(al, dev):
@@ -2143,6 +2549,7 @@ def files_checks(allelic, al, st, dev):
     """The files phase's checks and report, then the valid-bed path, then
     the peak device memory of both matrix file drivers at two sizes."""
     _files_checks(allelic, al, st, dev)
+    plot_check(st, dev)
     tenth = _haplotype_tenth(allelic, st, dev)
     valid = _valid_path(allelic, st, dev)
     n = sum(st["stats"]["pairs"][FILES_PREFIX].values())
@@ -2597,21 +3004,21 @@ def cli_checks(st, cl, dev):
 # each) at full size, and the size of the card-against-CPU check
 FILTER_RECORDS = 16_000_000
 FILTER_CHUNKS = 4
-FILTER_CHECK_RECORDS = FILTER_RECORDS // 4
+FILTER_CHECK_RECORDS = FILTER_RECORDS // 8
 FILTER_CELL = "GM12878_R1"
 FILTER_SEED = 13
-# the filtering stage's block (block_lines, HICHAP_FILTER_BLOCK): 3 blocks
+# the filtering stage's block (block_lines, HICHAP_FILTER_BLOCK): 2 blocks
 # of the check's records, 12 runs of the phase's; the phase runs under a
 # cap of device memory below half of what the stage needed when it held
 # the whole input (248.4 bytes a record of both haplotypes at 2 x 16 M
 # records, 7.98 GB: memory_measure, parent of the streamed stage)
-FILTER_BLOCK = FILTER_CHECK_RECORDS // 3 + 1
+FILTER_BLOCK = 1_333_334
 FILTER_CAP = 2 << 30
 # the check's run with the block sized by the stage itself (no
 # block_lines, no HICHAP_FILTER_BLOCK) under a cap of this much device
-# memory above what is allocated before it: half of it holds about 2.4 M
-# records at DEVICE_BYTES_PER_RECORD, so a haplotype's 4 M make 2 runs
-FILTER_SIZED_CAP = 512 << 20
+# memory above what is allocated before it: half of it holds about 1.2 M
+# records at DEVICE_BYTES_PER_RECORD, so a haplotype's 2 M make 2 runs
+FILTER_SIZED_CAP = 256 << 20
 
 
 class _Reports:
@@ -2687,7 +3094,7 @@ def _truth_checks(what, stats, report, truth):
 
 def filter_check(dev):
     """Filtering at FILTER_CHECK_RECORDS per haplotype, on the card in
-    blocks of FILTER_BLOCK records (3 runs a haplotype, the allelic beds
+    blocks of FILTER_BLOCK records (2 runs a haplotype, the allelic beds
     in read-name ranges), on the CPU in one block, and on the card with
     the block sized by the stage (``filter_block``) under a cap of
     FILTER_SIZED_CAP bytes of device memory, from the same chunk beds:
@@ -2929,6 +3336,7 @@ def filter_checks(fl, peak_check, dev):
 BAM_PAIRS = 4_000_000
 BAM_CUT_PAIRS = 2_000_000
 BAM_CHECK_PAIRS = 500_000
+SAM_SORT_RECORDS = 100_000      # records of read_sam_sorted_by_name's check
 BAM_CELL = "GM12878_R1"
 BAM_SEED = 17
 SAM_BYTES_PER_PAIR = 1_900     # both haplotypes (the draw writes ~1,864)
@@ -3044,6 +3452,7 @@ def bam_check(dev):
                   f"(SAM) and {name}")
         n_bytes = sum(len(v) for v in a.values())
         resc, qual_bytes = rescue_check(tmp, truth, walls, dev)
+        sam_sort_check(os.path.join(tmp, "sam"), truth, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     n_rec = truth["records"]
@@ -3686,7 +4095,7 @@ MAP_DISK_PER_READ = 1_700      # bytes of temporary disk a read of a mate
 MAP_CHECK_READS = 50_000       # reads a mate of the card/CPU check
 MAP_CHECK_CHROMS = ("21", "22")
 MAP_SHORT = 5_000              # reads of 10-12 bases in the K9 check
-MAP_SCAN = 20                  # reads with an N every 8 bases (no seed;
+MAP_SCAN = 5                   # reads with an N every 8 bases (no seed;
                                # each one a scan of the genome in plain)
 
 
@@ -3852,8 +4261,7 @@ def map_check(dev, gst, results):
     from hichap_master_tpu_torch.io.fasta import write_fasta
     from hichap_master_tpu_torch.kernels.exact_hits import (exact_hits,
                                                             exact_hits_plain)
-    from hichap_master_tpu_torch.kernels.exact_index import (
-        exact_index, exact_index_plain)
+    from hichap_master_tpu_torch.kernels.exact_index import exact_index
     from hichap_master_tpu_torch.pipeline.mapping import (Bowtie2Aligner,
                                                           FakeAligner,
                                                           ws_mapping)
@@ -3880,10 +4288,10 @@ def map_check(dev, gst, results):
         for mate, p in zip((1, 2), rd["fastq"]):
             os.replace(p, os.path.join(fq, f"check_chunk0_{mate}.fastq.gz"))
         al = {"card": FakeAligner(device=dev), "cpu": FakeAligner(device=cpu)}
-        walls = {}
+        walls, steps = {}, {}
         for side, a in al.items():
             for fmt in ("sam", "bam"):
-                w = {}
+                w = steps[f"{side} {fmt}"] = {}
                 t0 = time.perf_counter()
                 ws_mapping(fq, os.path.join(tmp, f"{side}_{fmt}"), [fa],
                            aligner=a, out_format=fmt, device=a.device,
@@ -3912,9 +4320,12 @@ def map_check(dev, gst, results):
                   for f in fields), "K8: two builds on the card differ")
         del again
         G, k = ik.genome.numel(), ik.k
-        t0 = time.perf_counter()
-        exact_index_plain(ip.genome, ip.start, ip.end, k)
-        plain_ms = (time.perf_counter() - t0) * 1e3
+        # the plain K8's time: the CPU aligner's index step of its SAM run
+        # (the FASTA read, upper-casing and the plain build), not a second
+        # plain build
+        plain_ms = sum(v for name, v in steps["cpu sam"].items()
+                       if name.endswith("index")) * 1e3
+        check(plain_ms > 0, f"K8: no index step in {steps['cpu sam']}")
         k8_ms = event_ms(lambda: exact_index(ik.genome, ik.start, ik.end, k),
                          n=3)
         W, S = len(ik.pos), len(ik.side)
@@ -3925,7 +4336,9 @@ def map_check(dev, gst, results):
             max_abs_err=0.0, ms=k8_ms, plain_ms=plain_ms,
             **bound(G + 8 * (4 ** k + 1) + 4 * W + 8 * S),
             library_ms=None, shape=f"chr{'+'.join(MAP_CHECK_CHROMS)}: "
-            f"{G:,} bases, k {k}, {W:,} windows")
+            f"{G:,} bases, k {k}, {W:,} windows",
+            plain="the CPU FakeAligner's index step: the FASTA read, "
+                  "upper-casing and exact_index_plain")
         # K9: every read of the check and MAP_SHORT reads of 10-12 bases
         seqs = check_reads(fq, MAP_SEED, MAP_SHORT, MAP_SCAN)
         ln = np.asarray([len(x) for x in seqs], np.int32)
@@ -4561,6 +4974,34 @@ def sharded_phase(parts, dev, counters):
     return launches
 
 
+def host_cpu() -> str:
+    """The host's CPU model (``lscpu``'s, else /proc/cpuinfo's, else the
+    machine type) and core counts (walls differ between hosts)."""
+    import platform
+
+    model = None
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30).stdout
+        model = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                      if ln.strip().lower().startswith("model name")), None)
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if not model:
+        try:
+            with open("/proc/cpuinfo") as f:
+                for line in f:
+                    key = line.split(":", 1)[0].strip().lower()
+                    if key in ("model name", "cpu model", "hardware"):
+                        model = line.split(":", 1)[1].strip()
+                        break
+        except OSError:
+            pass
+    return (f"{model or platform.machine() + ' (no model name)'}, "
+            f"{os.cpu_count()} logical CPUs, "
+            f"{len(os.sched_getaffinity(0))} usable by this process")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device visible")
@@ -4585,6 +5026,7 @@ def main() -> None:
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    log(f"host: {host_cpu()}")
     log("matplotlib importable (importlib.util.find_spec): "
         f"{importlib.util.find_spec('matplotlib') is not None}")
     built = not _build.library_path().exists()
@@ -4663,12 +5105,20 @@ def main() -> None:
     diploid_l = read("diploid", ("ice_sweep", "sparse_marginal",
                                  "impute_vote", "segment_marginal"))
     peak("diploid")
-    del diploid
     torch.cuda.empty_cache()
     chr1_plain_ladder(loops, dev, called)
     chr1_plain_viterbi(tad_called, tad_stats["model"], dev)
     h = hybrid_plain(stage, dev)
     t_phase = phase("diploid stage", t_phase)
+    # the JAX package's remaining entry points on the same inputs, each
+    # held to the path the port already has
+    reset()
+    surface_phase(loops, diploid, stage, comp_inputs, tads, tad_called, dev)
+    surface_l = read("surface", ("escalation_prefix", "escalation",
+                                 "impute_vote"))
+    del diploid
+    torch.cuda.empty_cache()
+    t_phase = phase("surface", t_phase)
     # the sharded functions at the same shapes: one NCCL rank in this
     # process, then ranks spawned on the card
     sharded_l = sharded_phase((gw, gw_ref, loops, (tad_called, tad_stats),
@@ -4712,7 +5162,7 @@ def main() -> None:
     t_phase = phase("files and command line", t_phase)
     # the front of the user path: chunk beds through `hichap-torch
     # filtering` on the card, then `matrix` on its allelic beds; first
-    # the card against the CPU at a quarter of the size
+    # the card against the CPU at an eighth of the size
     peak_check = filter_check(dev)
     torch.cuda.empty_cache()
     reset()
@@ -4767,7 +5217,7 @@ def main() -> None:
     log(f"whole run: {time.perf_counter() - T_START:.1f} s")
 
     paths = {"analysis": analysis, "diploid": diploid_l,
-             "sharded": sharded_l, "allelic": allelic_l, "files": files_l,
+             "surface": surface_l, "sharded": sharded_l, "allelic": allelic_l, "files": files_l,
              "cli": cli_l, "filtering": filter_l, "bamprocess": bam_l,
              "front": front_l, "mapping": map_l}
     kernels = [dict(name=k, launches=sum(p[k] for p in paths.values()),

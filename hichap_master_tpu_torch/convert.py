@@ -46,8 +46,8 @@ def asym_blocks(ab, device, dtype=torch.float32) -> AsymBlocks:
 
 
 def contact_batch(cb, device, dtype=torch.float32):
-    """An object with ``.data [C, N, N]`` and ``.n_bins [C]`` (a
-    ``ContactBatch``) as (data, n_bins) tensors."""
+    """A ``core.ContactBatch`` (or any object with ``.data [C, N, N]`` and
+    ``.n_bins [C]``, as the JAX package's) as (data, n_bins) tensors."""
     return (tensor(cb.data, device, dtype),
             tensor(cb.n_bins, device, torch.int32))
 

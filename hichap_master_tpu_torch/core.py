@@ -17,6 +17,7 @@ Conventions (the reference's, HiCHap/matrixBuilding.py:349-454):
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 from typing import Dict, Iterable, List, Mapping, Sequence, Tuple
 
 import numpy as np
@@ -58,6 +59,52 @@ def bucket_groups(labels: Sequence[str], n_bins: Mapping[str, int],
             n_bins[c], bucket)
         by_size.setdefault(N, []).append(c)
     return [(v, k) for k, v in sorted(by_size.items())]
+
+
+@dataclass
+class ContactBatch:
+    """Padded per-chromosome dense contact matrices on the host (the JAX
+    package's ``ContactBatch``; ``convert.contact_batch`` puts one on a
+    device).
+
+    labels : chromosome labels, the order of the batch axis
+    data   : float array ``[C, N, N]``; rows and columns >= n_bins[i] zero
+    n_bins : int32 array ``[C]`` of the true matrix sizes
+    """
+
+    labels: List[str]
+    data: np.ndarray
+    n_bins: np.ndarray
+
+    @classmethod
+    def from_dict(cls, matrices: Mapping[str, np.ndarray],
+                  labels: Sequence[str] | None = None, bucket: int = 128,
+                  dtype=np.float32) -> "ContactBatch":
+        labels = list(labels) if labels is not None else list(matrices)
+        for c in labels:
+            sh = matrices[c].shape
+            if len(sh) != 2 or sh[0] != sh[1]:
+                raise ValueError(
+                    f"ContactBatch needs square matrices; {c!r} is {sh}")
+        sizes = [matrices[c].shape[0] for c in labels]
+        N = pad_to_bucket(max(sizes), bucket)
+        data = np.zeros((len(labels), N, N), dtype=dtype)
+        for i, c in enumerate(labels):
+            m = matrices[c]
+            data[i, :m.shape[0], :m.shape[1]] = m
+        return cls(labels, data, np.asarray(sizes, dtype=np.int32))
+
+    def to_dict(self) -> Dict[str, np.ndarray]:
+        return {c: np.asarray(self.data[i, :int(self.n_bins[i]),
+                                        :int(self.n_bins[i])])
+                for i, c in enumerate(self.labels)}
+
+    def __len__(self):
+        return len(self.labels)
+
+    @property
+    def padded_size(self) -> int:
+        return self.data.shape[-1]
 
 
 def strip_chr(label: str) -> str:

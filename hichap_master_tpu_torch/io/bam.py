@@ -28,7 +28,7 @@ from __future__ import annotations
 import struct
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -41,6 +41,30 @@ BGZF_EOF = bytes.fromhex(
 PAYLOAD = 60_000          # uncompressed bytes per BGZF block
 LEVEL = 1                 # deflate level of write_bam
 WRITE_RECORDS = 1 << 18   # records encoded at a time
+
+
+def _read_exact(f, n: int) -> bytes:
+    b = f.read(n)
+    if len(b) != n:
+        raise EOFError("truncated BAM stream")
+    return b
+
+
+def read_bam_header(f) -> List[str]:
+    """Magic, header text and reference list from an inflated BAM stream
+    ``f`` (a binary file object, as ``gzip.open(path, "rb")`` gives);
+    returns the reference names, the stream left at the first record."""
+    if _read_exact(f, 4) != b"BAM\x01":
+        raise ValueError("not a BAM stream (bad magic)")
+    (l_text,) = struct.unpack("<i", _read_exact(f, 4))
+    _read_exact(f, l_text)
+    (n_ref,) = struct.unpack("<i", _read_exact(f, 4))
+    refs = []
+    for _ in range(n_ref):
+        (l_name,) = struct.unpack("<i", _read_exact(f, 4))
+        refs.append(_read_exact(f, l_name)[:-1].decode())
+        _read_exact(f, 4)  # l_ref
+    return refs
 
 
 def _header(buf: bytes):

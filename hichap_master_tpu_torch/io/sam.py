@@ -26,6 +26,12 @@ MAPQ (``mapq=True``), which only the writers need.  It is the
 text of the JAX package's ``AlnRecord.qual``: SAM's field 11 as written
 (``*`` included); BAM's ``*`` for a missing QUAL (0xff), ``""`` for
 ``l_seq`` 0, else ``chr(q + 33)`` per byte, as UTF-8.
+
+The JAX package's record API is here too, on the host: ``AlnRecord``,
+``parse_sam_line``, ``format_sam_line``, and ``read_sam_sorted_by_name``,
+whose records are the columns' in the order of the port's name sort on
+the device (unsigned bytes, a name before its extensions, stable in
+(file, line) order).
 """
 
 from __future__ import annotations
@@ -292,6 +298,114 @@ def merge(parts: Sequence[Alignments]) -> Alignments:
     blocks = [{f.name: getattr(a, f.name) for f in fields(a)
                if f.name != "refs"} for a in parts]
     return concat(blocks, refs, maps)
+
+
+# ------------------------------------------------------------ record API
+@dataclass
+class AlnRecord:
+    """One alignment as the JAX package's ``AlnRecord`` (pysam's fields
+    that the pipeline reads; ``pos`` 0-based)."""
+
+    query_name: str
+    flag: int
+    reference_name: Optional[str]  # None when unmapped
+    pos: int
+    mapq: int
+    seq: str
+    qual: str
+    tag_as: Optional[int] = None
+    tag_xs: Optional[int] = None
+
+    @property
+    def is_unmapped(self) -> bool:
+        return bool(self.flag & 4) or self.reference_name is None
+
+    @property
+    def query_length(self) -> int:
+        return len(self.seq)
+
+    def has_tag(self, tag: str) -> bool:
+        return (self.tag_as if tag == "AS" else self.tag_xs) is not None
+
+    def get_tag(self, tag: str) -> int:
+        v = self.tag_as if tag == "AS" else self.tag_xs
+        if v is None:
+            raise KeyError(tag)
+        return v
+
+
+def parse_sam_line(line: str) -> Optional[AlnRecord]:
+    """One SAM text line as an ``AlnRecord`` (None for a header, an empty
+    line or fewer than 11 fields)."""
+    if not line or line.startswith("@"):
+        return None
+    f = line.rstrip("\r\n").split("\t")
+    if len(f) < 11:
+        return None
+    tag_as = tag_xs = None
+    for t in f[11:]:
+        if t.startswith("AS:i:"):
+            tag_as = int(t[5:])
+        elif t.startswith("XS:i:"):
+            tag_xs = int(t[5:])
+    return AlnRecord(query_name=f[0], flag=int(f[1]),
+                     reference_name=None if f[2] == "*" else f[2],
+                     pos=int(f[3]) - 1, mapq=int(f[4]), seq=f[9],
+                     qual=f[10], tag_as=tag_as, tag_xs=tag_xs)
+
+
+def format_sam_line(r: AlnRecord) -> str:
+    """One SAM body line of a record (an empty SEQ or QUAL as ``*``), the
+    text ``write_sam`` writes for it."""
+    tags = []
+    if r.tag_as is not None:
+        tags.append(f"AS:i:{r.tag_as}")
+    if r.tag_xs is not None:
+        tags.append(f"XS:i:{r.tag_xs}")
+    return "\t".join([
+        r.query_name, str(r.flag), r.reference_name or "*",
+        str(r.pos + 1), str(r.mapq), "*", "*", "0", "0",
+        r.seq or "*", r.qual or "*"] + tags) + "\n"
+
+
+def _text(b: bytes) -> str:
+    return b.decode("utf-8", "surrogateescape")
+
+
+def records(aln: Alignments, rows) -> List[AlnRecord]:
+    """``AlnRecord``s of rows of ``aln`` (read with QUAL and MAPQ)."""
+    refs = [_text(r) for r in aln.refs]
+    out = []
+    for r in rows:
+        r = int(r)
+        ref, has = int(aln.ref[r]), int(aln.has[r])
+        out.append(AlnRecord(
+            query_name=_text(aln.name(r)), flag=int(aln.flag[r]),
+            reference_name=refs[ref] if ref >= 0 else None,
+            pos=int(aln.pos[r]), mapq=int(aln.mapq[r]),
+            seq=_text(aln.seq(r)), qual=_text(aln.qual(r)),
+            tag_as=int(aln.tag_as[r]) if has & HAS_AS else None,
+            tag_xs=int(aln.tag_xs[r]) if has & HAS_XS else None))
+    return out
+
+
+def read_sam_sorted_by_name(paths: Sequence[str], *,
+                            device) -> List[AlnRecord]:
+    """The records of several SAM / BAM files (``samtools merge -n``
+    parity), name-sorted on ``device`` as bamProcess sorts them (unsigned
+    bytes, a name before its extensions, equal names in (file, line)
+    order): the JAX package's order.  Returns host ``AlnRecord``s."""
+    from ..pipeline.columns import lex_order, name_words, upload
+
+    aln = merge([read_alignments(p, qual=True, mapq=True) for p in paths])
+    if len(aln) == 0:
+        return []
+    W = max(1, (int(aln.name_len.max()) + 7) // 8)
+    names = upload(aln.names, device)
+    off = upload(aln.name_off, device).long()
+    ln = upload(aln.name_len, device).long()
+    order = lex_order(name_words(names, off, ln, W) + [ln])
+    return records(aln, order.cpu().numpy())
 
 
 def _bgzf_size(buf, at: int) -> int:

@@ -12,7 +12,10 @@ Like the reference, the input is the RAW (unbalanced) matrix, made dense
 and symmetric on the device from upper-triangle COO in float32, as
 ``hichap_master_tpu.io.cooler.CoolerReader.matrix_device`` makes it.
 ``run_compartment`` reads that COO from a cooler (``io.cooler``) and writes
-the track file.  Plots are not ported.
+the track file; with ``plot=True`` it then draws ``_plot_compartment``'s
+PDF with matplotlib, imported only there (host code on the card's
+results, as in the JAX package).  ``single_chrom_compartment`` and its
+``_device`` form are the JAX package's one-chromosome entry points.
 """
 
 from __future__ import annotations
@@ -194,18 +197,16 @@ def compartment_fused(M: torch.Tensor, gap: torch.Tensor, n: torch.Tensor,
     return oe, cor, pcs, select_pc_new_device(cor, oe_ng, pcs, g)
 
 
-def compartment_batch(M: torch.Tensor, gap: torch.Tensor, n: torch.Tensor,
-                      ng: torch.Tensor, g: torch.Tensor, step: int,
-                      pca_method: str = "subspace",
-                      with_selection: bool = True, q0=None):
-    """``compartment_fused`` without the O/E maps: (cor, pcs, signed PC)."""
-    return compartment_fused(M, gap, n, ng, g, step, pca_method,
-                             with_selection, q0)[1:]
+def _q0(q0_fn, N: int, device):
+    """The subspace start block ``q0_fn(N, 7)`` on ``device`` (None: the
+    default)."""
+    return (None if q0_fn is None
+            else torch.as_tensor(q0_fn(N, 7), device=device))
 
 
 def _run_batches(inputs, chroms, res: int, device, sliding: bool,
                  pca_method: str, with_selection: bool, want_cor: bool,
-                 q0_fn):
+                 q0_fn, want_oe: bool = False):
     sizes = {c: int(inputs[c][3]) for c in chroms}
     by_pad: Dict[int, List[str]] = {}
     for c in chroms:
@@ -214,8 +215,7 @@ def _run_batches(inputs, chroms, res: int, device, sliding: bool,
 
     results = {}
     for N, group in sorted(by_pad.items()):
-        q0 = (torch.as_tensor(q0_fn(N, 7), device=device)
-              if q0_fn is not None and pca_method == "subspace" else None)
+        q0 = _q0(q0_fn, N, device) if pca_method == "subspace" else None
         max_b = max(1, _BATCH_MAX_BYTES // (N * N * 4))
         for s in range(0, len(group), max_b):
             sub = group[s:s + max_b]
@@ -231,7 +231,7 @@ def _run_batches(inputs, chroms, res: int, device, sliding: bool,
                 gs.append(len(nongap))
                 results[c] = {"n": sizes[c], "gap": gap_h[k, :sizes[c]],
                               "nongap": nongap}
-            cor, pcs, signed = compartment_batch(
+            oe, cor, pcs, signed = compartment_fused(
                 M, gap_d, n, torch.as_tensor(ng, device=device),
                 torch.tensor(gs, device=device), step, pca_method,
                 with_selection, q0)
@@ -244,8 +244,87 @@ def _run_batches(inputs, chroms, res: int, device, sliding: bool,
                 results[c]["pc_signed"] = sig_h[k, :g]
                 if want_cor:
                     results[c]["cor"] = cor_h[k, :g, :g]
-            del M, cor, pcs, signed
+                if want_oe:
+                    results[c]["oe"] = oe[k, :sizes[c], :sizes[c]].cpu(
+                        ).numpy()
+            del M, oe, cor, pcs, signed
     return results
+
+
+def single_chrom_compartment(M: np.ndarray, res: int, sliding: bool = False,
+                             pca_method: str = "subspace", *, device,
+                             q0: Optional[Callable[[int, int], object]] = None
+                             ) -> dict:
+    """Gap, decay, O/E, correlation and PCA of one raw host matrix ``[n,
+    n]``, as the JAX package's function: the matrix padded to
+    ``pad_to_shape(n)`` on ``device``, the correlation over the non-gap
+    columns of all rows, the components of the non-gap block.  Returns
+    {"gap" bool [n], "nongap", "decay" [n], "oe" [n, n], "cor" [g, g],
+    "pcs" [3, g]} as host arrays; ``q0`` as in ``call_compartments``."""
+    device = torch.device(device)
+    n = M.shape[0]
+    N = pad_to_shape(n)
+    Mp = torch.zeros(N, N, dtype=torch.float32, device=device)
+    Mp[:n, :n] = torch.as_tensor(np.asarray(M, np.float32), device=device)
+    nt = torch.tensor(n, device=device)
+    gap = default_compartment_gap(Mp, nt).cpu().numpy()[:n]
+    gap_d = torch.ones(N, dtype=torch.bool, device=device)
+    gap_d[:n] = torch.as_tensor(gap, device=device)
+    decay = distance_decay(Mp, gap_d, nt)
+    oe = (oe_matrix_sliding(Mp, decay, nt, 600_000 // res // 2) if sliding
+          else oe_matrix(Mp, decay, nt))
+    nongap = np.flatnonzero(~gap)
+    g = len(nongap)
+    ng = torch.as_tensor(nongap, device=device)
+    X = torch.zeros(N, N, dtype=torch.float32, device=device)
+    X[:n, :g] = oe[:n, :n][:, ng]
+    cor = correlation_matrix(X, nt)[:g, :g]
+    C = torch.zeros(N, N, dtype=torch.float32, device=device)
+    C[:g, :g] = cor
+    kw = {"q0": _q0(q0, N, device)} if pca_method == "subspace" else {}
+    pcs, _ = pca_components(C, torch.tensor(g, device=device), k=3,
+                            method=pca_method, **kw)
+    return {"gap": gap, "nongap": nongap,
+            "decay": decay.cpu().numpy()[:n],
+            "oe": oe[:n, :n].cpu().numpy(), "cor": cor.cpu().numpy(),
+            "pcs": pcs[:, :g].cpu().numpy()}
+
+
+def single_chrom_compartment_device(reader: CoolerReader, chro: str,
+                                    res: int, sliding: bool = False,
+                                    pca_method: str = "subspace",
+                                    want_matrices: bool = False, *, device,
+                                    q0: Optional[Callable[[int, int],
+                                                          object]] = None
+                                    ) -> dict:
+    """One chromosome of a cooler through ``compartment_fused`` on
+    ``device``, the dense matrix made there from the COO; only the gap
+    mask, the components and the signed PC come back (and the O/E ``[n,
+    n]`` and correlation ``[g, g]`` maps with ``want_matrices``).  Returns
+    {"n", "gap", "nongap", "pcs" [3, g], "pc_signed" [g], ["oe", "cor"]}
+    as the JAX package's function does."""
+    device = torch.device(device)
+    M, n = reader.matrix_device(chro, device=device)
+    N = M.shape[0]
+    nt = torch.tensor([n], device=device)
+    gap_d = default_compartment_gap(M[None], nt)
+    gap = gap_d[0].cpu().numpy()[:n]
+    nongap = np.flatnonzero(~gap)
+    g = len(nongap)
+    ng = np.zeros((1, N), np.int64)
+    ng[0, :g] = nongap
+    step = (600_000 // res // 2) if sliding else 0
+    oe, cor, pcs, signed = compartment_fused(
+        M[None], gap_d, nt, torch.as_tensor(ng, device=device),
+        torch.tensor([g], device=device), step, pca_method, True,
+        _q0(q0, N, device) if pca_method == "subspace" else None)
+    out = {"n": n, "gap": gap, "nongap": nongap,
+           "pcs": pcs[0, :, :g].cpu().numpy(),
+           "pc_signed": signed[0, :g].cpu().numpy()}
+    if want_matrices:
+        out["oe"] = oe[0, :n, :n].cpu().numpy()
+        out["cor"] = cor[0, :g, :g].cpu().numpy()
+    return out
 
 
 def _allelic_chroms(names, allelic) -> List[str]:
@@ -263,7 +342,9 @@ def call_compartments(inputs: Mapping, res: int, allelic, device,
                       sliding: bool = False, pca_method: str = "subspace",
                       selector: str = "new",
                       out_path: Optional[str] = None,
-                      q0: Optional[Callable[[int, int], object]] = None
+                      q0: Optional[Callable[[int, int], object]] = None,
+                      extras: Optional[dict] = None,
+                      want_matrices: bool = False
                       ) -> Dict[str, np.ndarray]:
     """Compartment calling on every chromosome of ``inputs``.
 
@@ -280,6 +361,10 @@ def call_compartments(inputs: Mapping, res: int, allelic, device,
              with the JAX package's ``run_compartment`` layout
     q0     : ``q0(N, 7)`` gives the subspace start block for padded size N
              (default: ``ops.pca.start_block``)
+    extras : a dict that receives per chromosome its ``n``, ``gap``,
+             ``nongap`` and ``pcs`` (with ``want_matrices`` also the O/E
+             ``[n, n]`` and correlation ``[g, g]`` maps, what the OE and
+             Cor plots draw)
     Returns {chrom: full-length signed PC track (0 at gaps)}.
     """
     if selector not in ("new", "legacy"):
@@ -301,7 +386,10 @@ def call_compartments(inputs: Mapping, res: int, allelic, device,
     legacy = selector == "legacy"
     pre = _run_batches(inputs, chroms, res, device, sliding, pca_method,
                        with_selection=not allelic and not legacy,
-                       want_cor=legacy, q0_fn=q0)
+                       want_cor=legacy or want_matrices, q0_fn=q0,
+                       want_oe=want_matrices)
+    if extras is not None:
+        extras.update(pre)
     tracks: Dict[str, np.ndarray] = {}
     for chro in chroms:
         r = pre[chro]
@@ -323,10 +411,6 @@ def call_compartments(inputs: Mapping, res: int, allelic, device,
     return tracks
 
 
-NO_PLOTS = ("plots are not ported to the card (see ROADMAP.md, Queue 1): "
-            "pass plot=False")
-
-
 def run_compartment(cooler_path: str, res: int, allelic, out_path: str,
                     sliding: bool = False,
                     traditional_pc_file: Optional[str] = None,
@@ -338,22 +422,96 @@ def run_compartment(cooler_path: str, res: int, allelic, out_path: str,
     """Compartment calling from a cooler (``path`` or ``path::res``), as
     the JAX package's ``run_compartment``: the raw counts of every
     chromosome of the mode through ``call_compartments``, and
-    ``<prefix>_Compartment_<unit>.txt`` in ``out_path``.  ``ms`` only
-    chooses a plot's matrix and ``batched`` is accepted for the reference's
+    ``<prefix>_Compartment_<unit>.txt`` in ``out_path``; with ``plot``,
+    then ``<prefix>_Compartment_<ms>_<unit>.pdf`` (``ms``: IF, OE or Cor,
+    the heatmap's matrix).  ``batched`` is accepted for the reference's
     signature (the port always batches); ``q0`` as in
     ``call_compartments``.  Returns {chrom: signed PC track}."""
-    if plot:
-        raise NotImplementedError(NO_PLOTS)
-    del ms, batched
+    del batched
     reader = CoolerReader(cooler_path, res)
     inputs = {}
     for c in _allelic_chroms(reader.chromnames, allelic):
         rows, cols, vals = reader.fetch_coo(c, keep_dtype=True)
         inputs[c] = (rows, cols, vals, reader.n_bins(c))
-    return call_compartments(inputs, res, allelic, device,
-                             traditional_pc=traditional_pc_file,
-                             sliding=sliding, pca_method=pca_method,
-                             selector=selector, out_path=out_path, q0=q0)
+    extras = {}
+    tracks = call_compartments(inputs, res, allelic, device,
+                               traditional_pc=traditional_pc_file,
+                               sliding=sliding, pca_method=pca_method,
+                               selector=selector, out_path=out_path, q0=q0,
+                               extras=extras,
+                               want_matrices=plot and ms in ("OE", "Cor"))
+    if plot:
+        prefix = os.path.basename(out_path.rstrip("/"))
+        pdf = os.path.join(out_path, f"{prefix}_Compartment_{ms}_"
+                           f"{_proper_unit(res)}.pdf")
+        _plot_compartment(pdf, reader, tracks, res, allelic, ms, extras)
+    return tracks
+
+
+def _refill_gap(n: int, sub: np.ndarray, nongap: np.ndarray) -> np.ndarray:
+    """Gap rows and columns re-inserted as zeros into a non-gap submatrix
+    (StructureFind.py:463-489)."""
+    out = np.zeros((n, n))
+    out[np.ix_(nongap, nongap)] = sub
+    return out
+
+
+def _plot_compartment(pdf_path, reader, tracks, res, allelic, ms="IF",
+                      extras=None):
+    """PDF of a heatmap and the PC track per chromosome
+    (StructureFind.py:579-674), host matplotlib as in the JAX package:
+    ``ms`` IF draws the cooler's raw matrix, OE the gap-refilled O/E and
+    Cor the gap-refilled correlation of ``extras``."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from matplotlib.backends.backend_pdf import PdfPages
+    from matplotlib.colors import LinearSegmentedColormap
+
+    if ms == "IF":
+        cmap = LinearSegmentedColormap.from_list("interactions",
+                                                 ["#FFFFFF", "#CD0000"])
+    else:
+        cmap = LinearSegmentedColormap.from_list(
+            "interactions", ["#0000FF", "#FFFFFF", "#CD0000"])
+    with PdfPages(pdf_path) as pp:
+        for chro, sig in tracks.items():
+            if ms == "IF" or extras is None:
+                M = reader.matrix(chro, balance=False)
+            else:
+                r = extras[chro]
+                n = len(sig)
+                if ms == "OE":
+                    oe = np.asarray(r["oe"])[:n, :n]
+                    M = _refill_gap(
+                        n, oe[np.ix_(r["nongap"], r["nongap"])], r["nongap"])
+                else:
+                    M = _refill_gap(n, r["cor"], r["nongap"])
+            nz = M[np.nonzero(M)]
+            if ms == "IF":
+                vmax = np.percentile(nz, 95) if nz.size else 1.0
+                vmin = 0
+            elif ms == "OE":
+                vmax = np.percentile(nz, 90) if nz.size else 1.0
+                vmin = 2 - vmax
+            else:
+                vmax = np.percentile(nz, 90) if nz.size else 1.0
+                vmin = -vmax
+            fig, (ax_sig, ax) = plt.subplots(
+                2, 1, figsize=(10, 9),
+                gridspec_kw={"height_ratios": [1, 6]})
+            ax.imshow(M, cmap=cmap, aspect="auto", interpolation="none",
+                      vmin=vmin, vmax=vmax, origin="lower")
+            label = chro[1:] if allelic else chro
+            ax.set_xlabel(f"Chr{label}", size=14)
+            x = np.arange(len(sig))
+            ax_sig.fill_between(x, sig, where=sig <= 0, color="#7093DB")
+            ax_sig.fill_between(x, sig, where=sig >= 0, color="#E47833")
+            ax_sig.set_xlim(0, len(sig))
+            ax_sig.set_ylabel("PC", size=12)
+            ax_sig.set_xticks([])
+            pp.savefig(fig)
+            plt.close(fig)
 
 
 def write_compartment_track(out_path: str, tracks: Mapping, res: int,

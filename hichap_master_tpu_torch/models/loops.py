@@ -19,7 +19,15 @@ The post-stages (``loop_selecting``, ``loop_cluster``) are host numpy and
 chains calling and post-stages and, given a path, writes the reference's
 ``<prefix>_Loops_<unit>.txt``, ``Selected_...`` and ``Cluster_...`` files.
 ``call_peaks`` and ``run_loops`` read their input from a cooler
-(``io.cooler``) and the gap lists from the matrix stage's npz.
+(``io.cooler``) and the gap lists from the matrix stage's npz;
+``run_loops(plot=True)`` then draws ``plot_loops``' PDF with matplotlib,
+imported only there, after the text files are written.
+
+``pcaller_chrom_coo(packed=False)`` runs the JAX package's other
+formulation of the ladder: full ``[P, P]`` band matrices row-prefixed on
+the device (``_build_band_prefixes``) and the backgrounds as stable
+summed-area stencils at the candidate pixels (``_escalation_device``,
+``ops/loops_kernel``); XLA in the JAX package, plain PyTorch here.
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ import torch
 
 from ..core import pad_to_bucket
 from ..kernels.escalation import escalation_batch
+from ..ops.loops_kernel import (StableRects, donut_rects, lowerleft_rects,
+                                row_prefix)
 from ..ops.loops_packed import (derive_pixels_batch,
                                 derive_pixels_masked_batch, pack_margins,
                                 pack_raw_bal_batch)
@@ -41,7 +51,7 @@ from ..ops.stats import isotonic_fit, poisson_bh_chunked
 from ..ops.stats_torch import (loop_post_compact_batch,
                                poisson_bh_chunked as poisson_bh_device)
 from ..io.cooler import CoolerReader
-from .compartment import NO_PLOTS, _allelic_chroms, _proper_unit
+from .compartment import _allelic_chroms, _proper_unit
 
 _DEVICE_BH_MIN = 262_144   # pixel count above which BH runs on the card
 _XP_BUCKET = 512           # packed-map width padding (shared batch shapes)
@@ -449,16 +459,126 @@ def pcaller_multi(inputs: dict, res: int, params, allelic: bool = False,
     return results
 
 
+def _build_band_prefixes(rows, cols, vals, bal_vals, predict_pad, n: int,
+                         P: int, ww: int, num: int):
+    """Band COO scattered into ``[P, P]`` float32 matrices on the device
+    of ``rows`` and row-prefixed (``ops.loops_kernel.row_prefix``): raw
+    counts on the diagonals d in (0, num), balanced values and the
+    expected curve ``predict_pad[d - ww]`` on d in [ww, num) inside the
+    chromosome.  Returns the three ``[P, P + 1]`` prefixes (raw, balanced,
+    expected)."""
+    dev = rows.device
+    rows, cols = rows.long(), cols.long()
+    d = cols - rows
+    out = []
+    for ok, v in (((d > 0) & (d < num), vals),
+                  ((d >= ww) & (d < num), bal_vals)):
+        M = torch.zeros(P * P, dtype=torch.float32, device=dev)
+        # unique pixels: one term a cell, so the order of the adds is moot
+        M.index_add_(0, rows[ok] * P + cols[ok], v[ok].to(torch.float32))
+        out.append(row_prefix(M.view(P, P)))
+        del M
+    E = torch.zeros(P, P, dtype=torch.float32, device=dev)
+    pe = predict_pad.to(device=dev, dtype=torch.float32)
+    for k in range(ww, min(num, n)):
+        E.diagonal(k)[:n - k] = pe[k - ww]
+    out.append(row_prefix(E))
+    return tuple(out)
+
+
+def _escalation_device(S1_raw, S1_exp, S1_bal, xi, yi, valid, ww: int,
+                       maxww: int, pw: int):
+    """The >=16-reads escalation ladder from row prefixes at the pixels
+    (xi, yi): every level's lower-left raw count and the four backgrounds
+    by stable summed-area stencils, then the reference's sequential rule
+    (StructureFind.py:1777-1830): a pixel resolves at the first level whose
+    lower-left count reaches 16, and once fewer than 10% of the remaining
+    pixels resolve at a level, later levels are abandoned.  Returns
+    (resolved, bS_K, bE_K, bS_Y, bE_Y) per pixel."""
+    rects = {"raw": StableRects(S1_raw, xi, yi),
+             "bal": StableRects(S1_bal, xi, yi),
+             "exp": StableRects(S1_exp, xi, yi)}
+    # the rectangles that do not depend on the level stay cached
+    fixed = {(0, 0, -pw, pw), (-pw, pw, 0, 0), (-pw, pw, -pw, pw),
+             (1, pw, -pw, -1)}
+    remaining = valid.bool().clone()
+    stopped = False
+    resolved = torch.zeros_like(remaining)
+    picks = [torch.zeros(valid.shape, dtype=torch.float32,
+                         device=valid.device) for _ in range(4)]
+    for w in range(ww, maxww + 1):
+        donut, lower = donut_rects(w, pw), lowerleft_rects(w, pw)
+        reads = rects["raw"].combine(lower)
+        vals = (rects["bal"].combine(donut), rects["exp"].combine(donut),
+                rects["bal"].combine(lower), rects["exp"].combine(lower))
+        for r in rects.values():
+            r.forget(fixed)
+        newly = remaining & (reads >= 16)
+        if stopped:
+            newly = torch.zeros_like(newly)
+        ini = max(int(remaining.sum()) if not stopped else 0, 1)
+        ratio = int(newly.sum()) / ini
+        remaining = remaining & ~newly
+        stopped = stopped or ratio < 0.1
+        resolved |= newly
+        for i, v in enumerate(vals):
+            picks[i] = picks[i] + torch.where(newly, v, torch.zeros_like(v))
+    return (resolved, *picks)
+
+
+def _unpacked(pr: dict, weights, device):
+    """``pcaller_chrom_coo(packed=False)``'s ladder: the band prefixes of
+    ``_build_band_prefixes`` and ``_escalation_device`` at the candidate
+    pixels padded to P2.  The prefixes are freed before it returns."""
+    rows, cols, vals, d_all, _sel = pr["_raw"]
+    n, ww, num = pr["n"], pr["ww"], pr["num"]
+    if weights is not None:
+        w = np.asarray(weights, np.float64)
+        bal_vals = np.nan_to_num(vals * w[rows] * w[cols])
+    else:
+        bal_vals = np.asarray(vals, np.float64)
+    band = (d_all >= 0) & (d_all < num)
+
+    def up(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+    S_raw, S_bal, S_exp = _build_band_prefixes(
+        up(rows[band], np.int64), up(cols[band], np.int64),
+        up(np.asarray(vals)[band], np.float32),
+        up(bal_vals[band], np.float32), up(pr["predictE"], np.float32), n,
+        pad_to_bucket(n, 512), ww, num)
+    _ensure_host_pixels(pr)
+    npix, P2 = pr["npix"], pr["P2"]
+    xpad = np.zeros(P2, np.int64)
+    ypad = np.zeros(P2, np.int64)
+    vpad = np.zeros(P2, bool)
+    xpad[:npix], ypad[:npix], vpad[:npix] = pr["xi"], pr["yi"], True
+    out = _escalation_device(S_raw, S_exp, S_bal, up(xpad, np.int64),
+                             up(ypad, np.int64), up(vpad, bool), ww,
+                             pr["maxww"], pr["pw"])
+    del S_raw, S_bal, S_exp
+    return out
+
+
 def pcaller_chrom_coo(rows, cols, vals, weights, n: int, res: int, params,
-                       allelic: bool = False,
-                       gap: Optional[np.ndarray] = None, *, device):
-    """HICCUPS backgrounds + Poisson/BH for one chromosome from COO pixels
-    (``pcaller_multi`` on a single chromosome)."""
-    return pcaller_multi({0: (rows, cols, vals, weights, n)}, res, params,
-                         allelic=allelic, gaps={0: gap}, device=device)[0]
+                      allelic: bool = False,
+                      gap: Optional[np.ndarray] = None,
+                      packed: bool = True, *, device):
+    """HICCUPS backgrounds + Poisson/BH for one chromosome from COO pixels.
+    ``packed=True`` is ``pcaller_multi`` on a single chromosome (K3);
+    ``packed=False`` runs the summed-area formulation (``_unpacked``) and
+    the host post-filter, as the JAX package's does."""
+    if packed:
+        return pcaller_multi({0: (rows, cols, vals, weights, n)}, res,
+                             params, allelic=allelic, gaps={0: gap},
+                             device=device)[0]
+    device = torch.device(device)
+    pr = _pcaller_prep(rows, cols, vals, weights, n, res, params,
+                       allelic=allelic, gap=gap)
+    resolved, bsk, bek, bsy, bey = _unpacked(pr, weights, device)
+    return _pcaller_post(pr, resolved, bsk, bek, bsy, bey, res, device)
 
 
-# ------------------------------------------------------------ post-stages
 LOOP_HEADER = "\t".join(["chromLabel", "loc_1", "loc_2", "IF", "D-Enrichment",
                          "D-pvalue", "D-qvalue", "LL-Enrichment", "LL-pvalue",
                          "LL-qvalue"]) + "\n"
@@ -726,13 +846,76 @@ def run_loops(cooler_path: str, res: int, allelic, out_path: str,
               device) -> str:
     """Loop calling from a cooler, as the JAX package's ``run_loops``:
     ``call_loops`` on every chromosome of the mode, its files in
-    ``out_path``.  Returns the ``Cluster_`` file's path."""
-    if plot:
-        raise NotImplementedError(NO_PLOTS)
+    ``out_path``; with ``plot``, then ``plot_loops``' PDF
+    (``<prefix>_Loops_Plot_<unit>.pdf``).  Returns the ``Cluster_`` file's
+    path."""
     inputs, gaps = _cooler_inputs(cooler_path, res, allelic, gap_file)
     call_loops(inputs, res, allelic, device, gaps=gaps, out_path=out_path,
                loop_ratio=loop_ratio, loop_strength=loop_strength)
     prefix = os.path.basename(out_path.rstrip("/"))
-    return os.path.join(out_path, ("Cluster_" if allelic
-                                   else "Cluster_Selected_")
-                        + f"{prefix}_Loops_{_proper_unit(res)}.txt")
+    unit = _proper_unit(res)
+    final = os.path.join(out_path, ("Cluster_" if allelic
+                                    else "Cluster_Selected_")
+                         + f"{prefix}_Loops_{unit}.txt")
+    if plot:
+        matrices = {c: _sym_csr(*v[:3], v[4]) for c, v in inputs.items()}
+        plot_loops(os.path.join(out_path, f"{prefix}_Loops_Plot_{unit}.pdf"),
+                   cooler_path, res, allelic, final, matrices)
+    return final
+
+
+def plot_loops(pdf_path: str, cooler_path: str, res: int, allelic,
+               cluster_file: str, matrices, length: int = 4_000_000) -> None:
+    """Per-window heatmaps with the called loops marked
+    (StructureFind.py:2259-2337), host matplotlib as in the JAX package:
+    ``matrices`` ({chrom: symmetric CSR}, what ``call_peaks`` returns)
+    give the allelic maps and the chromosome list, the cooler's balanced
+    matrices the traditional ones."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from matplotlib.backends.backend_pdf import PdfPages
+    from matplotlib.colors import LinearSegmentedColormap
+
+    reader = CoolerReader(cooler_path, res)
+    loops = []
+    with open(cluster_file) as f:
+        f.readline()
+        for line in f:
+            p = line.split()
+            loops.append((p[0], int(p[1]), int(p[2])))
+
+    cmap = LinearSegmentedColormap.from_list("interactions",
+                                             ["#FFFFFF", "#CD0000"])
+    with PdfPages(pdf_path) as pp:
+        for chro in sorted(matrices):
+            if allelic:
+                M = matrices[chro]
+                label = chro[1:]
+            else:
+                M = np.nan_to_num(reader.matrix(chro, balance=True))
+                label = chro
+            sub = [lp for lp in loops if lp[0] == label]
+            N = M.shape[0]
+            interval = max(length // res, 1)
+            start = 0
+            while start + interval <= N:
+                end = start + interval
+                W = M[start:end, start:end]
+                W = W.toarray() if hasattr(W, "toarray") else W
+                sel = [lp for lp in sub
+                       if start * res <= lp[1] and lp[2] <= end * res]
+                nz = W[np.nonzero(W)]
+                if nz.size > 100 and sel:
+                    fig, ax = plt.subplots(figsize=(10, 9))
+                    ax.imshow(W, cmap=cmap, aspect="auto",
+                              interpolation="none",
+                              vmax=np.percentile(nz, 95), origin="lower")
+                    # imshow with no extent centres pixel k at k
+                    for _, s, e in sel:
+                        ax.scatter(s // res - start, e // res - start,
+                                   facecolors="none", edgecolors="b", s=10)
+                    ax.set_xlabel(f"Chr{label}", size=14)
+                    pp.savefig(fig)
+                    plt.close(fig)
+                start = end

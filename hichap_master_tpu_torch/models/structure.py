@@ -3,9 +3,8 @@ drivers (counterpart of ``hichap_master_tpu/models/structure.py``).
 
 Construct with (cooler_fil, Res, Allelic[, GapFile, Loop_ratio,
 Loop_strength]) and a ``device``, then call ``run_Compartment``,
-``run_TADs`` or ``run_Loops``.  The reference's defaults are kept, so a
-run that would plot (``plot=True``, the default of the first two) raises
-``NotImplementedError``: pass ``plot=False``.
+``run_TADs`` or ``run_Loops``.  The reference's defaults are kept: the
+first two plot unless ``plot=False`` (matplotlib, as in the JAX package).
 """
 
 from __future__ import annotations

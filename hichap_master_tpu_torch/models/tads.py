@@ -11,7 +11,10 @@ host numpy, copied from the JAX package.
 
 Traditional mode reads balanced matrices (NaN -> 0), allelic mode the raw
 counts (StructureFind.py:850-865).  ``run_tads`` reads them from a cooler
-(``io.cooler``).  Plots are not ported.
+(``io.cooler``) and, with ``plot=True``, then draws ``_plot_tads``' PDF
+with matplotlib, imported only there.  ``chrom_di_segments`` and its
+``_device`` form are the JAX package's one-chromosome entry points: the
+dense gap rule and DI of a padded matrix on the device.
 """
 
 from __future__ import annotations
@@ -24,10 +27,12 @@ import numpy as np
 import torch
 
 from ..core import pad_to_shape
-from ..ops.di import directionality_index_band, tad_gap_mask_counts
+from ..ops.di import (directionality_index,
+                      directionality_index_band, tad_gap_mask,
+                      tad_gap_mask_counts)
 from ..ops.hmm import GMMHMM, baum_welch_fused, viterbi
 from ..io.cooler import CoolerReader
-from .compartment import NO_PLOTS, _allelic_chroms, _proper_unit
+from .compartment import _allelic_chroms, _proper_unit
 
 log = logging.getLogger(__name__)
 
@@ -132,6 +137,38 @@ def _segments_from_di(di: np.ndarray, gap: np.ndarray, n: int):
             continue
         segments[(a + 1, b)] = di[a + 1 : b]
     return di, gap, segments
+
+
+def chrom_di_segments(M: np.ndarray, res: int, min_tad: int, window: int,
+                      test_type: str, *, device):
+    """Gap detection, DI and the training segments of one host matrix
+    ``[n, n]`` (padded to ``pad_to_shape(n)`` on ``device``).  Returns
+    (di [n], gap bins, {(start, end): DI segment})."""
+    n = M.shape[0]
+    Mp = torch.zeros(pad_to_shape(n), pad_to_shape(n), dtype=torch.float32,
+                     device=device)
+    Mp[:n, :n] = torch.as_tensor(np.asarray(M, np.float32), device=device)
+    return chrom_di_segments_device(Mp, n, res, min_tad, window, test_type,
+                                    device=device)
+
+
+def chrom_di_segments_device(Mj: torch.Tensor, n: int, res: int,
+                             min_tad: int, window: int, test_type: str, *,
+                             device):
+    """``chrom_di_segments`` of a padded ``[N, N]`` matrix (moved to
+    ``device``): only the gap mask and the DI track come to the host.  The
+    gap set holds the rule's gaps and bins 0 and n - 1."""
+    Mj = Mj.to(device)
+    N = Mj.shape[0]
+    nt = torch.tensor(n, device=device)
+    gapm = tad_gap_mask(Mj, nt, int(min_tad / res)).cpu().numpy()[:n]
+    gap = np.array(sorted(set(np.flatnonzero(gapm).tolist()) | {0, n - 1}))
+    full = torch.ones(N, dtype=torch.bool, device=device)
+    full[:n] = False
+    full[torch.as_tensor(gap, device=device)] = True
+    di = directionality_index(Mj, full, nt, int(window / res),
+                              test_type).cpu().numpy()[:n]
+    return _segments_from_di(di, gap, n)
 
 
 # ------------------------------------------------- boundary extraction
@@ -424,14 +461,86 @@ def run_tads(cooler_path: str, res: int, allelic, out_path: str,
     """TAD calling from a cooler, as the JAX package's ``run_tads``: every
     chromosome of the mode (traditional: balanced by ``bins/weight``;
     allelic: raw) through ``call_tads``, with the DI, All_Boundary,
-    Filtered_Boundary and Domain files in ``out_path``."""
-    if plot:
-        raise NotImplementedError(NO_PLOTS)
+    Filtered_Boundary and Domain files in ``out_path``; with ``plot``,
+    then ``<prefix>_TADs_Plot_<unit>.pdf``."""
     reader = CoolerReader(cooler_path, res)
     inputs = {}
     for c in _allelic_chroms(reader.chromnames, allelic):
         wt = None if allelic else reader.bins_weight(c)
         inputs[c] = (*reader.fetch_coo(c), wt, reader.n_bins(c))
-    return call_tads(inputs, res, allelic, device, min_tad=min_tad,
-                     max_tad=max_tad, state_num=state_num, window=window,
-                     test_type=test_type, out_path=out_path)
+    results = call_tads(inputs, res, allelic, device, min_tad=min_tad,
+                        max_tad=max_tad, state_num=state_num, window=window,
+                        test_type=test_type, out_path=out_path)
+    if plot:
+        if allelic:
+            def fetch(c):
+                return reader.matrix(c, balance=False)
+        else:
+            def fetch(c):
+                return np.nan_to_num(reader.matrix(c, balance=True))
+        prefix = os.path.basename(out_path.rstrip("/"))
+        _plot_tads(os.path.join(out_path, f"{prefix}_TADs_Plot_"
+                                f"{_proper_unit(res)}.pdf"),
+                   reader, list(inputs), results, res, allelic, fetch)
+    return results
+
+
+def _plot_tads(pdf_path, reader, chroms, results, res, allelic, fetch,
+               length: int = 4_000_000):
+    """PDF of 4 Mb heatmap windows with the domains boxed and the DI track
+    (StructureFind.py:1345-1434), host matplotlib as in the JAX package;
+    a chromosome shorter than a window gets one whole page."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from matplotlib.backends.backend_pdf import PdfPages
+    from matplotlib.colors import LinearSegmentedColormap
+
+    cmap = LinearSegmentedColormap.from_list("interactions",
+                                             ["#FFFFFF", "#CD0000"])
+    interval = max(length // res, 1)
+    with PdfPages(pdf_path) as pp:
+        for c in chroms:
+            M = fetch(c)
+            di = results[c]["di"]
+            ds, de = results[c]["domains"]
+            N = M.shape[0]
+            n_win = N // interval
+            windows = ([(k * interval, (k + 1) * interval)
+                        for k in range(n_win)] if n_win else [(0, N)])
+            for start, end in windows:
+                W = M[start:end, start:end]
+                nz = W[np.nonzero(W)]
+                if nz.size <= 100:
+                    continue
+                vmax = np.percentile(nz, 95)
+                fig, (ax_di, ax) = plt.subplots(
+                    2, 1, figsize=(10, 9),
+                    gridspec_kw={"height_ratios": [1, 6]})
+                ax.imshow(W, cmap=cmap, aspect="auto", interpolation="none",
+                          vmin=0, vmax=vmax, origin="lower")
+                # domains with a start or an end strictly inside the window
+                for s, e in zip(ds, de):
+                    if not ((start * res < s < end * res)
+                            or (start * res < e < end * res)):
+                        continue
+                    sb, eb = s // res - start, e // res - start
+                    ax.plot([sb, eb, eb, sb, sb], [sb, sb, eb, eb, sb],
+                            color="#0000FF", lw=0.5)
+                ax.set_xlim(0, end - start)
+                ax.set_ylim(0, end - start)
+                ticks = list(np.linspace(0, end - start, 5).astype(int))
+                ax.set_xticks(ticks)
+                ax.set_xticklabels(
+                    [_proper_unit((start + t) * res) for t in ticks])
+                seg = di[start:end]
+                x = np.arange(len(seg))
+                ax_di.fill_between(x, seg, where=seg <= 0, color="#7093DB")
+                ax_di.fill_between(x, seg, where=seg >= 0, color="#E47833")
+                ax_di.set_xlim(0, len(seg))
+                ax_di.set_ylabel("DI")
+                ax_di.set_xticks([])
+                label = c[1:] if allelic else c
+                ax.set_xlabel(f"Chr{label}", size=14)
+                pp.savefig(fig)
+                plt.close(fig)

@@ -16,16 +16,45 @@ Rules (HiCHap/matrixBuilding.py:588-592, 1295-1301):
 
 Bins outside the target (negative, or past its edge in any dimension) are
 dropped, as XLA drops out-of-bounds scatter updates.  Contacts come
-unpadded, so the JAX package's ``valid`` masks have no counterpart.
+unpadded to the ``_bins`` functions and to ``bin_intra``; ``bin_genomewide``
+takes the JAX package's arguments, its ``valid`` mask included, and
+``pad_chunk`` / ``stream_chunks`` are the JAX package's host chunking.
+The JAX package's scatters are XLA, not Pallas: plain ``index_add_`` on the
+card is their port.  Every index is masked before the add (a CUDA
+``index_add_`` with an index out of range is a device-side assert, not a
+dropped update).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
 def _ones(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.ones(n, dtype=like.dtype, device=like.device)
+
+
+def bin_genomewide(acc: torch.Tensor, c1, p1, c2, p2,
+                   offsets: torch.Tensor, valid: torch.Tensor,
+                   res: int) -> torch.Tensor:
+    """A contact chunk into the genome-wide ``acc [S, S]``, in place, by
+    the JAX package's rules: chromosome indices clipped into ``offsets``
+    (-1 is allowed on invalid rows), ``bin = pos // res + offsets[c]``,
+    rows with a negative bin invalid (no wrap into the previous
+    chromosome), bins >= S dropped, symmetric increments with the diagonal
+    once.  Returns ``acc``."""
+    dev = acc.device
+    offsets = offsets.to(device=dev, dtype=torch.int64)
+    last = offsets.numel() - 1
+    c1, c2 = (torch.as_tensor(c, device=dev).long().clamp(0, last)
+              for c in (c1, c2))
+    b1 = torch.div(torch.as_tensor(p1, device=dev).long(), res,
+                   rounding_mode="floor") + offsets[c1]
+    b2 = torch.div(torch.as_tensor(p2, device=dev).long(), res,
+                   rounding_mode="floor") + offsets[c2]
+    ok = torch.as_tensor(valid, device=dev).bool() & (b1 >= 0) & (b2 >= 0)
+    return bin_genomewide_bins(acc, b1[ok], b2[ok])
 
 
 def bin_genomewide_bins(acc: torch.Tensor, b1: torch.Tensor,
@@ -87,3 +116,29 @@ def bin_intra_single_side(acc: torch.Tensor, c1, p1, c2, p2,
     c = torch.where(r1, b2, b1)
     acc.view(-1).index_add_(0, (ci * N + r) * N + c, _ones(ci.numel(), acc))
     return acc
+
+
+# ------------------------------------------------------------ host driver
+def pad_chunk(arrs, chunk: int):
+    """Columnar arrays padded with zeros to ``chunk`` rows; returns (the
+    padded arrays, the bool mask of the live rows)."""
+    n = len(arrs[0])
+    valid = np.zeros(chunk, dtype=bool)
+    valid[:n] = True
+    out = []
+    for a in arrs:
+        p = np.zeros(chunk, dtype=a.dtype)
+        p[:n] = a
+        out.append(p)
+    return out, valid
+
+
+def stream_chunks(arrs, chunk: int):
+    """Fixed-size padded chunks (and their masks) of columnar arrays, as
+    the JAX package feeds its jitted scatters."""
+    n = len(arrs[0])
+    for s in range(0, max(n, 1), chunk):
+        sl = [a[s:s + chunk] for a in arrs]
+        if len(sl[0]) == 0:
+            break
+        yield pad_chunk(sl, chunk)

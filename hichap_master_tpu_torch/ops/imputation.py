@@ -65,3 +65,23 @@ def impute_inter_chunk(imp: torch.Tensor, U: torch.Tensor,
                        accumulate=True)
         hits += rh.numel()
     return imp, hits
+
+
+def impute_inter_oracle(imp: np.ndarray, U: np.ndarray, rows, cols_same,
+                        cols_cross, L: int, min_count: float, ratio: float):
+    """Straight-line numpy oracle of the vote (host, for tests): a copy of
+    ``imp`` with one added at (row, winner) for every winning query."""
+    di, dj = disk_offsets(L)
+    S = U.shape[0]
+    out = imp.copy()
+    for r, cs, cc in zip(rows, cols_same, cols_cross):
+        if min(r, cs, cc) < L or max(r, cs, cc) + L + 1 > S:
+            continue
+        same = U[r + di, cs + dj].sum()
+        cross = U[r + di, cc + dj].sum()
+        tot = same + cross
+        if same >= min_count and tot > 0 and same / tot > ratio:
+            out[r, cs] += 1
+        elif cross >= min_count and tot > 0 and cross / tot > ratio:
+            out[r, cc] += 1
+    return out

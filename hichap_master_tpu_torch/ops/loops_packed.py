@@ -11,7 +11,9 @@ shifted adds over ``[E, Xp]`` maps.
 Functions take a leading chromosome axis ``[C, ...]`` (the ``_batch``
 names); the unbatched names run a batch of one.  ``escalation_packed_maps``
 and its batch form are the plain PyTorch version of K3
-(``kernels/escalation.py``).
+(``kernels/escalation.py``); ``escalation_packed`` and its batch form are
+the JAX package's entry points of the ladder with its arguments, and run
+K3 (the kernels on CUDA tensors, the plain version on CPU tensors).
 
 Arithmetic order follows the JAX package's CPU programs step for step
 (including the base-16 blocked prefix XLA uses for ``cumsum``), so on the
@@ -277,3 +279,26 @@ def escalation_packed_maps(D_raw, D_bal, D_exp, e_pix, x_pix, valid,
                                        e_pix[None], x_pix[None], valid[None],
                                        *args)
     return tuple(o[0] for o in out)
+
+
+def escalation_packed_batch(D_raw, D_bal, D_exp, e_pix, x_pix, valid,
+                            ww: int, maxww: int, pw: int, B: int, e_lo: int,
+                            x_pad: int):
+    """The escalation ladder over ``[C, E, Xp]`` packed maps and ``[C, P]``
+    candidate pixels, the stopping rule per chromosome: K3
+    (``kernels.escalation.escalation_batch``).  Returns (resolved, bS_K,
+    bE_K, bS_Y, bE_Y) per pixel."""
+    from ..kernels.escalation import escalation_batch
+
+    return escalation_batch(D_raw, D_bal, D_exp, e_pix, x_pix, valid, ww,
+                            maxww, pw, B, e_lo, x_pad)
+
+
+def escalation_packed(D_raw, D_bal, D_exp, e_pix, x_pix, valid, ww: int,
+                      maxww: int, pw: int, B: int, e_lo: int, x_pad: int):
+    """``escalation_packed_batch`` for one chromosome (``[E, Xp]`` maps,
+    ``[P]`` pixels): K3 (``kernels.escalation.escalation``)."""
+    from ..kernels.escalation import escalation
+
+    return escalation(D_raw, D_bal, D_exp, e_pix, x_pix, valid, ww, maxww,
+                      pw, B, e_lo, x_pad)

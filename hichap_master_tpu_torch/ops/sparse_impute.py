@@ -14,6 +14,14 @@ The vote itself is K6 (``kernels/impute_vote.py``).
 ``SparseU`` is built on the device by one sort of int64 keys.  The prefix
 is int64: the JAX package wraps it to int32 (its TPU arrays are int32),
 which gives the same window sums.
+
+The JAX package's other entry points keep its arguments: the
+lexicographic search over (row, col) pairs (``lex_searchsorted``), the
+disk sums over the wrapped int32 prefix (``sparse_disk_sums``, and
+``sparse_disk_sums_rowptr`` inside row slices) and ``sparse_impute_vote``,
+which builds the row pointer on the device and runs K6.  The searches
+and sums are XLA in the JAX package, not Pallas: plain PyTorch on the card
+is their port.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..kernels.impute_vote import impute_vote
+from ..kernels.impute_vote import _bounded_searchsorted, impute_vote
 from .imputation import disk_offsets
 
 
@@ -64,6 +72,121 @@ class SparseU:
         self.cum = torch.cat([v.new_zeros(1), torch.cumsum(v, 0)])
         self.row_ptr = torch.searchsorted(
             r, torch.arange(S + 1, device=r.device)).to(torch.int32)
+
+    @property
+    def srows(self) -> torch.Tensor:
+        """The row of every entry (int32), from the row pointer."""
+        widths = (self.row_ptr[1:] - self.row_ptr[:-1]).long()
+        return torch.repeat_interleave(
+            torch.arange(self.S, dtype=torch.int32,
+                         device=widths.device), widths)
+
+    @property
+    def cum32(self) -> torch.Tensor:
+        """The prefix wrapped to int32, as the JAX package stores it."""
+        return _wrap32(self.cum)
+
+    @property
+    def iters(self) -> int:
+        """Steps of ``lex_searchsorted`` that cover every entry."""
+        return max(self.nnz, 2).bit_length() + 1
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values wrapped to int32 (two's complement)."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
+
+
+def _unwrap32(cum32: torch.Tensor) -> torch.Tensor:
+    """The int64 prefix of a non-decreasing prefix wrapped to int32: each
+    step taken modulo 2^32 (every count is below 2^32)."""
+    c = cum32.long() & 0xFFFFFFFF
+    steps = (c[1:] - c[:-1]) & 0xFFFFFFFF
+    return torch.cat([c[:1], c[:1] + torch.cumsum(steps, 0)])
+
+
+def lex_searchsorted(srows: torch.Tensor, scols: torch.Tensor,
+                     qr: torch.Tensor, qc: torch.Tensor,
+                     iters: int) -> torch.Tensor:
+    """Left insertion points of the pairs (qr, qc) into the
+    lexicographically sorted pair list (srows, scols), by ``iters`` steps
+    of a binary search (int32 results)."""
+    nnz = srows.numel()
+    lo = torch.zeros(qr.shape, dtype=torch.int64, device=qr.device)
+    hi = torch.full(qr.shape, nnz, dtype=torch.int64, device=qr.device)
+    if nnz == 0:
+        return lo.to(torch.int32)
+    qr, qc = qr.long(), qc.long()
+    for _ in range(iters):
+        mid = lo + ((hi - lo) >> 1)
+        midc = mid.clamp(max=nnz - 1)
+        r = srows[midc].long()
+        c = scols[midc].long()
+        less = ((r < qr) | ((r == qr) & (c < qc))) & (mid < hi)
+        lo = torch.where(less, mid + 1, lo)
+        hi = torch.where(less, hi, mid)
+    return lo.to(torch.int32)
+
+
+def _window_sums(cum32, lo, hi) -> torch.Tensor:
+    """Per query, the sum over disk rows of the wrapped prefix
+    differences (each exact: a window holds less than 2^31)."""
+    return (cum32[hi.long()] - cum32[lo.long()]).sum(1, dtype=torch.int64)
+
+
+def sparse_disk_sums(srows, scols, cum32, r, c, di, dj_lo, dj_hi,
+                     iters: int) -> torch.Tensor:
+    """``[Q]`` disk sums of the sparse symmetric matrix around (r[q],
+    c[q]) by lexicographic searches (int64)."""
+    r, c = r.long(), c.long()
+    di, dj_lo, dj_hi = di.long(), dj_lo.long(), dj_hi.long()
+    qr = r[:, None] + di[None, :]
+    lo = lex_searchsorted(srows, scols, qr, c[:, None] + dj_lo[None, :],
+                          iters)
+    hi = lex_searchsorted(srows, scols, qr,
+                          c[:, None] + dj_hi[None, :] + 1, iters)
+    return _window_sums(cum32, lo, hi)
+
+
+def sparse_disk_sums_rowptr(scols, cum32, row_ptr, r, c, di, dj_lo, dj_hi,
+                            iters: int) -> torch.Tensor:
+    """``sparse_disk_sums`` with each disk row's search bounded to the
+    row's slice (``row_ptr``); every disk row r + di must lie in [0, S)."""
+    r, c = r.long(), c.long()
+    di, dj_lo, dj_hi = di.long(), dj_lo.long(), dj_hi.long()
+    qr = r[:, None] + di[None, :]
+    rlo = row_ptr[qr].long()
+    rhi = row_ptr[qr + 1].long()
+    lo = _bounded_searchsorted(scols, rlo, rhi, c[:, None] + dj_lo[None, :],
+                               iters)
+    hi = _bounded_searchsorted(scols, rlo, rhi,
+                               c[:, None] + dj_hi[None, :] + 1, iters)
+    return _window_sums(cum32, lo, hi)
+
+
+def sparse_impute_vote(srows, scols, cum32, row_known, col_same, col_cross,
+                       valid, di, dj_lo, dj_hi, S, L: int,
+                       min_count: float, ratio: float, iters: int):
+    """The vote of a chunk of queries with the JAX package's arguments:
+    U as the sorted pair list (srows, scols) with its prefix wrapped to
+    int32, and a ``valid`` mask.  Builds the row pointer and the int64
+    prefix on the device and runs K6 (``kernels/impute_vote``: the kernel
+    on a CUDA tensor, its plain version on a CPU one), whose searches run
+    to the end whatever ``iters`` says.  Returns (hit bool [Q], tgt int32
+    [Q]); invalid queries never hit and get ``col_cross``, as in the JAX
+    program."""
+    del iters
+    S = int(S)
+    dev = scols.device
+    row_ptr = torch.searchsorted(
+        srows.long(), torch.arange(S + 1, device=dev)).to(torch.int32)
+    cum = _unwrap32(cum32.to(dev))
+    valid = valid.to(device=dev, dtype=torch.bool)
+    rk = torch.where(valid, row_known.to(dev).long(), -1)
+    return impute_vote(scols.to(torch.int32).contiguous(), cum, row_ptr, rk,
+                       col_same.to(dev), col_cross.to(dev), di, dj_lo, dj_hi,
+                       S, L, min_count, ratio)
 
 
 def sparse_impute_vote_rowptr(su: SparseU, row_known: torch.Tensor,

@@ -11,7 +11,7 @@ interpolation and edge clipping.
 from __future__ import annotations
 
 import numpy as np
-from scipy.special import gammainc
+from scipy.special import gammainc, gammaincc
 
 
 def bh_fdr(pvalues: np.ndarray) -> np.ndarray:
@@ -34,6 +34,32 @@ def poisson_sf(k: np.ndarray, mu: np.ndarray) -> np.ndarray:
     ``gammainc(floor(k) + 1, mu)``."""
     k = np.floor(np.asarray(k, dtype=float))
     return gammainc(k + 1.0, np.asarray(mu, dtype=float))
+
+
+def poisson_cdf(k: np.ndarray, mu: np.ndarray) -> np.ndarray:
+    """P(X <= k) for X ~ Poisson(mu), k floored: ``gammaincc(floor(k) + 1,
+    mu)`` in float64."""
+    k = np.floor(np.asarray(k, dtype=float))
+    return gammaincc(k + 1.0, np.asarray(mu, dtype=float))
+
+
+def lambda_chunks(E: np.ndarray):
+    """The reference's λ bins (StructureFind.py:1619-1632) as a list of
+    (lv, rv, indices of E strictly inside): the loop over chunks that
+    ``poisson_bh_chunked`` replaces, kept as its oracle."""
+    E = np.asarray(E)
+    if E.size == 0 or E.max() <= 0:
+        return []
+    numbin = int(np.ceil(np.log(E.max()) / np.log(2) * 3 + 1))
+    pool = []
+    for i in range(1, numbin + 1):
+        if i == 1:
+            lv, rv = 0.0, 1.0
+        else:
+            lv = np.power(2, (i - 2) / 3.0)
+            rv = np.power(2, (i - 1) / 3.0)
+        pool.append((lv, rv, np.where((E > lv) & (E < rv))[0]))
+    return pool
 
 
 def lambda_chunk_edges(numbin: int) -> np.ndarray:

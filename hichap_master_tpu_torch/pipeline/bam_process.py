@@ -14,10 +14,12 @@ so do the reports (``hichap_master_tpu/pipeline/bam_process.py:148-166``)
 and the log line.
 
 The JAX package name-sorts inputs of 32 MB and more through its native
-external merge, which reads BAM back through SAM text (an empty SEQ then
-has length 1, not 0) and orders records by its own rule; the port's order
-is the in-memory path's at every size (``records.sort(key=query_name)``,
-stable in file order).
+external merge.  Its order is the in-memory path's
+(``records.sort(key=query_name)``, stable in (file, line) order), which
+the port gives at every size; what differs on that path, each shown by
+``tests/test_torch_sam_sort.py``: BAM members are read back through SAM
+text (an empty SEQ then has length 1, not 0), ``.sam.gz`` members are
+opened as plain text, and a name compares only up to a NUL byte.
 """
 
 from __future__ import annotations

@@ -56,7 +56,7 @@ from ..io.bedio import (ALLELIC_CLASSES, TAG_BOTH, TAG_R1, TAGGED,
                         read_allelic_bed)
 from ..io.cooler import cooler_group, write_multi_cooler
 from ..ops.balance import ice_balance, ice_balance_batch
-from ..ops.binning import (bin_genomewide_bins,
+from ..ops.binning import (bin_genomewide, bin_genomewide_bins,
                            bin_genomewide_single_triangle_bins, bin_intra,
                            bin_intra_single_side)
 from ..ops.correct import (genomewide_alpha, genomewide_alpha_margins,
@@ -328,6 +328,53 @@ def _traditional_loop(blocks, genome: Genome, whole_res, local_res, device,
             tlocal[res].add(c1, p1, c2, p2)
     return ({res: acc.finish() for res, acc in twhole.items()},
             {res: acc.finish() for res, acc in tlocal.items()}, total)
+
+
+def accumulate_genomewide(c1, p1, c2, p2, genome: Genome, res: int,
+                          acc=None, *, device) -> torch.Tensor:
+    """The genome-wide ``[S, S]`` float32 count matrix of pairs (the JAX
+    package's ``accumulate_genomewide``): chromosome indices into
+    ``genome.labels``, ``bin = pos // res + offset``, symmetric increments
+    with the diagonal once, negative bins invalid and bins >= S dropped.
+    ``acc`` (host array or tensor) is added to.  The pairs (host arrays or
+    tensors) move to ``device`` MATRIX_BLOCK at a time and accumulate
+    there; the counts are exact integers below 2^24 a cell, so they do not
+    depend on the block size or the device."""
+    device = torch.device(device)
+    S = genome.total_bins(res)
+    out = torch.zeros(S, S, dtype=torch.float32, device=device)
+    if acc is not None:
+        out += _tensor(acc, device).to(torch.float32)
+    offsets = _offsets(genome, res, device)
+    for b in _slices((c1, p1, c2, p2), MATRIX_BLOCK):
+        cc1, pp1, cc2, pp2 = _columns(b, device)
+        bin_genomewide(out, cc1, pp1, cc2, pp2, offsets,
+                       torch.ones_like(cc1, dtype=torch.bool), res)
+    return out
+
+
+def accumulate_intra(c1, p1, c2, p2, genome: Genome, res: int,
+                     init: Mapping | None = None, tags=None, *,
+                     device) -> Dict[str, torch.Tensor]:
+    """Per-chromosome intra count matrices ``{label: [n, n]}`` (the JAX
+    package's ``accumulate_intra``), accumulated on ``device`` in blocks
+    of chromosomes with the same padded size.  With ``tags`` (R1/R2 codes
+    of ``io.bedio``) the single-side rule (R1 at [b1, b2], every other tag
+    at [b2, b1]), else symmetric increments; ``init`` ({label: matrix})
+    starts a chromosome's counts.  Bins past a chromosome's padded size
+    drop, as XLA drops them."""
+    device = torch.device(device)
+    acc = _IntraAcc(genome, res, device, single_side=tags is not None)
+    if init is not None:
+        for c, gi, k in acc._views:
+            m = init.get(c)
+            if m is not None:
+                m = _tensor(m, device).to(torch.float32)
+                acc.blocks[gi][k, :m.shape[0], :m.shape[1]] += m
+    cols = (c1, p1, c2, p2) + ((tags,) if tags is not None else ())
+    for b in _slices(cols, MATRIX_BLOCK):
+        acc.add(*_columns(b, device))
+    return acc.finish()
 
 
 def build_traditional(pairs, genome: Genome, whole_res: Sequence[int],

@@ -155,6 +155,66 @@ DOMAIN = 1_000_000
 DOMAIN_SHARE = 0.3
 
 
+# planted A/B compartments (``allelic_pairs(ab=True)``): runs of AB_BLOCK bp
+# alternating A and B from each chromosome's start, the maternal haplotype
+# flipped over AB_FLIP (chromosome index, start, end; block-aligned).  M_M,
+# P_P and Bi_Allelic gain AB_PAIRS intra pairs per pair drawn, each with
+# its second mate uniform over the chromosome's compartments of the first
+# mate's type, kept at the rate AB_KEEP gives that type (A, B), so A-A has
+# the higher enrichment.  The pairs are added, not moved: redrawing even
+# 5% of a class's intra pairs at long range halves the allelic phase's
+# loop candidates (its 40 kb band is sparse).
+AB_BLOCK = 10_000_000
+AB_PAIRS = 0.15
+AB_KEEP = (1.0, 0.5)
+AB_FLIP = (0, 40_000_000, 100_000_000)
+
+
+def ab_compartments(lengths, res: int, haplotype: str) -> list:
+    """The planted A/B sign (+1 A, -1 B) of every ``res`` bin (cooler bins,
+    ``ceil(length / res)`` a chromosome) for ``haplotype`` 'M' or 'P'."""
+    out = []
+    for ci, length in enumerate(lengths):
+        pos = np.arange(-(-int(length) // res), dtype=np.int64) * res
+        out.append(_ab_sign_np(ci, pos, haplotype == "M"))
+    return out
+
+
+def _ab_sign_np(ci: int, pos: np.ndarray, maternal: bool) -> np.ndarray:
+    s = np.where((pos // AB_BLOCK) % 2 == 0, 1.0, -1.0)
+    c, lo, hi = AB_FLIP
+    if maternal and ci == c:
+        s = np.where((pos >= lo) & (pos < hi), -s, s)
+    return s
+
+
+def _ab_sign(c: torch.Tensor, pos: torch.Tensor,
+             maternal: torch.Tensor) -> torch.Tensor:
+    """The planted A/B sign at (chromosome, position) per pair, the
+    maternal flip applied where ``maternal``."""
+    s = 1 - 2 * ((pos // AB_BLOCK) % 2)
+    fc, lo, hi = AB_FLIP
+    flip = maternal & (c == fc) & (pos >= lo) & (pos < hi)
+    return torch.where(flip, -s, s)
+
+
+def _ab_pairs(uniform, chrom, sizes, n: int, maternal):
+    """``n`` A/B pairs drawn (the first mate uniform over the genome, the
+    second uniform over the chromosome, moved one block over when it lands
+    in the other type) and the kept ones returned as (c, p1, p2)."""
+    c = chrom(n)
+    size1 = sizes[c].long()
+    p1 = (uniform(n) * sizes[c]).long()
+    s1 = _ab_sign(c, p1, maternal)
+    keep = uniform(n) < torch.where(s1 > 0, AB_KEEP[0], AB_KEEP[1])
+    q = (uniform(n) * sizes[c]).long()
+    other = _ab_sign(c, q, maternal) != s1
+    q = torch.where(other, torch.where(q + AB_BLOCK < size1, q + AB_BLOCK,
+                                       q - AB_BLOCK), q)
+    ok = keep & (q >= 0) & (_ab_sign(c, q, maternal) == s1)
+    return c[ok], p1[ok], q[ok]
+
+
 def planted_loops(lengths, seed: int = 0) -> np.ndarray:
     """Loop anchors for ``allelic_pairs(loops=...)``: on every chromosome
     one loop each LOOP_SPACING bp from LOOP_SPACING on (none within
@@ -196,7 +256,8 @@ def _loop_pairs(uniform, loops, sizes, device):
 
 
 def allelic_pairs(lengths, counts, seed: int = 0, *, device,
-                  cis_floor: float = 0.0, loops=None) -> dict:
+                  cis_floor: float = 0.0, loops=None,
+                  ab: bool = False) -> dict:
     """Allelic pair classes drawn on ``device`` (``scripts/perf_e2e_hap.py``
     ``_gen_pairs`` and ``generate_beds``): both mates' chromosomes weighted
     by length, 75% intra pairs at a Cauchy-tailed distance (``|Cauchy| *
@@ -222,7 +283,17 @@ def allelic_pairs(lengths, counts, seed: int = 0, *, device,
     the first mate's DOMAIN-bp domain, the same domains on both
     haplotypes, so that DI has boundaries to find; and each loop adds
     LOOP_PAIRS intra pairs around its anchors (``_loop_pairs``), drawn
-    after every class and tagged as the other M_M and P_P pairs."""
+    after every class and tagged as the other M_M and P_P pairs.
+
+    ab : plant A/B compartments (off by default: nothing more is drawn).
+    With it, after everything above, M_M (maternal compartments), P_P
+    (paternal) and Bi_Allelic (each pair's haplotype drawn at even odds)
+    gain AB_PAIRS intra pairs per pair whose mates share a compartment type
+    (``_ab_pairs``), tagged as the class's other pairs; the maternal
+    compartments are flipped over AB_FLIP, a haplotype-specific block.
+    Every other pair is the draw without it.  M_P and P_M pairs join two
+    homologues and get none.  ``ab_compartments`` gives the planted
+    signs."""
     device = torch.device(device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -262,18 +333,28 @@ def allelic_pairs(lengths, counts, seed: int = 0, *, device,
         if cls in ("M_M", "P_P"):
             cols += (tag(n),)
         out[cls] = cols
-    if loops is None:
-        return out
-    extra = _loop_pairs(uniform, loops, sizes, device)
-    for cls in counts:
-        if cls not in extra:
-            continue
-        c, p1, p2 = extra[cls]
-        c = c.to(torch.int32)
-        add = (c, p1, c, p2)
-        if cls in ("M_M", "P_P"):
-            add += (tag(c.numel()),)
-        out[cls] = tuple(torch.cat([a, b]) for a, b in zip(out[cls], add))
+    extra = [] if loops is None else [_loop_pairs(uniform, loops, sizes,
+                                                  device)]
+    if ab:
+        more = {}
+        for cls, n in counts.items():
+            if cls in ("M_M", "P_P", "Bi_Allelic"):
+                m = int(AB_PAIRS * n)
+                maternal = (uniform(m) < 0.5 if cls == "Bi_Allelic" else
+                            torch.full((m,), cls == "M_M", device=device))
+                more[cls] = _ab_pairs(uniform, chrom, sizes, m, maternal)
+        extra.append(more)
+    for more in extra:
+        for cls in counts:
+            if cls not in more:
+                continue
+            c, p1, p2 = more[cls]
+            c = c.to(torch.int32)
+            add = (c, p1, c, p2)
+            if cls in ("M_M", "P_P"):
+                add += (tag(c.numel()),)
+            out[cls] = tuple(torch.cat([a, b])
+                             for a, b in zip(out[cls], add))
     return out
 
 

@@ -715,9 +715,17 @@ def test_nonallelic_chain_matches_the_jax_cli(beds, monkeypatch):
     _same_outputs(str(j / "N" / "loops"), str(p / "N" / "loops"))
 
 
-def test_plots_are_refused_through_the_cli(allelic_chain):
+def test_plots_are_refused_through_the_cli(allelic_chain, monkeypatch):
+    """Without matplotlib (as on the card's host) ``tads --plot`` writes
+    the text outputs and then fails with the ImportError that names
+    matplotlib, as the JAX CLI does."""
+    for name in [m for m in sys.modules if m.split(".")[0] == "matplotlib"]:
+        monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     d, files = allelic_chain
-    with pytest.raises(NotImplementedError, match="plots are not ported"):
+    with pytest.raises(ImportError, match="matplotlib"):
         _run(PCLI, ["tads", "-c", files["Traditional_Multi.cool"], "-R",
                     str(RES_L), "-o", str(d / "plot"), "--plot", "-w",
                     str(d / "wp"), "--device", "cpu"])
+    assert (d / "plot" / f"plot_Domain_{RES_L // 1000}K.txt").exists()
+    assert not [f for f in os.listdir(d / "plot") if f.endswith(".pdf")]

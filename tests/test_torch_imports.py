@@ -1,7 +1,8 @@
 """The port stands alone: every module of hichap_master_tpu_torch imports
-with jax, h5py and pandas blocked (the GPU machine has none of them) and
-with the JAX package blocked, and chip_smoke.py refuses to run without a
-CUDA device or without the repo."""
+with jax, h5py and pandas blocked (the GPU machine has none of them), with
+the JAX package blocked and with matplotlib blocked (the plots import it
+only when they draw), and chip_smoke.py refuses to run without a CUDA
+device or without the repo."""
 
 import fnmatch
 import os
@@ -14,7 +15,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
 import sys
-for name in ("jax", "jaxlib", "h5py", "pandas", "hichap_master_tpu"):
+for name in ("jax", "jaxlib", "h5py", "pandas", "hichap_master_tpu",
+             "matplotlib"):
     sys.modules[name] = None          # any import of them now raises
 import importlib, pkgutil
 import hichap_master_tpu_torch as pkg
@@ -48,7 +50,8 @@ for n in ("AsymBlocks", "asym_blocks_from_coo", "sparse_genomewide_correction",
 assert callable(importlib.import_module("hichap_master_tpu_torch.ops.hmm")
                 .baum_welch)
 loaded = [k for k, v in sys.modules.items()
-          if v is not None and k.split(".")[0] in ("jax", "jaxlib")]
+          if v is not None and k.split(".")[0] in ("jax", "jaxlib",
+                                                   "matplotlib")]
 assert not loaded, loaded
 print(len(names))
 """

@@ -281,16 +281,31 @@ def test_structure_find_matches_jax(coolers):
         np.testing.assert_allclose(got[c], want[c], atol=1e-6, rtol=0)
 
 
-def test_drivers_refuse_plots(coolers):
-    d = str(coolers["dir"] / "plots")
-    with pytest.raises(NotImplementedError, match="plots are not ported to the card"):
-        run_compartment(coolers["ab"], AB_RES, False, d, plot=True,
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="plots are not ported to the card"):
-        run_tads(coolers["trad"], RES, False, d, plot=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="plots are not ported to the card"):
-        run_loops(coolers["trad"], RES, False, d, plot=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="plots are not ported to the card"):
-        StructureFind(coolers["ab"], AB_RES, False,
-                      device="cpu").run_Compartment(d)
-    assert not os.path.exists(d)
+def test_drivers_refuse_plots(coolers, monkeypatch):
+    """Without matplotlib (as on the card's host) a plotting run writes its
+    text outputs first and then fails with the ImportError that names
+    matplotlib, as the JAX drivers do: nothing is skipped silently."""
+    import sys
+
+    for name in [m for m in sys.modules if m.split(".")[0] == "matplotlib"]:
+        monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    d = coolers["dir"] / "plots"
+    runs = (
+        ("C", lambda o: run_compartment(coolers["ab"], AB_RES, False, o,
+                                        plot=True, device="cpu"),
+         "C_Compartment_100K.txt"),
+        ("T", lambda o: run_tads(coolers["trad"], RES, False, o, plot=True,
+                                 device="cpu", **TAD_KW), "T_Domain_40K.txt"),
+        ("L", lambda o: run_loops(coolers["trad"], RES, False, o, plot=True,
+                                  device="cpu"),
+         "Cluster_Selected_L_Loops_40K.txt"),
+        ("S", lambda o: StructureFind(coolers["ab"], AB_RES, False,
+                                      device="cpu").run_Compartment(o),
+         "S_Compartment_100K.txt"))
+    for name, run, text in runs:
+        out = d / name
+        with pytest.raises(ImportError, match="matplotlib"):
+            run(str(out))
+        assert (out / text).exists(), text
+        assert not [f for f in os.listdir(out) if f.endswith(".pdf")]
