@@ -20,7 +20,9 @@ Phases, each printed on its own line, any failure raising:
    iteration inside one launch), its matvec phase alone beside torch.bmm,
    and the 3,584 bucket's four chromosomes as one uneven batch in one
    launch (per-matrix counts equal the plain version's); K2 the
-   block-sparse marginal on the hg19 10 kb tile set (f32 and bf16); K3 on
+   block-sparse marginal on the hg19 10 kb tile set (f32 and bf16, with
+   the layout's order built once; 20 launches, each the same bits as the
+   first); K3 on
    chr1 at 10 kb: the prefix kernels bit for
    bit against anti_diagonal_prefix, then the whole escalation call
    (identical outputs) and the ladder kernel alone; K4 the HMM
@@ -47,7 +49,8 @@ Phases, each printed on its own line, any failure raising:
 3. the main path at full size, after zeroing the kernels' launch counters,
    each stage's wall on its own line:
    genome-wide block-sparse ICE at 10 kb (tiles with a far-field floor,
-   see ``testing.synthetic.gen_tiles``; tol 1e-5, 200 iterations at most),
+   see ``testing.synthetic.gen_tiles``; tol 1e-5, 200 iterations at most;
+   three runs, the same bits and iterations),
    dense ICE of all 23 chromosomes at 40 kb by size bucket (matrices with
    a long-range floor, ``testing.synthetic.hap_batch``), loop calling at
    10 kb on all 23 chromosomes, the two-step correction of maternal and
@@ -59,7 +62,9 @@ Phases, each printed on its own line, any failure raising:
    set, and chr1's TAD segments again through the plain Viterbi, which
    must give the same paths, boundaries and domains; then the diploid
    matrix stage (26.6 M allelic pairs) with its own counters, and its
-   10 kb hybrid weights again through the plain K2 and K7; then, with its
+   10 kb hybrid weights again through the plain K2 and K7, and twice more
+   through the kernels (the stage's bits and iterations each time), then
+   one line of what came out the same bits on every run; then, with its
    own counters (``surface``), the JAX package's remaining entry points,
    each held to the path the port already has: ``escalation_packed_batch``
    (K3) on the 23 chromosomes at 10 kb identical to ``escalation_batch``,
@@ -112,15 +117,15 @@ Phases, each printed on its own line, any failure raising:
    weights, and the three specificity tests from the cooler and the
    written call files; after the counters are read, the checks: pairs
    parsed = the draw's, every pixel table, integer and float, identical
-   to the in-memory stage's on the same pairs, Traditional weights within
-   1e-4 with the same NaN sets, each driver's calls identical to its
+   to the in-memory stage's on the same pairs, Traditional weights
+   identical with the same NaN sets, each driver's calls identical to its
    in-memory entry point fed the reader's tables; then
    ``haplotype_matrix_files`` again at 1/VALID_EVERY of the pairs (pairs
    parsed = the cut's); then the valid-bed path (a 15-column bed through
    ``traditional_matrix_files``) at 1/VALID_EVERY of the pairs (tables
    and weights against ``traditional_matrix_construction``) and at all of
-   them (pixel tables identical to the files phase's Traditional cooler,
-   weights within 1e-4), each step's wall and rate on its own line; then
+   them (pixel tables and weights identical to the files phase's
+   Traditional cooler), each step's wall and rate on its own line; then
    ``run_compartment(plot=True)`` on the Traditional cooler (without
    matplotlib: the track file, then the ImportError naming it; with it:
    the PDF's pages holding the tracks); then
@@ -130,12 +135,10 @@ Phases, each printed on its own line, any failure raising:
    ``hichap-torch`` sub-commands in this process (``cli.run``, default
    device): ``matrix``, ``compartment`` (traditional, M, P), ``tads`` and
    ``loops`` on M, ``loops`` on the Traditional cooler at 10 kb and the
-   three ``specificity`` commands (``loops`` at 10 kb on the files phase's
-   Traditional cooler, see ``cli_phase``); checks: the haplotype coolers
-   and the gap npz byte for byte the files phase's (a second run of the
-   matrix stage), the Traditional pixel tables identical and its weights
-   within 1e-4, every output file of the analysis commands identical to
-   the drivers', a metrics JSON for each command; then the temporary
+   three ``specificity`` commands; checks: the three coolers and the gap
+   npz byte for byte the files phase's (a second run of the matrix
+   stage), every output file of the analysis commands identical to the
+   drivers', a metrics JSON for each command; then the temporary
    files are removed;
 7. the front of the user path, chunk beds in: first the filtering stage
    at FILTER_CHECK_RECORDS records per haplotype (chunk beds drawn by
@@ -349,6 +352,12 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same NaN set and the same bits elsewhere."""
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
 # ------------------------------------------------------------------ K1
 def k1_compare(dev, results):
     from hichap_master_tpu_torch.core import pad_to_bucket
@@ -501,9 +510,9 @@ def gw_tiles(dev):
 
 def k2_compare(gw, dev, results):
     from hichap_master_tpu_torch.kernels.sparse_marginal import (
-        block_sym_matvec, block_sym_matvec_plain)
-
+        block_sym_matvec, block_sym_matvec_plain, sparse_marginal_order)
     from hichap_master_tpu_torch.ops.sparse import blocks_from_dense
+    from hichap_master_tpu_torch.testing.k2_measure import repeats
 
     # small input against a dense float64 oracle
     rng = np.random.default_rng(2)
@@ -521,31 +530,54 @@ def k2_compare(gw, dev, results):
     g = torch.Generator(device=dev)
     g.manual_seed(5)
     b = torch.rand(R * T, generator=g, device=dev)
+    # the order is built once per layout, as the ICE loops build it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    order = sparse_marginal_order(brow, bcol, R)
+    torch.cuda.synchronize()
+    order_ms = (time.perf_counter() - t0) * 1e3
     out = {}
+    repeat = []
     for tag, t in (("", tiles), ("bf16_", tiles.to(torch.bfloat16))):
-        yk = block_sym_matvec(t, brow, bcol, b, R=R, T=T)
-        yp = block_sym_matvec_plain(t, brow, bcol, b, R=R, T=T)
+        def kernel():
+            return block_sym_matvec(t, brow, bcol, b, R=R, T=T, order=order)
+
+        def plain():
+            return block_sym_matvec_plain(t, brow, bcol, b, R=R, T=T,
+                                          order=order)
+
+        rep, yk = repeats(kernel)
+        differ = rep["differ"]
+        check(differ == 0, f"K2 {tag or 'f32 '}: {differ} of 19 launches "
+              f"differ from the first (by up to {rep['max_abs_diff']:.3g})")
+        repeat.append(f"{(tag or 'f32_')[:-1]} {differ} of 19")
+        yp = plain()
         torch.cuda.synchronize()
         err = rel_err(yk, yp)
         check(err <= 1e-5, f"K2 {tag or 'f32 '}marginal differs: {err:.2e}")
-        ms = median_ms(lambda: block_sym_matvec(t, brow, bcol, b, R=R, T=T))
-        plain_ms = median_ms(
-            lambda: block_sym_matvec_plain(t, brow, bcol, b, R=R, T=T))
+        ms = median_ms(kernel)
+        device_ms = event_ms(kernel)
+        plain_ms = median_ms(plain)
         log(f"K2 sparse_marginal {tag or 'f32_'}K={tiles.shape[0]} T={T}: "
-            f"max rel err {err:.3e} (tol 1e-5), {ms:.4f} ms kernel vs "
-            f"{plain_ms:.4f} ms plain")
+            f"max rel err {err:.3e} (tol 1e-5), 20 launches the same bits "
+            f"(torch.equal), {ms:.4f} ms kernel ({device_ms:.4f} ms device,"
+            f" CUDA events over 20) vs {plain_ms:.4f} ms plain")
         # off-diagonal tiles are applied twice (the tile and its transpose)
         n_diag = int((brow == bcol).sum())
         b_ = bound(nbytes(t, brow, bcol, b, yk),
                    2.0 * T * T * (2 * t.shape[0] - n_diag))
         out.update({f"{tag}max_abs_err": float((yk - yp).abs().max()),
-                    f"{tag}ms": ms, f"{tag}plain_ms": plain_ms,
+                    f"{tag}ms": ms, f"{tag}device_ms": device_ms,
+                    f"{tag}plain_ms": plain_ms, f"{tag}repeats_differ": differ,
                     **{f"{tag}{k}": v for k, v in b_.items()}})
+    log(f"K2 order (sparse_marginal_order, {order.n_slots} slots, at most "
+        f"{order.max_len} a block row): built once in {order_ms:.3f} ms")
     results["sparse_marginal"] = dict(
         route="cuda", source="hichap_master_tpu_torch/csrc/sparse_marginal.cu",
         replaces="hichap_master_tpu/kernels/pallas_sparse_ice.py:54",
         unit=f"ms per marginal, hg19 10 kb, K = {tiles.shape[0]} tiles",
-        library_ms=None, **out)
+        order_ms=order_ms, library_ms=None, **out)
+    return repeat
 
 
 # ------------------------------------------------------------------ K3
@@ -1314,7 +1346,7 @@ def gw_ice(gw):
                                                     zero_tile_diagonals)
 
     tiles, brow, bcol, n, R, T = gw
-    walls = []
+    walls, runs = [], []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1322,8 +1354,13 @@ def gw_ice(gw):
                                    max_iters=200)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        runs.append((w, int(st["iters"])))
     it = int(st["iters"])
     wall = statistics.median(walls)
+    # K2 sums in a fixed order: every run the same bits
+    check(all(same_bits(r[0], runs[0][0]) and r[1] == it for r in runs),
+          f"genome-wide ICE: three runs differ (iterations "
+          f"{[r[1] for r in runs]})")
     check(bool(st["converged"]), f"genome-wide ICE did not converge in {it} "
           f"iterations (var {float(st['var']):.3g})")
     check(w.shape == (R * T,) and bool(torch.isfinite(w[:n]).any()),
@@ -1338,7 +1375,8 @@ def gw_ice(gw):
         f"{tiles.shape[0]}): {it} iters, converged, {wall:.3f} s "
         f"(median of 3), {it / wall:.1f} iters/s, "
         f"{int(torch.isfinite(w[:n]).sum())} finite weights, balanced "
-        f"marginals within {dev1:.1e} of 1")
+        f"marginals within {dev1:.1e} of 1; the three runs' weights the "
+        f"same bits")
     return w, st
 
 
@@ -1723,6 +1761,31 @@ def hybrid_plain(stage, dev):
         f"{r['tradition']['ice'][res]['iters'][0]}), same NaN set, max rel "
         f"diff {err:.2e} (tol 1e-4)")
     return h
+
+
+def hybrid_twice(stage, h):
+    """The 10 kb hybrid weights through K2 and K7 twice more, on the
+    stage's layout: the same bits and iterations as the stage's own run."""
+    from hichap_master_tpu_torch.ops.sparse_hybrid import ice_balance_hybrid
+
+    r, _ = stage
+    res = min(DIPLOID_WHOLE)
+    want = r["tradition"]["weights"][res]
+    it = r["tradition"]["ice"][res]["iters"][0]
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w, st = ice_balance_hybrid(h)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check(same_bits(w, want) and int(st["iters"]) == it,
+              f"{res // 1000} kb hybrid weights: a second run differs from "
+              f"the stage's ({int(st['iters'])} vs {it} iterations, "
+              f"{int((w != want).sum())} bins)")
+    log(f"{res // 1000} kb hybrid weights twice more through K2 + K7: "
+        f"{it} iterations, the stage's bits each time "
+        f"({', '.join(f'{x:.3f}' for x in walls)} s)")
 
 
 # ------------------------------------------------------- allelic phase
@@ -2410,15 +2473,17 @@ def _same_table(table, want, what, dev):
           f"{what}: counts differ from the in-memory table")
 
 
-def _close_weights(got, want, what):
+def _same_weights(got, want, what):
+    """Weights read back from a cooler (float64) equal to those of the same
+    tables through the same ICE: the same NaN set and the same values."""
     got = torch.as_tensor(got, device=want.device)
     fg, fw = torch.isfinite(got), torch.isfinite(want)
     check(torch.equal(fg, fw), f"{what}: NaN sets differ")
+    diff = got[fg] != want[fw].double()
     err = float(((got[fg] - want[fw].double()).abs()
-                 / want[fw].double().abs()).max())
-    check(err <= 1e-4, f"{what}: weights off the in-memory ones by "
-          f"{err:.2e}")
-    return err
+                 / want[fw].double().abs()).max()) if fg.any() else 0.0
+    check(not bool(diff.any()), f"{what}: {int(diff.sum())} weights differ "
+          f"from those of the same tables, by up to {err:.2e} relative")
 
 
 def _reader_inputs(path, res, allelic, kind, dev, gaps=None):
@@ -2636,7 +2701,7 @@ def _files_checks(allelic, al, st, dev):
     r = haplotype_matrix_construction(
         {FILES_PREFIX: classes}, genome, DIPLOID_WHOLE, DIPLOID_LOCAL,
         **DIPLOID_VOTE, device=dev)[FILES_PREFIX]
-    read_s, read_mb, w_err = 0.0, 0.0, 0.0
+    read_s, read_mb = 0.0, 0.0
     for key, g, dtype in (("tradition", genome, "int"),
                           ("unimputated", hap, "int"),
                           ("imputated", hap, "float")):
@@ -2652,9 +2717,9 @@ def _files_checks(allelic, al, st, dev):
             want = _written_pixels(r[key][part][rs], g, rs, dtype)
             _same_table(table, want, f"{key} {rs}", dev)
             if key == "tradition":
-                w_err = max(w_err, _close_weights(
-                    reader.bins_weight(), r["tradition"]["weights"][rs],
-                    f"Traditional weights {rs}"))
+                _same_weights(reader.bins_weight(),
+                              r["tradition"]["weights"][rs],
+                              f"Traditional weights {rs}")
             del table, want
 
     # the drivers' calls against the in-memory entry points fed the
@@ -2723,9 +2788,9 @@ def _files_checks(allelic, al, st, dev):
         if k not in ("bed write", "matrix files")))
     log(f"files:   checks: pairs parsed per class = the draw's; every "
         f"pixel table, integer and float, identical to the in-memory stage's"
-        f"; Traditional weights within {w_err:.1e} (tol 1e-4), same NaN "
-        f"sets; every driver's calls identical to its in-memory entry point "
-        f"on the reader's tables")
+        f"; Traditional weights identical, same NaN sets; every driver's "
+        f"calls identical to its in-memory entry point on the reader's "
+        f"tables")
     # information: how far the calls agree with the allelic phase's
     agree = []
     for h in "MP":
@@ -2773,9 +2838,9 @@ def _valid_path(allelic, st, dev):
     """The valid-bed path: a 15-column valid bed of a tenth of the pairs
     through ``traditional_matrix_files``, its tables and weights against
     ``traditional_matrix_construction`` on the same pairs; then all of the
-    pairs, whose tables must be the files phase's Traditional cooler's
-    (the same pairs) and its weights within 1e-4.  Both with the files
-    phase's block.  Returns (peak at a tenth, peak at all, pairs, pairs)."""
+    pairs, whose tables and weights must be the files phase's Traditional
+    cooler's (the same pairs).  Both with the files phase's block.
+    Returns (peak at a tenth, peak at all, pairs, pairs)."""
     from hichap_master_tpu_torch.io.cooler import CoolerReader
     from hichap_master_tpu_torch.pipeline.matrix import (
         traditional_matrix_construction, traditional_matrix_files)
@@ -2799,15 +2864,14 @@ def _valid_path(allelic, st, dev):
     want = traditional_matrix_construction(
         {FILES_PREFIX: pairs}, genome, DIPLOID_WHOLE, DIPLOID_LOCAL,
         device=dev)["Merged_Multi"]
-    w_err = 0.0
     for path in out["coolers"]:
         for rs in DIPLOID_WHOLE + DIPLOID_LOCAL:
             part = "whole" if rs in DIPLOID_WHOLE else "local"
             reader = CoolerReader(path, rs)
             _same_table(reader.pixels_coo(), _written_pixels(
                 want[part][rs], genome, rs, "int"), f"valid {rs}", dev)
-            w_err = max(w_err, _close_weights(
-                reader.bins_weight(), want["weights"][rs], f"valid {rs}"))
+            _same_weights(reader.bins_weight(), want["weights"][rs],
+                          f"valid {rs}")
     del want
     n = pairs[0].numel()
     log(f"files: valid-bed path, 1/{VALID_EVERY} of the pairs ({n} lines of "
@@ -2818,8 +2882,8 @@ def _valid_path(allelic, st, dev):
         f"{steps['matrix'] - steps['parse'] - steps['build']:.3f} s, "
         f"cooler write {steps['cooler_write']:.3f} s "
         f"({_mb(out['merged']):.1f} MB a file, copied to Merged_Multi); "
-        f"tables identical to traditional_matrix_construction's, weights "
-        f"within {w_err:.1e}")
+        f"tables and weights identical to "
+        f"traditional_matrix_construction's")
     # all of the pairs: the same pairs as the files phase's Traditional
     # cooler, so the same tables
     shutil.rmtree(rep)
@@ -2835,7 +2899,6 @@ def _valid_path(allelic, st, dev):
                 os.path.join(st["tmp"], "out_valid"), [rep], st["sizes"],
                 DIPLOID_WHOLE, DIPLOID_LOCAL, device=dev, walls=steps))))
     n_all = sum(st["stats"]["pairs"][FILES_PREFIX].values())
-    w_err = 0.0
     for rs in DIPLOID_WHOLE + DIPLOID_LOCAL:
         got = CoolerReader(out["merged"], rs)
         want = CoolerReader(st["files"]["tradition"], rs)
@@ -2843,16 +2906,16 @@ def _valid_path(allelic, st, dev):
             got.pixels_coo(), want.pixels_coo())),
             f"valid: all pairs: {rs} pixels differ from the files phase's "
             "Traditional cooler")
-        w_err = max(w_err, _close_weights(
-            got.bins_weight(), torch.from_numpy(want.bins_weight()).to(dev),
-            f"valid: all pairs: weights {rs}"))
+        _same_weights(got.bins_weight(),
+                      torch.from_numpy(want.bins_weight()).to(dev),
+                      f"valid: all pairs: weights {rs}")
     log(f"files: valid-bed path, all {n_all:,} pairs ({_mb(bed):.1f} MB; "
         f"bed write {walls['bed write']:.3f} s, not part of the path): "
         f"`traditional_matrix_files` {walls['files']:.3f} s, parse "
         f"{steps['parse']:.3f} s ({n_all / steps['parse'] / 1e6:.2f} M "
-        f"lines/s), build {steps['build']:.3f} s; pixel tables identical "
-        f"to the files phase's Traditional cooler (the same pairs), weights "
-        f"within {w_err:.1e}")
+        f"lines/s), build {steps['build']:.3f} s; pixel tables and weights "
+        f"identical to the files phase's Traditional cooler (the same "
+        f"pairs)")
     shutil.rmtree(rep)
     return peak, peak_all, n, n_all
 
@@ -2885,12 +2948,10 @@ def cli_phase(st):
     Traditional cooler and then on M and P with its PC file, ``tads`` and
     ``loops`` on M at 40 kb, ``loops`` on the Traditional cooler at 10 kb,
     and the three ``specificity`` commands on the files phase's loop and
-    boundary files.  ``loops`` at 10 kb balances by the Traditional
-    cooler's weights, which K2's float32 atomics make differ between two
-    runs of the matrix stage (within 1e-4), and its files print those
-    balanced values: it reads the files phase's Traditional cooler, so
-    that its files can equal the driver's.  Returns the phase's state for
-    ``cli_checks``."""
+    boundary files.  ``loops`` at 10 kb balances by the CLI's own
+    Traditional cooler's weights, which are the files phase's bits (K2
+    sums in a fixed order), so its files equal the driver's.  Returns the
+    phase's state for ``cli_checks``."""
     out = os.path.join(st["tmp"], "cli")
     ws, calls = os.path.join(out, "ws"), os.path.join(out, "calls")
     res_w, res_l, res_hi = ALLELIC_WHOLE[0], DIPLOID_LOCAL[0], \
@@ -2924,8 +2985,8 @@ def cli_phase(st):
         where("tads", "M"))
     run("loops M", "loops", "-c", imp, "-R", res_l, "-A", "Maternal", "-o",
         where("loops", "M"), "--gap-file", files["gap"])
-    run(f"loops T {res_hi // 1000} kb", "loops", "-c",
-        st["files"]["tradition"], "-R", res_hi, "-o", where("loops", "T"))
+    run(f"loops T {res_hi // 1000} kb", "loops", "-c", trad, "-R", res_hi,
+        "-o", where("loops", "T"))
     run("specificity loop", "specificity", "loop", "-c", imp, "-R", res_l,
         "-i", st["loop_file"], "-o", where("Loop_Specificity.txt"))
     run("specificity boundary", "specificity", "boundary", "-c", imp, "-R",
@@ -2943,29 +3004,16 @@ def _same_bytes(a, b) -> bool:
         return f.read() == g.read()
 
 
-def cli_checks(st, cl, dev):
-    """The CLI phase's files against the files phase's: the haplotype
-    coolers and the gap npz byte for byte (two runs of the matrix stage,
-    so its sums do not depend on their order), the Traditional cooler's
-    pixel tables identical and its weights within 1e-4 with the same NaN
-    sets (K2 adds with float32 atomics), every output file of the analysis
-    commands identical; then each command's metrics JSON."""
-    from hichap_master_tpu_torch.io.cooler import CoolerReader
-
-    for key in ("unimputated", "imputated", "gap"):
+def cli_checks(st, cl):
+    """The CLI phase's files against the files phase's: the three coolers
+    and the gap npz byte for byte (two runs of the matrix stage, so its
+    sums, K2's included, do not depend on their order), every output file
+    of the analysis commands identical; then each command's metrics
+    JSON."""
+    for key in ("tradition", "unimputated", "imputated", "gap"):
         check(_same_bytes(cl["files"][key], st["files"][key]),
               f"cli: {os.path.basename(cl['files'][key])} differs from the "
               "files phase's, byte for byte")
-    w_err = 0.0
-    for rs in DIPLOID_WHOLE + DIPLOID_LOCAL:
-        got = CoolerReader(cl["files"]["tradition"], rs)
-        want = CoolerReader(st["files"]["tradition"], rs)
-        check(all(np.array_equal(a, b) for a, b in zip(
-            got.pixels_coo(), want.pixels_coo())),
-            f"cli: Traditional {rs} pixels differ from the files phase's")
-        w_err = max(w_err, _close_weights(
-            got.bins_weight(), torch.from_numpy(want.bins_weight()).to(dev),
-            f"cli: Traditional weights {rs}"))
     mine = sorted(os.path.relpath(os.path.join(root, name), cl["calls"])
                   for root, _, names in os.walk(cl["calls"])
                   for name in names)
@@ -2993,11 +3041,11 @@ def cli_checks(st, cl, dev):
         + " (the last call of each command); matrix steps: " + ", ".join(
             f"{k[len('matrix.'):]} {v:.3f}" for k, v in
             sorted(metrics["matrix"].items()) if k != "matrix.total"))
-    log(f"cli:   checks: haplotype coolers and gap npz identical to the "
-        f"files phase's, byte for byte; Traditional pixel tables identical, "
-        f"weights within {w_err:.1e} (tol 1e-4), same NaN sets; {n} output "
-        f"files of the analysis commands identical to the drivers'; a "
-        f"metrics JSON for each command")
+    log(f"cli:   checks: the three coolers and the gap npz identical to the "
+        f"files phase's, byte for byte; {n} output files of the analysis "
+        f"commands identical to the drivers' (loops T at "
+        f"{min(DIPLOID_WHOLE) // 1000} kb on the CLI's own Traditional "
+        f"cooler); a metrics JSON for each command")
 
 
 # the filtering phase: records per haplotype (chunk beds of 4 M lines
@@ -5043,7 +5091,7 @@ def main() -> None:
     results = {}
     k1_compare(dev, results)
     gw = gw_tiles(dev)
-    k2_compare(gw, dev, results)
+    k2_repeat = k2_compare(gw, dev, results)
     loops = loop_inputs()
     k3_compare(loops, dev, results)
     tads = tad_inputs()
@@ -5109,6 +5157,14 @@ def main() -> None:
     chr1_plain_ladder(loops, dev, called)
     chr1_plain_viterbi(tad_called, tad_stats["model"], dev)
     h = hybrid_plain(stage, dev)
+    hybrid_twice(stage, h)
+    log("same bits on every run: K2 at the main path's shape, launches "
+        f"after the first that differ from it: {', '.join(k2_repeat)}; "
+        f"genome-wide sparse ICE: 3 runs, {int(gw_ref[1]['iters'])} "
+        f"iterations each; {min(DIPLOID_WHOLE) // 1000} kb hybrid ICE: 3 "
+        f"runs (the stage's and two more), "
+        f"{stage[0]['tradition']['ice'][min(DIPLOID_WHOLE)]['iters'][0]} "
+        "iterations each")
     t_phase = phase("diploid stage", t_phase)
     # the JAX package's remaining entry points on the same inputs, each
     # held to the path the port already has
@@ -5155,7 +5211,7 @@ def main() -> None:
         cl = cli_phase(st)
         cli_l = read("cli", analysis_kernels)
         peak("cli")
-        cli_checks(st, cl, dev)
+        cli_checks(st, cl)
     finally:
         shutil.rmtree(st["tmp"], ignore_errors=True)
     torch.cuda.empty_cache()

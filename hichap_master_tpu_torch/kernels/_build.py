@@ -52,7 +52,7 @@ SIGNATURES = {
     "ice_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "ice_sweep_max_batch": [_I, _I],
     "ice_matvec": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "sparse_marginal": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "sparse_marginal": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "escalation_prefix": [_P, _P, _P, _P, _I, _I, _I, _P],
     "escalation_ladder": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _P],

@@ -24,7 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..kernels.sparse_marginal import block_sym_matvec
+from ..kernels.sparse_marginal import block_sym_matvec, sparse_marginal_order
 from .masked import masked_mean, masked_median, masked_var
 
 CHECK_EVERY = 4  # iterations between host reads of the convergence flag
@@ -173,15 +173,17 @@ def sparse_ice_balance(tiles: torch.Tensor, brow: torch.Tensor,
                        ignore_diags: int = 1, mad_max: int = 5,
                        min_nnz: int = 10, min_count: int = 0,
                        tol: float = 1e-5, max_iters: int = 200,
-                       fast: bool = False):
+                       fast: bool = False, order=None):
     """ICE balancing of a block-sparse symmetric matrix.
 
     Same semantics as ``ops.balance.ice_balance`` (ignore-diags 1, MAD-max 5,
     min-nnz 10) with the marginal as a block matvec, so each iteration's
     traffic is proportional to the occupied tiles.  The two filter matvecs
     (marginal and nonzero count) and every iteration's marginal go through
-    K2.  ``fast`` iterates on bfloat16 tiles with float32 accumulation.
-    Returns (weights [R*T], stats); weights are NaN at filtered bins.
+    K2, in one summation order (``order``: ``sparse_marginal_order(brow,
+    bcol, R)``, built here when not given).  ``fast`` iterates on bfloat16
+    tiles with float32 accumulation.  Returns (weights [R*T], stats);
+    weights are NaN at filtered bins.
     """
     if tiles.dtype != torch.float32:
         raise TypeError(f"tiles must be float32, got {tiles.dtype}")
@@ -193,17 +195,21 @@ def sparse_ice_balance(tiles: torch.Tensor, brow: torch.Tensor,
         raise ValueError("block coordinates must satisfy "
                          "0 <= brow <= bcol < R")
     N = R * T
+    if order is None:
+        order = sparse_marginal_order(brow, bcol, R)
     tiles = zero_tile_diagonals(tiles, brow, bcol, ignore_diags)
     valid = torch.arange(N, device=tiles.device) < n
     ones = valid.to(torch.float32)
-    marg0 = block_sym_matvec(tiles, brow, bcol, ones, R=R, T=T) * ones
+    marg0 = block_sym_matvec(tiles, brow, bcol, ones, R=R, T=T,
+                             order=order) * ones
     nnz = block_sym_matvec((tiles != 0).to(torch.float32), brow, bcol, ones,
-                           R=R, T=T)
+                           R=R, T=T, order=order)
     keep = ice_keep(valid, marg0, nnz, mad_max=mad_max, min_nnz=min_nnz,
                     min_count=min_count)
     tiles_it = tiles.to(torch.bfloat16) if fast else tiles
     return ice_iterate(
-        lambda b: block_sym_matvec(tiles_it, brow, bcol, b, R=R, T=T),
+        lambda b: block_sym_matvec(tiles_it, brow, bcol, b, R=R, T=T,
+                                   order=order),
         keep, tol=tol, max_iters=max_iters)
 
 
@@ -403,12 +409,14 @@ def _genomewide_tiles(U, L, brow, bcol, alpha_full, R: int, T: int,
     S = torch.where((br == bc)[:, None, None],
                     S + torch.triu(S, 1).transpose(-1, -2), S).contiguous()
     ones = torch.ones(R * T, dtype=U.dtype, device=dev)
-    s1 = psum(block_sym_matvec(S, brow, bcol, ones, R=R, T=T))
+    order = sparse_marginal_order(brow, bcol, R)
+    s1 = psum(block_sym_matvec(S, brow, bcol, ones, R=R, T=T, order=order))
     f = torch.where(s1 == 0, torch.ones_like(s1), s1 ** vc_alpha)
     f = f.reshape(R, T)
     cor = (S / (f[br][:, :, None] * f[bc][:, None, :])).contiguous()
     raw_total = psum(U.sum() + L.sum())
-    cor_total = psum(block_sym_matvec(cor, brow, bcol, ones, R=R, T=T).sum())
+    cor_total = psum(block_sym_matvec(cor, brow, bcol, ones, R=R, T=T,
+                                      order=order).sum())
     rf = raw_total / cor_total.clamp_min(torch.finfo(U.dtype).tiny)
     return rf * cor
 

@@ -25,7 +25,7 @@ import functools
 import torch
 
 from ..kernels.segment_marginal import carry_scratch, segment_marginal
-from ..kernels.sparse_marginal import block_sym_matvec
+from ..kernels.sparse_marginal import block_sym_matvec, sparse_marginal_order
 from .sparse import BlockMatrix, ice_iterate, ice_keep, zero_tile_diagonals
 
 # above this many (n/T)^2 tile cells the occupancy is counted by a sort of
@@ -127,13 +127,15 @@ def hybrid_ice_balance(tiles, brow, bcol, sc_cols, sc_vals, bounds, sc_nnz,
                        mad_max: int = 5, min_nnz: int = 10,
                        min_count: int = 0, tol: float = 1e-5,
                        max_iters: int = 200, tile_matvec=block_sym_matvec,
-                       scattered=segment_marginal):
+                       scattered=segment_marginal, order=None):
     """ICE over the hybrid layout: ``sparse_ice_balance``'s semantics with
     the marginal = tile matvec (K2) + scattered marginal (K7).
     ``bounds`` [R*T+1] and ``sc_nnz`` [R*T] are padded to the tile grid.
     Integer (uint16) tiles are cast to float32 here, on the device.
     ``tile_matvec``/``scattered`` exist to re-run a balance through the
-    plain versions on the card.  Returns (weights [R*T], stats)."""
+    plain versions on the card.  ``order`` is K2's summation order
+    (``sparse_marginal_order(brow, bcol, R)``), built here when not given
+    and shared by every tile matvec.  Returns (weights [R*T], stats)."""
     if not tiles.dtype.is_floating_point:
         tiles = tiles.to(torch.float32)
     dev = tiles.device
@@ -144,16 +146,18 @@ def hybrid_ice_balance(tiles, brow, bcol, sc_cols, sc_vals, bounds, sc_nnz,
         # K7's carry scratch, once for all the iterations
         scattered = functools.partial(
             segment_marginal, scratch=carry_scratch(sc_cols.numel(), dev))
+    if order is None:   # K2's order, once for all the iterations
+        order = sparse_marginal_order(brow, bcol, R)
 
     def marginal(b):
-        return (tile_matvec(tiles, brow, bcol, b, R=R, T=T)
+        return (tile_matvec(tiles, brow, bcol, b, R=R, T=T, order=order)
                 + scattered(sc_cols, sc_vals, bounds, b))
 
     valid = torch.arange(R * T, device=dev) < n
     ones = valid.to(torch.float32)
     marg0 = marginal(ones) * ones
     nnz = tile_matvec((tiles != 0).to(torch.float32), brow, bcol, ones,
-                      R=R, T=T) + sc_nnz
+                      R=R, T=T, order=order) + sc_nnz
     keep = ice_keep(valid, marg0, nnz, mad_max=mad_max, min_nnz=min_nnz,
                     min_count=min_count)
     return ice_iterate(marginal, keep, tol=tol, max_iters=max_iters)

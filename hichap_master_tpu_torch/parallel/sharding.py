@@ -45,7 +45,7 @@ import torch.distributed as dist
 
 from ..kernels.escalation import escalation_batch
 from ..kernels.segment_marginal import carry_scratch, segment_marginal
-from ..kernels.sparse_marginal import block_sym_matvec
+from ..kernels.sparse_marginal import block_sym_matvec, sparse_marginal_order
 from ..models.compartment import compartment_fused
 from ..ops.correct import two_step_correction_batch
 from ..ops.di import directionality_index, tad_gap_mask
@@ -385,9 +385,11 @@ def sharded_sparse_ice(mesh: Mesh, R: int, T: int, *, max_iters: int = 200,
     def fn(tiles, brow, bcol, n):
         t, br, bc, _ = _tile_shard(mesh, (tiles,), brow, bcol)
         t = zero_tile_diagonals(t.to(torch.float32), br, bc, ignore_diags)
+        order = sparse_marginal_order(br, bc, R)
 
         def marginal(x, b):
-            return mesh.psum(block_sym_matvec(x, br, bc, b, R=R, T=T))
+            return mesh.psum(block_sym_matvec(x, br, bc, b, R=R, T=T,
+                                              order=order))
 
         valid = torch.arange(R * T, device=mesh.device) < int(n)
         ones = valid.to(torch.float32)
@@ -493,16 +495,18 @@ def sharded_hybrid_ice(mesh: Mesh, R: int, T: int, *, ignore_diags: int = 1,
             vals = vals.to(torch.float32)
         kw = ({"scratch": carry_scratch(n_px, dev)} if dev.type == "cuda"
               else {})
+        order = sparse_marginal_order(br, bc, R)
 
         def marginal(b):
-            return mesh.psum(block_sym_matvec(t, br, bc, b, R=R, T=T)
+            return mesh.psum(block_sym_matvec(t, br, bc, b, R=R, T=T,
+                                              order=order)
                              + segment_marginal(cols, vals, lb, b, **kw))
 
         valid = torch.arange(R * T, device=dev) < int(n)
         ones = valid.to(torch.float32)
         marg0 = marginal(ones) * ones
         nnz = (mesh.psum(block_sym_matvec((t != 0).to(torch.float32), br, bc,
-                                          ones, R=R, T=T))
+                                          ones, R=R, T=T, order=order))
                + _whole(sc_nnz, dev, torch.float32))
         keep = ice_keep(valid, marg0, nnz, mad_max=mad_max, min_nnz=min_nnz,
                         min_count=min_count)

@@ -24,7 +24,7 @@ filtering functions as ``block_lines``, where the checkout's functions
 take it, and ``--pairs-block`` is set as ``pipeline.matrix.MATRIX_BLOCK``
 (a parent checkout without them runs its one design).  One JSON line a run, and all
 of them in ``OUT_DIR/memory_measure_TAG.json``; digests of the outputs
-(the filtering files; the haplotype coolers) must agree between
+(the filtering files; every cooler and the gap file) must agree between
 checkouts.
 """
 
@@ -179,12 +179,11 @@ def _matrix(root, tag, kind, pairs_block, dev):
                       WHOLE, LOCAL, device=dev, walls=walls)
 
     got, peak, wall = _measured(run)
-    digest = None
-    if kind == "haplotype":     # K2's atomics move the Traditional weights
-        digest = _digest([p for k, p in got[PREFIX].items()
-                          if k != "tradition"])
+    if kind == "haplotype":
+        digest = _digest(got[PREFIX].values())
         coolers = {k: v for k, v in got[PREFIX].items() if k != "gap"}
     else:
+        digest = _digest([got["merged"]])
         coolers = {"tradition": got["merged"]}
     nnz = {k: {res: _nnz(path, res) for res in WHOLE + LOCAL}
            for k, path in coolers.items()}
