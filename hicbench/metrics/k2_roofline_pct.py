@@ -1,0 +1,19 @@
+"""K2, the block-sparse marginal (``csrc/sparse_marginal.cu``): the least
+time its calls could take by their bytes (``peaks.k2_bytes`` of the 10 kb
+layout, over HBM's 3.35 TB/s) against the device time the trace gives
+its kernels.  The calls are counted from the ICE iterations the traced
+jobs returned: two filter matvecs and one a iteration."""
+
+from hicbench import peaks, trace
+
+KERNELS = ("sparse_marginal_tiles", "sparse_marginal_reduce")
+
+
+def read(ctx):
+    tr, layout, calls = ctx["trace"], ctx["layout"], ctx["calls"].get("k2")
+    if not tr or not layout or not calls:
+        return None
+    t = trace.seconds_of(tr["kernel_s"], KERNELS)
+    if t <= 0:
+        return None
+    return 100.0 * calls * peaks.bound_s(peaks.k2_bytes(layout)) / t

@@ -1,0 +1,19 @@
+"""K7, the scattered marginal (``csrc/segment_marginal.cu``): the least
+time its calls could take by their bytes (``peaks.k7_bytes`` of the 10 kb
+layout, over HBM's 3.35 TB/s) against the device time the trace gives
+its kernels.  The calls are counted from the ICE iterations the traced
+jobs returned: one filter marginal and one a iteration."""
+
+from hicbench import peaks, trace
+
+KERNELS = ("segment_tile_kernel", "segment_carry_kernel")
+
+
+def read(ctx):
+    tr, layout, calls = ctx["trace"], ctx["layout"], ctx["calls"].get("k7")
+    if not tr or not layout or not calls:
+        return None
+    t = trace.seconds_of(tr["kernel_s"], KERNELS)
+    if t <= 0:
+        return None
+    return 100.0 * calls * peaks.bound_s(peaks.k7_bytes(layout)) / t
