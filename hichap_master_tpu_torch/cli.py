@@ -272,9 +272,8 @@ def _rebuild_genome(parser, args, dev, walls) -> None:
         return
     if not args.Snp:
         parser.error("rebuildG needs -S/--Snp unless -N")
-    t0 = time.perf_counter()
-    npz = snps_integration(args.Snp, out)
-    walls["snps"] = time.perf_counter() - t0
+    with profiling.step(walls, "snps", dev):
+        npz = snps_integration(args.Snp, out)
     rebuild_genome(args.genome, npz, args.enzyme, out, args.threads,
                    device=dev, walls=walls)
 
@@ -297,10 +296,8 @@ def _split_fastq(args, walls) -> None:
     shutil.rmtree(stage, ignore_errors=True)
 
     def one(mate, fq, folder):
-        t0 = time.perf_counter()
-        counts = split_reads(fq, folder, args.chunksize, mate)
-        walls[f"mate{mate}"] = time.perf_counter() - t0
-        return counts
+        with profiling.step(walls, f"mate{mate}", "cpu"):
+            return split_reads(fq, folder, args.chunksize, mate)
 
     def move():
         for f in sorted(os.listdir(stage)) if os.path.isdir(stage) else ():

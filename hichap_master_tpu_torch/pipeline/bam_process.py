@@ -34,7 +34,7 @@ import torch
 from ..io.fasta import load_snps
 from ..io.sam import Alignments, merge, read_alignments
 from ..utils.logging import get_logger
-from .columns import step
+from ..utils.profiling import step
 from .pairs import PairResolver, load_fragments, write_rows
 
 log = get_logger(__name__)

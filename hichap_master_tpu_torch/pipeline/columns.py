@@ -1,6 +1,5 @@
 """Column helpers shared by the pipeline stages: host arrays to the
-device, the stable multi-key order, read names as sortable words, and the
-synchronised wall of a step.
+device, the stable multi-key order, read names as sortable words.
 
 ``name_words`` and ``lex_order`` together give Python's ``str`` order of
 read names (and, over the name's length last, its stable sort): each name
@@ -12,8 +11,6 @@ rows.  ``pipeline.filtering`` joins the two haplotypes' beds by it and
 
 from __future__ import annotations
 
-import contextlib
-import time
 from typing import List, Sequence
 
 import numpy as np
@@ -48,20 +45,3 @@ def name_words(names: torch.Tensor, off: torch.Tensor, upto: torch.Tensor,
         k, r = divmod(j, 8)
         w[k] += (b - 128) * (1 << 56) if r == 0 else b << (8 * (7 - r))
     return list(w)
-
-
-@contextlib.contextmanager
-def step(walls, name: str, device):
-    """Wall seconds of a step into ``walls[name]`` (synchronising the
-    device before and after) when ``walls`` is a dict."""
-    if walls is None:
-        yield
-        return
-    cuda = torch.device(device).type == "cuda"
-    if cuda:
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    yield
-    if cuda:
-        torch.cuda.synchronize(device)
-    walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0

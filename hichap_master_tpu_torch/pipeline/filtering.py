@@ -87,7 +87,8 @@ from ..io.bedio import (ALLELIC_CLASSES, TAG_WORDS, Records, _format_rows,
                         _table, iter_record_blocks, read_records,
                         write_lines)
 from ..utils.logging import get_logger
-from .columns import lex_order, name_words, step, upload
+from ..utils.profiling import step
+from .columns import lex_order, name_words, upload
 
 log = get_logger(__name__)
 

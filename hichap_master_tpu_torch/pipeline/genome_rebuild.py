@@ -39,7 +39,7 @@ from ..io.bedio import _format_rows, _table
 from ..io.fasta import (_host_tensor, find_sites, load_snps, parse_snp_file,
                         read_fasta_device, save_snps, write_fasta)
 from ..utils.logging import get_logger
-from .columns import step
+from ..utils.profiling import step
 from .enzyme import enzyme_handle
 
 log = get_logger(__name__)

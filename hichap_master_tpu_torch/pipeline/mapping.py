@@ -66,7 +66,8 @@ from ..core import strip_chr
 from ..io.bedio import _ptr
 from ..io.sam import Alignments, write_sam
 from ..utils.logging import get_logger
-from .columns import lex_order, name_words, step, upload
+from ..utils.profiling import step
+from .columns import lex_order, name_words, upload
 
 log = get_logger(__name__)
 

@@ -66,7 +66,8 @@ from ..ops.sparse import bin_sums, genomewide_correction_coo
 from ..ops.sparse_hybrid import hybrid_from_coo, ice_balance_hybrid
 from ..ops.sparse_impute import (SparseU, disk_row_intervals,
                                  sparse_impute_vote_rowptr)
-from .columns import step, upload
+from ..utils.profiling import count, span, step
+from .columns import upload
 
 DENSE_GW_MAX_BINS = 65_536
 # pairs a block of the matrix stage moves to the device at a time
@@ -82,17 +83,18 @@ class _SparseAcc:
     keys (16 bytes each with their weight) merge in by one sort once
     ``compact_every`` have arrived (and on every read): COMPACT_BYTES of
     them, so that a merge's transient (a few copies of the held and the
-    pending keys) grows with the unique pixels and not with the pairs."""
+    pending keys) grows with the unique pixels and not with the pairs.  A
+    merge is span ``build.merge``; counter ``build.merge_keys`` adds the
+    keys it sorts."""
 
-    def __init__(self, S: int, device,
-                 compact_every: int = COMPACT_BYTES // 16):
+    def __init__(self, S: int, device, compact_every: int | None = None):
         self.S = S
         self.device = torch.device(device)
         self.keys = torch.zeros(0, dtype=torch.int64, device=self.device)
         self.cnts = torch.zeros(0, dtype=torch.float64, device=self.device)
         self._pend = []
         self._pend_n = 0
-        self._compact_every = compact_every
+        self._compact_every = compact_every or COMPACT_BYTES // 16
 
     def _push(self, keys: torch.Tensor, w: torch.Tensor | None = None):
         if w is None:
@@ -106,13 +108,16 @@ class _SparseAcc:
     def _compact(self) -> None:
         if not self._pend:
             return
-        keys = torch.cat([self.keys] + [k for k, _ in self._pend])
-        w = torch.cat([self.cnts] + [v for _, v in self._pend])
-        keys, order = torch.sort(keys)
-        self.keys, inv = torch.unique_consecutive(keys, return_inverse=True)
-        self.cnts = torch.zeros(self.keys.numel(), dtype=torch.float64,
-                                device=self.device)
-        self.cnts.index_add_(0, inv, w[order])
+        count("build.merge_keys", self.keys.numel() + self._pend_n)
+        with span("build.merge"):
+            keys = torch.cat([self.keys] + [k for k, _ in self._pend])
+            w = torch.cat([self.cnts] + [v for _, v in self._pend])
+            keys, order = torch.sort(keys)
+            self.keys, inv = torch.unique_consecutive(keys,
+                                                      return_inverse=True)
+            self.cnts = torch.zeros(self.keys.numel(), dtype=torch.float64,
+                                    device=self.device)
+            self.cnts.index_add_(0, inv, w[order])
         self._pend, self._pend_n = [], 0
 
     def _inb(self, a, b):
@@ -311,23 +316,29 @@ def _traditional_loop(blocks, genome: Genome, whole_res, local_res, device,
     """The one accumulation loop of the traditional matrices: each block of
     valid pairs ``(c1, p1, c2, p2)`` (tensors or host arrays) moved to
     ``device`` and added to every resolution's target.  Returns (whole,
-    local, pairs)."""
-    twhole = {res: _GWAcc(genome.total_bins(res),
-                          _gw_sparse(genome, res, dense_max_bins), device)
-              for res in whole_res}
-    offs = {res: _offsets(genome, res, device) for res in whole_res}
-    tlocal = {res: _IntraAcc(genome, res, device) for res in local_res}
-    total = 0
-    for part in blocks:
-        c1, p1, c2, p2 = _columns(part, device)[:4]
-        total += c1.numel()
-        for res in whole_res:
-            twhole[res].add_sym(p1 // res + offs[res][c1],
-                                p2 // res + offs[res][c2])
-        for res in local_res:
-            tlocal[res].add(c1, p1, c2, p2)
-    return ({res: acc.finish() for res, acc in twhole.items()},
-            {res: acc.finish() for res, acc in tlocal.items()}, total)
+    local, pairs).  Spans ``build``, and a block's ``build.gw_<res>`` and
+    ``build.local_<res>``; counter ``build.pairs``."""
+    with span("build"):
+        twhole = {res: _GWAcc(genome.total_bins(res),
+                              _gw_sparse(genome, res, dense_max_bins),
+                              device)
+                  for res in whole_res}
+        offs = {res: _offsets(genome, res, device) for res in whole_res}
+        tlocal = {res: _IntraAcc(genome, res, device) for res in local_res}
+        total = 0
+        for part in blocks:
+            c1, p1, c2, p2 = _columns(part, device)[:4]
+            count("build.pairs", c1.numel())
+            total += c1.numel()
+            for res in whole_res:
+                with span(f"build.gw_{res}"):
+                    twhole[res].add_sym(p1 // res + offs[res][c1],
+                                        p2 // res + offs[res][c2])
+            for res in local_res:
+                with span(f"build.local_{res}"):
+                    tlocal[res].add(c1, p1, c2, p2)
+        return ({res: acc.finish() for res, acc in twhole.items()},
+                {res: acc.finish() for res, acc in tlocal.items()}, total)
 
 
 def accumulate_genomewide(c1, p1, c2, p2, genome: Genome, res: int,
@@ -796,38 +807,48 @@ def matrix_weights(M, genome: Genome, res: int, cis_only: bool, *,
     (dense ``[S, S]`` or ``SparseGW``).  Cis-only balances each
     ``pad_to_shape`` group of chromosomes in one K1 batch; genome-wide is
     dense K1 up to ``dense_max_bins`` bins and the hybrid K2 + K7 ICE past
-    it.  Returns (weights, stats) with ``stats['iters']`` a list."""
+    it.  Returns (weights, stats) with ``stats['iters']`` a list.  Spans
+    ``weights.layout`` (what the balance reads, laid out) and
+    ``weights.ice`` (the balance)."""
     if cis_only:
         nb = {c: genome.cooler_n_bins(c, res) for c in genome.labels}
         per_label, iters, conv = {}, [], []
         for group, N in bucket_groups(genome.labels, nb, ladder=True):
-            dev = M[group[0]].device
-            batch = torch.zeros(len(group), N, N, dtype=torch.float32,
-                                device=dev)
-            for i, c in enumerate(group):
-                batch[i, :nb[c], :nb[c]] = M[c][:nb[c], :nb[c]]
-            w, st = ice_balance_batch(
-                batch, torch.as_tensor([nb[c] for c in group], device=dev))
-            for i, c in enumerate(group):
-                per_label[c] = w[i, :nb[c]]
-            iters += st["iters"].tolist()
-            conv += st["converged"].tolist()
+            with span("weights.layout"):
+                dev = M[group[0]].device
+                batch = torch.zeros(len(group), N, N, dtype=torch.float32,
+                                    device=dev)
+                for i, c in enumerate(group):
+                    batch[i, :nb[c], :nb[c]] = M[c][:nb[c], :nb[c]]
+            with span("weights.ice"):
+                w, st = ice_balance_batch(
+                    batch, torch.as_tensor([nb[c] for c in group],
+                                           device=dev))
+                for i, c in enumerate(group):
+                    per_label[c] = w[i, :nb[c]]
+                iters += st["iters"].tolist()
+                conv += st["converged"].tolist()
         return (torch.cat([per_label[c] for c in genome.labels]),
                 {"iters": iters, "converged": all(conv)})
     if genome.total_bins(res) > dense_max_bins:
-        b1, b2, v = cooler_coo(M, genome, res)
-        h = hybrid_from_coo(b1, b2, v.round().to(torch.int64),
-                            sum(genome.cooler_n_bins(c, res)
-                                for c in genome.labels), assume_unique=True)
-        w, st = ice_balance_hybrid(h)
+        with span("weights.layout"):
+            b1, b2, v = cooler_coo(M, genome, res)
+            h = hybrid_from_coo(b1, b2, v.round().to(torch.int64),
+                                sum(genome.cooler_n_bins(c, res)
+                                    for c in genome.labels),
+                                assume_unique=True)
+        with span("weights.ice"):
+            w, st = ice_balance_hybrid(h)
     else:
-        idx = _cooler_index(genome, res, M.device)
-        S = idx.numel()
-        P = pad_to_shape(S)
-        Mc = torch.zeros(P, P, dtype=torch.float32, device=M.device)
-        Mc[:S, :S] = M[idx][:, idx]
-        w, st = ice_balance(Mc, S)
-        w = w[:S]
+        with span("weights.layout"):
+            idx = _cooler_index(genome, res, M.device)
+            S = idx.numel()
+            P = pad_to_shape(S)
+            Mc = torch.zeros(P, P, dtype=torch.float32, device=M.device)
+            Mc[:S, :S] = M[idx][:, idx]
+        with span("weights.ice"):
+            w, st = ice_balance(Mc, S)
+            w = w[:S]
     return w, {"iters": [int(st["iters"])],
                "converged": bool(st["converged"])}
 

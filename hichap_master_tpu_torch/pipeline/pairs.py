@@ -58,7 +58,8 @@ from ..core import strip_chr
 from ..io.bedio import _Labels, _format_rows, _iter_line_blocks, _ptr, _table
 from ..io.fasta import POS_BITS, SnpTable, snp_table
 from ..io.sam import HAS_AS, HAS_XS, Alignments
-from .columns import lex_order, name_words, step, upload
+from ..utils.profiling import step
+from .columns import lex_order, name_words, upload
 
 # the outcome of a group
 EMPTY, UNM, MULT, ROW, PAIR = 0, 1, 2, 3, 4

@@ -45,7 +45,8 @@ from ..io.bedio import _format_rows, _table
 from ..io.fasta import match_starts
 from ..io.sam import Alignments, read_alignments
 from ..utils.logging import get_logger
-from .columns import step, upload
+from ..utils.profiling import step
+from .columns import upload
 from .enzyme import enzyme_handle, junction_info
 
 log = get_logger(__name__)

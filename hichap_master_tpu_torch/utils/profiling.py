@@ -1,35 +1,82 @@
-"""Tracing / profiling hooks (SURVEY §5: absent in the reference).
+"""The port's tracer, the synchronised wall of a pipeline step, and the
+command line's stage metrics.
 
-``stage`` is a context manager that logs wall time per pipeline stage and
-accumulates a metrics dict; ``trace`` optionally wraps a block in a
-``torch.profiler`` trace for device timeline inspection.
+``span(name)`` and ``count(name, n)`` mark where the work happens.  They
+are on while a ``torch.profiler`` records, and off otherwise, where they
+cost one check of the profiler's flag each: ``span`` returns a shared
+null context and ``count`` returns; neither reads a tensor or
+synchronises.  On, a span enters ``torch.profiler.record_function``, so
+it lands in the profiler's Chrome trace as a ``user_annotation`` event on
+the clock of the kernels, copies and runtime calls it launches; the
+profiler holds the spans and writes them out at export.  Spans never
+synchronise: device time is put down to a span through the launches made
+inside it, which a reader of the trace links to their kernels by
+``args.correlation``.  ``count`` adds a Python ``int`` (a size the host
+already knows) to counter ``name`` as an empty ``user_annotation``
+event ``<name>+=<n>`` of the same trace, so a trace holds its own
+session's counts and nothing else; a tensor raises ``TypeError``, so no
+counter forces a read-back.
+
+``step`` is a span that also synchronises and adds wall seconds to a
+``walls`` dict when the caller passes one.  ``add``, ``metrics`` and
+``reset_metrics`` hold the command line's ``<workspace>/Metrics/
+<command>.json``.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
-import os
 import time
 from typing import Dict, Optional
 
-from .logging import get_logger
-
-log = get_logger(__name__)
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 _METRICS: Dict[str, float] = {}
+_NULL = contextlib.nullcontext()
+
+
+def _on() -> bool:
+    # a torch without the flag leaves the tracer off
+    return getattr(_autograd_profiler, "_is_profiler_enabled", False)
+
+
+def span(name: str):
+    """A context that marks ``name`` in the profiler's trace while a
+    profiler records, and a shared null context otherwise."""
+    if not _on():
+        return _NULL
+    return torch.profiler.record_function(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n``, a Python ``int``, to counter ``name`` in the profiler's
+    trace while a profiler records."""
+    if not _on():
+        return
+    if not isinstance(n, int):
+        raise TypeError(f"counter {name!r} takes a Python int, got "
+                        f"{type(n).__name__}")
+    with torch.profiler.record_function(f"{name}+={n}"):
+        pass
 
 
 @contextlib.contextmanager
-def stage(name: str):
-    """Time a pipeline stage; accumulates into the module metrics dict."""
-    t0 = time.perf_counter()
-    try:
+def step(walls, name: str, device):
+    """A span ``name``; when ``walls`` is a dict, also its wall seconds
+    into ``walls[name]``, synchronising the device before and after."""
+    with span(name):
+        if walls is None:
+            yield
+            return
+        cuda = torch.device(device).type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
         yield
-    finally:
-        dt = time.perf_counter() - t0
-        _METRICS[name] = _METRICS.get(name, 0.0) + dt
-        log.log(21, "stage %-28s %8.2f s", name, dt)
+        if cuda:
+            torch.cuda.synchronize(device)
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
 
 
 def add(name: str, value: float) -> None:
@@ -50,29 +97,3 @@ def reset_metrics(prefix: Optional[str] = None) -> None:
         return
     for k in [k for k in _METRICS if k.startswith(prefix)]:
         del _METRICS[k]
-
-
-def dump_metrics(path: str) -> None:
-    with open(path, "w") as f:
-        json.dump(metrics(), f, indent=2, sort_keys=True)
-
-
-@contextlib.contextmanager
-def trace(log_dir: Optional[str] = None):
-    """torch.profiler trace wrapper (no-op when log_dir is None): host and,
-    where a card is visible, device activity, written to ``log_dir`` as a
-    Chrome trace."""
-    if not log_dir:
-        yield
-        return
-    import torch
-
-    os.makedirs(log_dir, exist_ok=True)
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield
-    path = os.path.join(log_dir, f"trace_{os.getpid()}.json")
-    prof.export_chrome_trace(path)
-    log.log(21, "torch profiler trace written to %s", path)
