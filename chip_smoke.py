@@ -37,7 +37,11 @@ Phases, each printed on its own line, any failure raising:
    and of P_P, its time in ``files_round``) and K7 its scattered marginal
    (uint16 and float32 values, two runs bit for bit, its edge cases, two
    ranks' shards with clamped bounds among them, and torch.index_select
-   of the same gather as the floor of its L2 traffic);
+   of the same gather as the floor of its L2 traffic); K10 the intra
+   binning of the same draw at 40 kb into every chromosome group's flat
+   buffer, the pooled classes (symmetric rule) and M_M with its tags
+   (single-side rule), bit for bit, and one block of MATRIX_BLOCK pairs
+   timed;
    K3 again at the allelic 40 kb shape (chr1's corrected M matrix of the
    same draw, its pixels cut by the allelic prefilter; pw 1, ww 3, 18
    levels, B = 71), identical to plain; K8 and K9 on the genomes and reads
@@ -1336,6 +1340,76 @@ def k7_compare(h, dev, results):
         unit=f"ms per scattered marginal, hg19 10 kb traditional, P = {P} "
              "(uint16 counts; f32_ keys: the same pixels as float32)",
         gather_ms=gather_ms, library_ms=None, **out)
+
+
+# ----------------------------------------------------------------- K10
+def k10_compare(diploid, dev, results):
+    """K10 on the diploid draw at 40 kb, into the flat buffer of every
+    chromosome group (``_IntraAcc``), bit for bit against its plain
+    version: the five classes pooled, a block of MATRIX_BLOCK pairs at a
+    time (the symmetric rule, as the traditional build feeds it), and M_M
+    with its tags (the single-side rule); then one block timed, beside the
+    bytes it must move (its columns once, each cell it changes once)."""
+    from hichap_master_tpu_torch.io.bedio import TAG_R1
+    from hichap_master_tpu_torch.kernels.intra_bin import (intra_bin,
+                                                           intra_bin_plain)
+    from hichap_master_tpu_torch.pipeline.matrix import (MATRIX_BLOCK,
+                                                         _IntraAcc)
+
+    genome, classes = diploid
+    res = DIPLOID_LOCAL[0]
+    pooled = [torch.cat([classes[k][i] for k in classes]).long()
+              for i in range(4)]
+    mm = [t.long() for t in classes["M_M"][:4]]
+    r1 = classes["M_M"][4] == TAG_R1
+    out = {}
+    for rule, cols, tags in (("symmetric", pooled, None),
+                             ("single_side", mm, classes["M_M"][4])):
+        acc = _IntraAcc(genome, res, dev, single_side=tags is not None)
+        want = torch.zeros_like(acc.flat)
+        for s in range(0, cols[0].numel(), MATRIX_BLOCK):
+            block = [t[s:s + MATRIX_BLOCK] for t in cols]
+            acc.add(*block, tags=None if tags is None
+                    else tags[s:s + MATRIX_BLOCK])
+            intra_bin_plain(want, *block, acc._base, acc._npad, res,
+                            None if tags is None else r1[s:s + MATRIX_BLOCK])
+        torch.cuda.synchronize()
+        check(torch.equal(acc.flat, want),
+              f"K10 ({rule}) differs from plain at "
+              f"{int((acc.flat != want).sum())} cells")
+        # one block of the main path, into a buffer of its own
+        block = [t[:MATRIX_BLOCK] for t in cols]
+        one = r1[:MATRIX_BLOCK] if tags is not None else None
+        flat = torch.zeros_like(acc.flat)
+        intra_bin(flat, *block, acc._base, acc._npad, res, one)
+        changed = int((flat != 0).sum())
+        args = (flat, *block, acc._base, acc._npad, res, one)
+        ms = median_ms(lambda: intra_bin(*args))
+        dev_ms = event_ms(lambda: intra_bin(*args))
+        plain_ms = median_ms(lambda: intra_bin_plain(*args))
+        b = bound(nbytes(*block, *(() if one is None else (one,)))
+                  + 4 * changed)
+        log(f"K10 intra_bin hg19 40 kb ({rule}), {cols[0].numel()} pairs in "
+            f"blocks of {MATRIX_BLOCK}, {len(acc.blocks)} groups, "
+            f"{acc.flat.numel()} cells: identical to plain; one block of "
+            f"{block[0].numel()} pairs changes {changed} cells: {ms:.4f} ms "
+            f"per call ({dev_ms:.4f} ms device) vs {plain_ms:.4f} ms plain, "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        out.update({f"{rule}_ms": ms, f"{rule}_device_ms": dev_ms,
+                    f"{rule}_plain_ms": plain_ms, f"{rule}_cells": changed,
+                    **{f"{rule}_{k}": v for k, v in b.items()}})
+        del acc, want, flat, args
+    results["intra_bin"] = dict(
+        route="cuda", source="hichap_master_tpu_torch/csrc/intra_bin.cu",
+        replaces="hichap_master_tpu/ops/binning.py:83,98 (XLA scatter-adds, "
+                 "no Pallas kernel)",
+        unit=f"ms per block of {MATRIX_BLOCK} pairs, hg19 40 kb diploid "
+             "draw: the pooled classes (symmetric_) and M_M (single_side_)",
+        max_abs_err=0.0, ms=out["symmetric_ms"],
+        device_ms=out["symmetric_device_ms"],
+        plain_ms=out["symmetric_plain_ms"], library_ms=None,
+        bound_ms=out["symmetric_bound_ms"],
+        bound_by=out["symmetric_bound_by"], **out)
 
 
 # ------------------------------------------------------------ main path
@@ -5061,6 +5135,7 @@ def main() -> None:
                                                             prefix_maps)
     from hichap_master_tpu_torch.kernels.ice_sweep import ice_sweeps
     from hichap_master_tpu_torch.kernels.impute_vote import impute_vote
+    from hichap_master_tpu_torch.kernels.intra_bin import intra_bin
     from hichap_master_tpu_torch.kernels.segment_marginal import \
         segment_marginal
     from hichap_master_tpu_torch.kernels.sparse_marginal import \
@@ -5099,6 +5174,8 @@ def main() -> None:
     diploid = diploid_inputs(dev)
     k67_compare(diploid, dev, results)
     torch.cuda.empty_cache()
+    k10_compare(diploid, dev, results)
+    torch.cuda.empty_cache()
     k3_allelic_compare(diploid, dev, results)
     torch.cuda.empty_cache()
     k89_edge_cases(dev, results)
@@ -5110,9 +5187,11 @@ def main() -> None:
                 "hmm_viterbi": hmm_scan.viterbi,
                 "impute_vote": impute_vote,
                 "segment_marginal": segment_marginal,
-                "exact_index": exact_index, "exact_hits": exact_hits}
+                "exact_index": exact_index, "exact_hits": exact_hits,
+                "intra_bin": intra_bin}
 
-    # the kernels of the files and CLI paths: K1-K7 (K8 and K9 map)
+    # the kernels of the files and CLI paths: K1-K7 (K8 and K9 map; K10
+    # is read on the diploid path)
     analysis_kernels = tuple(counters)[:8]
 
     def reset():
@@ -5151,7 +5230,8 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     stage = diploid_stage(diploid, dev)
     diploid_l = read("diploid", ("ice_sweep", "sparse_marginal",
-                                 "impute_vote", "segment_marginal"))
+                                 "impute_vote", "segment_marginal",
+                                 "intra_bin"))
     peak("diploid")
     torch.cuda.empty_cache()
     chr1_plain_ladder(loops, dev, called)

@@ -75,6 +75,7 @@ SIGNATURES = {
     "exact_hits_scan": [_P, _Q, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P,
                         _P],
     "exact_hits_scan_segment": [],
+    "intra_bin": [_P, _P, _P, _P, _P, _P, _P, _I, _Q, _Q, _P, _P],
 }
 
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``hichap_master_tpu/ops/binning.py``.  The JAX package folds
 fixed-size padded chunks into its accumulators with XLA scatter-adds; here
-any number of contacts goes in one ``index_add_`` over flat integer keys.
+any number of contacts goes in one pass: one ``index_add_`` over flat
+integer keys, or K10 for the intra batches.
 The counts are integers, so the float32 sums are exact and independent of
 the order of the adds (up to 2^24 per cell).
 
@@ -12,7 +13,11 @@ Rules (HiCHap/matrixBuilding.py:588-592, 1295-1301):
   increment with the diagonal counted once;
 * single-triangle: a literal (row, col) increment (the haplotype
   single-side rule: R1 at [b1, b2], R2 at [b2, b1]);
-* per-chromosome batch ``[C, N, N]``: intra contacts only.
+* per-chromosome batch ``[C, N, N]``: intra contacts only, kept when
+  ``c1 == c2``, ``0 <= c1 < C``, both positions ``>= 0`` and both bins
+  ``< N``, added by K10 (``kernels/intra_bin``) in one pass with nothing
+  read back to the host; ``pipeline/matrix._IntraAcc`` gives it every
+  chromosome group at once.
 
 Bins outside the target (negative, or past its edge in any dimension) are
 dropped, as XLA drops out-of-bounds scatter updates.  Contacts come
@@ -29,6 +34,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..kernels.intra_bin import intra_bin
 
 
 def _ones(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -82,26 +89,20 @@ def bin_genomewide_single_triangle_bins(acc: torch.Tensor, r: torch.Tensor,
     return acc
 
 
-def _intra_bins(acc, c1, p1, c2, p2, res):
-    c1, p1, c2, p2 = (t.long() for t in (c1, p1, c2, p2))
+def _intra(acc: torch.Tensor, c1, p1, c2, p2, res: int, r1=None):
+    """``acc [C, N, N]`` as K10's flat buffer: chromosome c at ``c * N * N``,
+    every one padded to N."""
     C, N = acc.shape[0], acc.shape[-1]
-    b1, b2 = p1 // res, p2 // res
-    ok = ((c1 == c2) & (c1 >= 0) & (c1 < C) & (p1 >= 0) & (p2 >= 0)
-          & (b1 < N) & (b2 < N))
-    return c1, b1, b2, ok, N
+    base = torch.arange(C, dtype=torch.int64, device=acc.device) * (N * N)
+    intra_bin(acc.view(-1), c1, p1, c2, p2, base, torch.full_like(base, N),
+              res, r1)
+    return acc
 
 
 def bin_intra(acc: torch.Tensor, c1, p1, c2, p2, res: int) -> torch.Tensor:
     """Symmetric intra-chromosome increments into ``acc [C, N, N]`` (batch
     index = chromosome index), in place."""
-    ci, b1, b2, ok, N = _intra_bins(acc, c1, p1, c2, p2, res)
-    ci, b1, b2 = ci[ok], b1[ok], b2[ok]
-    flat = acc.view(-1)
-    flat.index_add_(0, (ci * N + b1) * N + b2, _ones(ci.numel(), acc))
-    off = b1 != b2
-    flat.index_add_(0, (ci[off] * N + b2[off]) * N + b1[off],
-                    _ones(int(off.sum()), acc))
-    return acc
+    return _intra(acc, c1, p1, c2, p2, res)
 
 
 def bin_intra_single_side(acc: torch.Tensor, c1, p1, c2, p2,
@@ -109,13 +110,7 @@ def bin_intra_single_side(acc: torch.Tensor, c1, p1, c2, p2,
     """Single-side intra increments: R1 adds at [b1, b2] only, R2 at
     [b2, b1] only (one triangle each; symmetrised later by the
     correction), in place."""
-    ci, b1, b2, ok, N = _intra_bins(acc, c1, p1, c2, p2, res)
-    r1 = is_r1[ok]
-    ci, b1, b2 = ci[ok], b1[ok], b2[ok]
-    r = torch.where(r1, b1, b2)
-    c = torch.where(r1, b2, b1)
-    acc.view(-1).index_add_(0, (ci * N + r) * N + c, _ones(ci.numel(), acc))
-    return acc
+    return _intra(acc, c1, p1, c2, p2, res, is_r1)
 
 
 # ------------------------------------------------------------ host driver

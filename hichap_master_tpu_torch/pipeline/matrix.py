@@ -20,12 +20,12 @@ pixels, and no block size moves a bit of the output.
 
 Where the JAX package keeps most of this stage on the host (TPU scatter
 serialises, so it bins with ``np.bincount`` and a native hash), the port
-accumulates on the device: dense targets by ``index_add_`` of integer
-keys, genome-wide targets past the dense cap (``dense_max_bins``, 65,536
-bins as in the JAX package) by one sort of int64 keys and
-``unique_consecutive``.  The counts are integers, so every sum is exact and
-independent of the order of the adds; the integer tables equal the JAX
-package's.
+accumulates on the device: dense genome-wide targets by ``index_add_`` of
+integer keys, the intra targets by K10 in one pass, genome-wide targets
+past the dense cap (``dense_max_bins``, 65,536 bins as in the JAX package)
+by one sort of int64 keys and ``unique_consecutive``.  The counts are
+integers, so every sum is exact and independent of the order of the adds;
+the integer tables equal the JAX package's.
 
 The haplotype build keeps the JAX package's three passes and its fixes of
 the reference's P_P and R2 bugs (DIVERGENCES.md):
@@ -55,10 +55,10 @@ from ..io.bedio import (ALLELIC_CLASSES, TAG_BOTH, TAG_R1, TAGGED,
                         bed_prefix, discover_allelic_beds, iter_valid_bed,
                         read_allelic_bed)
 from ..io.cooler import cooler_group, write_multi_cooler
+from ..kernels.intra_bin import intra_bin
 from ..ops.balance import ice_balance, ice_balance_batch
 from ..ops.binning import (bin_genomewide, bin_genomewide_bins,
-                           bin_genomewide_single_triangle_bins, bin_intra,
-                           bin_intra_single_side)
+                           bin_genomewide_single_triangle_bins)
 from ..ops.correct import (genomewide_alpha, genomewide_alpha_margins,
                            genomewide_correction, two_step_correction_batch)
 from ..ops.imputation import disk_offsets, impute_inter_chunk
@@ -211,10 +211,12 @@ class _GWAcc:
 class _IntraAcc:
     """Per-chromosome intra matrices as ``[G, N, N]`` blocks, one per group
     of chromosomes with the same padded size (``bucket_groups``, multiples
-    of 512), filled by ``bin_intra`` (or ``bin_intra_single_side``).
-    ``finish`` returns each chromosome's ``[n, n]`` view.  Bins past a
-    chromosome's padded size are dropped, as XLA drops out-of-bounds
-    scatter updates."""
+    of 512), all views of one flat float32 buffer (``flat``), which K10
+    (``kernels/intra_bin``) fills a block of pairs at a time in one pass,
+    by the chromosome's offset in it (``_base``) and its group's padded
+    size (``_npad``).  ``finish`` returns each chromosome's ``[n, n]``
+    view.  Bins past a chromosome's padded size are dropped, as XLA drops
+    out-of-bounds scatter updates."""
 
     def __init__(self, genome: Genome, res: int, device,
                  single_side: bool = False):
@@ -223,29 +225,30 @@ class _IntraAcc:
         self.nb = {c: genome.n_bins(c, res) for c in genome.labels}
         groups = bucket_groups(genome.labels, self.nb)
         label_idx = {c: i for i, c in enumerate(genome.labels)}
-        group = np.zeros(len(genome.labels), np.int64)
-        slot = np.zeros(len(genome.labels), np.int64)
+        base = np.zeros(len(genome.labels), np.int64)
+        npad = np.zeros(len(genome.labels), np.int64)
         self._views = []
-        for gi, (labels, _N) in enumerate(groups):
+        sizes = [len(labels) * N * N for labels, N in groups]
+        self.flat = torch.zeros(sum(sizes), dtype=torch.float32,
+                                device=device)
+        self.blocks = []
+        at = 0
+        for gi, ((labels, N), size) in enumerate(zip(groups, sizes)):
+            self.blocks.append(self.flat[at:at + size].view(len(labels), N,
+                                                            N))
             for k, c in enumerate(labels):
-                group[label_idx[c]], slot[label_idx[c]] = gi, k
+                base[label_idx[c]], npad[label_idx[c]] = at + k * N * N, N
                 self._views.append((c, gi, k))
-        self._group = torch.as_tensor(group, device=device)
-        self._slot = torch.as_tensor(slot, device=device)
-        self.blocks = [torch.zeros(len(labels), N, N, dtype=torch.float32,
-                                   device=device) for labels, N in groups]
+            at += size
+        self._base = torch.as_tensor(base, device=device)
+        self._npad = torch.as_tensor(npad, device=device)
 
     def add(self, c1, p1, c2, p2, tags=None) -> None:
-        c1, c2 = c1.long(), c2.long()
-        intra = c1 == c2
-        for gi, blk in enumerate(self.blocks):
-            sel = intra & (self._group[c1] == gi)
-            s = self._slot[c1[sel]]
-            if self.single:
-                bin_intra_single_side(blk, s, p1[sel], s, p2[sel],
-                                      tags[sel] == TAG_R1, self.res)
-            else:
-                bin_intra(blk, s, p1[sel], s, p2[sel], self.res)
+        """A block of pairs, by the single-side rule with ``tags`` (R1 at
+        [b1, b2], any other tag at [b2, b1]) if the accumulator is
+        single-side, else symmetric; trans pairs drop."""
+        intra_bin(self.flat, c1, p1, c2, p2, self._base, self._npad,
+                  self.res, (tags == TAG_R1) if self.single else None)
 
     def _out(self, blocks) -> Dict[str, torch.Tensor]:
         return {c: blocks[gi][k, :self.nb[c], :self.nb[c]]
@@ -525,8 +528,7 @@ def _haplotype_passes(blocks, genome: Genome, whole_res, local_res,
                     swhole[res].add_directed(torch.where(r1, b1, b2),
                                              torch.where(r1, b2, b1))
                 for res in local_res:
-                    slocal[res][side].add(s1[intra], q1[intra], s2[intra],
-                                          q2[intra], tags=tag[intra])
+                    slocal[res][side].add(s1, q1, s2, q2, tags=tag)
         unimp_whole = {res: uwhole[res].finish() for res in whole_res}
         unimp_local, imp_local = {}, {}
         for res in local_res:

@@ -88,17 +88,78 @@ def test_intra_binning_matches_jax():
     np.testing.assert_array_equal(pss.numpy(), np.asarray(jss))
 
 
-@pytest.mark.parametrize("single_side", [False, True])
-def test_intra_accumulator_matches_jax(single_side):
+@pytest.mark.parametrize("single_side", [False, True],
+                         ids=["symmetric", "single_side"])
+@pytest.mark.parametrize("draw", ["edges", "empty"])
+def test_intra_binning_cases_match_jax(single_side, draw):
+    """``bin_intra`` / ``bin_intra_single_side`` (the one-group case of K10's
+    entry) against the JAX package: trans pairs, positions below 0 and up
+    to three times the batch's width (bins past N), each chunk's valid
+    rows; ``empty`` feeds zero-length chunks between them."""
+    rng = np.random.default_rng(21 + single_side)
+    res, C, N = 10_000, 3, 40
+    j = jnp.zeros((C, N, N), jnp.float32)
+    p = torch.zeros(C, N, N)
+    for c1, p1, c2, p2, tag, valid in _chunks(rng, 3, 900, C, 3 * N * res):
+        if draw == "empty":
+            valid = np.zeros_like(valid)
+        args = [jnp.asarray(a) for a in (c1, p1, c2, p2)]
+        targs = [_t(a[valid]) for a in (c1, p1, c2, p2)]
+        if single_side:
+            j = J.bin_intra_single_side(j, *args, jnp.asarray(tag == 1),
+                                        jnp.asarray(valid), res)
+            P.bin_intra_single_side(p, *targs, _t(tag[valid] == 1), res)
+        else:
+            j = J.bin_intra(j, *args, jnp.asarray(valid), res)
+            P.bin_intra(p, *targs, res)
+    np.testing.assert_array_equal(p.numpy(), np.asarray(j))
+    assert (p.sum() > 0) == (draw == "edges")
+
+
+# chromosomes in three size groups at 1 kb (1,300, 900, 400 and 300 bins:
+# padded to 1,536, 1,024, 512 and 512)
+SIZES3 = {"1": 1_300_000, "2": 900_000, "3": 400_000, "X": 300_000}
+RES3 = 1_000
+
+
+def _group_chunks(rng, sizes=SIZES3, res=RES3, m=4_000):
+    """Chunks (c1, p1, c2, p2, tag, valid) over chromosomes of several size
+    groups: 30% trans pairs, positions from 3 bins below 0 to a quarter
+    past each chromosome's padded size (so bins between its ``n_bins`` and
+    the group's N, and past N), the last chunk empty."""
+    n = np.array([-(-v // res) for v in sizes.values()])
+    top = (-(-n // 512) * 512 * 5 // 4) * res
+    for rows in (m, m, m // 2, 0):
+        c1 = rng.integers(0, len(sizes), rows).astype(np.int32)
+        c2 = np.where(rng.random(rows) < 0.7, c1,
+                      rng.integers(0, len(sizes), rows)).astype(np.int32)
+        p1 = rng.integers(-3 * res, top[c1])
+        p2 = rng.integers(-3 * res, top[c2])
+        tag = rng.integers(0, 3, rows).astype(np.int8)
+        yield c1, p1, c2, p2, tag, np.ones(rows, bool)
+
+
+@pytest.mark.parametrize("single_side, draw", [
+    pytest.param(False, "chunks", id="False"),
+    pytest.param(True, "chunks", id="True"),
+    pytest.param(False, "groups", id="groups-symmetric"),
+    pytest.param(True, "groups", id="groups-single_side"),
+])
+def test_intra_accumulator_matches_jax(single_side, draw):
     """``_IntraAcc``: per-chromosome views of the flat device buffer
-    against the JAX package's (bucketed by 512) fed the same chunks."""
+    against the JAX package's (bucketed by 512) fed the same chunks; over
+    several size groups the whole flat buffer too, padding included,
+    against the JAX package's flat host buffer of the same layout."""
     rng = np.random.default_rng(2 + single_side)
-    res = 50_000
-    jacc = JM._IntraAcc(JGenome(SIZES), res, single_side=single_side)
-    pacc = PM._IntraAcc(Genome(SIZES), res, CPU, single_side=single_side)
-    jacc2 = JM._IntraAcc(JGenome(SIZES), res)
-    pacc2 = PM._IntraAcc(Genome(SIZES), res, CPU)
-    for c1, p1, c2, p2, tag, valid in _chunks(rng):
+    sizes, res = (SIZES, 50_000) if draw == "chunks" else (SIZES3, RES3)
+    chunks = _chunks(rng) if draw == "chunks" else _group_chunks(rng)
+    jacc = JM._IntraAcc(JGenome(sizes), res, single_side=single_side)
+    pacc = PM._IntraAcc(Genome(sizes), res, CPU, single_side=single_side)
+    jacc2 = JM._IntraAcc(JGenome(sizes), res)
+    pacc2 = PM._IntraAcc(Genome(sizes), res, CPU)
+    if draw == "groups":
+        assert len(pacc.blocks) == 3
+    for c1, p1, c2, p2, tag, valid in chunks:
         c1, p1, c2, p2, tag = (a[valid] for a in (c1, p1, c2, p2, tag))
         tags = tag if single_side else None
         jacc.add(c1, p1, c2, p2, tags=tags)
@@ -111,6 +172,30 @@ def test_intra_accumulator_matches_jax(single_side):
         assert list(got) == list(want)
         for c in want:
             np.testing.assert_array_equal(got[c].numpy(), want[c])
+    if draw == "groups":
+        for p, j in ((pacc, jacc), (pacc2, jacc2)):
+            np.testing.assert_array_equal(p.flat.numpy(), j._finish_flat())
+        assert pacc.flat.sum() > 0 and pacc2.flat.sum() > 0
+
+
+@pytest.mark.parametrize("single_side", [False, True])
+def test_intra_finish_plus_is_one_accumulator_fed_both(single_side):
+    """``finish_plus`` of two accumulators fed two halves of a draw equals
+    one accumulator fed all of it, bit for bit."""
+    rng = np.random.default_rng(11 + single_side)
+    g = Genome(SIZES3)
+    a, b, both = (PM._IntraAcc(g, RES3, CPU, single_side=single_side)
+                  for _ in range(3))
+    for i, (c1, p1, c2, p2, tag, _) in enumerate(_group_chunks(rng)):
+        cols = [_t(x) for x in (c1, p1, c2, p2)]
+        tags = _t(tag) if single_side else None
+        (a if i % 2 else b).add(*cols, tags=tags)
+        both.add(*cols, tags=tags)
+    got, want = a.finish_plus(b), both.finish()
+    assert list(got) == list(want)
+    for c in want:
+        assert torch.equal(got[c], want[c])
+    assert both.flat.sum() > 0
 
 
 @pytest.mark.parametrize("directed", [False, True])

@@ -10,6 +10,7 @@ from hichap_master_tpu_torch.kernels import hmm_scan
 from hichap_master_tpu_torch.kernels.escalation import (escalation_batch,
                                                         ladder, prefix_maps)
 from hichap_master_tpu_torch.kernels.ice_sweep import IceState, ice_sweeps
+from hichap_master_tpu_torch.kernels.intra_bin import intra_bin
 from hichap_master_tpu_torch.kernels.sparse_marginal import block_sym_matvec
 
 # the suite runs as several worker processes: one torch thread each
@@ -86,3 +87,11 @@ def test_k3_parts_do_not_fall_back_off_the_cpu():
     mask = torch.empty(1, 4, 8, dtype=torch.uint8, device=meta)
     with pytest.raises(RuntimeError, match="no ladder kernel"):
         ladder(W, mask, 1, 2, 1)
+
+
+def test_intra_bin_does_not_fall_back_off_the_cpu():
+    meta = torch.device("meta")
+    cols = [torch.zeros(4, dtype=torch.int64, device=meta)] * 4
+    table = torch.zeros(2, dtype=torch.int64, device=meta)
+    with pytest.raises(RuntimeError, match="no intra binning kernel"):
+        intra_bin(torch.zeros(8, device=meta), *cols, table, table, 1000)
