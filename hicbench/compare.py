@@ -119,7 +119,9 @@ def weights_gap(p: torch.Tensor, r: torch.Tensor) -> tuple:
 # A view holds what is judged, in the reference's form: ``tables`` {name:
 # (keys, counts)}, ``vote`` {name: count}, ``corrected`` {name: (keys,
 # values) or a dense matrix}, ``gaps`` {name: bool [n]} and ``weights``
-# {res: [bins]}.
+# {res: [bins]}.  The reference's view also carries what metrics count
+# from it, never judged: ``trad`` (the Traditional whole-genome tables)
+# and, for a haplotype job, ``vote_inputs`` (``reference.haplotype``).
 
 
 def reference_view(job, prec: ref.Prec = ref.REFERENCE) -> dict:
@@ -153,6 +155,7 @@ def reference_view(job, prec: ref.Prec = ref.REFERENCE) -> dict:
             for i, m in cor["local"][r].items():
                 view["corrected"][f"local/{r}/{i}"] = m
                 view["gaps"][f"{r}/{i}"] = cor["gaps"][r][i]
+        view["vote_inputs"] = hap["vote_inputs"]
         trad = {"whole": hap["Tradition_Whole"],
                 "local": hap["Tradition_Local"]}
     del pairs

@@ -19,8 +19,15 @@ A pair is drawn exactly: a chromosome by its weight, the first mate
 uniform, the distance from the law, and a pair that would leave the
 chromosome is drawn again (a draw again is a fixed function of the seed,
 so the same seed gives the same pairs).  Mates come in either order.
-Allelic classes each get their own draw, in the order of ``counts``;
-M_M and P_P also carry tags: 40% both-side (0), 30% R1 (1), 30% R2 (2).
+Allelic classes each get their own draw, in the order of ``counts``.
+M_M and P_P also carry tags, both-side (0), R1 (1) or R2 (2), in the
+shares ``tags`` gives (``TAGS``, 40/30/30, where a configuration states
+none).  M_P and P_M pairs join loci of the two homologs: under
+``homolog="cis"`` they are drawn as any other class, by the law above;
+under ``"trans"`` as two loci on separate molecules, which is what the
+homologs are: each chromosome by its length, independently (the same
+label allowed), each position uniform, the rule the law already applies
+between chromosomes.
 """
 
 from __future__ import annotations
@@ -29,6 +36,27 @@ import torch
 
 CLASSES = ("Bi_Allelic", "M_M", "P_P", "M_P", "P_M")
 TAGGED = ("M_M", "P_P")
+HOMOLOG = ("M_P", "P_M")
+# the shares of M_M and P_P pairs tagged both-side, R1 and R2 where a
+# configuration states none
+TAGS = {"both": 0.4, "r1": 0.3, "r2": 0.3}
+HOMOLOG_LAWS = ("cis", "trans")
+
+
+def _check_allelic(tags: dict, homolog: str) -> None:
+    """Raise ``ValueError`` unless ``tags`` gives the shares ``both``,
+    ``r1`` and ``r2``, none negative, summing to 1 (to 1e-9), and
+    ``homolog`` is one of ``HOMOLOG_LAWS``."""
+    if not isinstance(tags, dict) or set(tags) != set(TAGS):
+        raise ValueError(f"tags must give the shares {sorted(TAGS)}, "
+                         f"not {tags!r}")
+    shares = [float(tags[k]) for k in TAGS]
+    if min(shares) < 0 or abs(sum(shares) - 1) > 1e-9:
+        raise ValueError(f"tags must be shares, none negative, that sum "
+                         f"to 1: {tags!r}")
+    if homolog not in HOMOLOG_LAWS:
+        raise ValueError(f"homolog must be one of {HOMOLOG_LAWS}, not "
+                         f"{homolog!r}")
 
 
 def _law(law: dict) -> tuple:
@@ -65,10 +93,19 @@ def trans_share(lengths, law: dict) -> float:
     return trans / (trans + intra)
 
 
-def allelic_pairs(lengths, counts, seed: int, *, device, law: dict) -> dict:
+def allelic_pairs(lengths, counts, seed: int, *, device, law: dict,
+                  tags: dict | None = None, homolog: str = "cis") -> dict:
     """``{class: (c1 int32, p1 int64, c2 int32, p2 int64[, tag int8])}``
     drawn on ``device`` from ``seed``; ``counts`` gives the pairs of each
-    class, drawn in the order of its keys."""
+    class, drawn in the order of its keys; ``tags`` the shares of M_M and
+    P_P tagged both-side, R1 and R2 (``TAGS`` when None); ``homolog`` the
+    law of M_P and P_M pairs.  With neither given the draw is the one the
+    generator was frozen with."""
+    tags = TAGS if tags is None else tags
+    _check_allelic(tags, homolog)
+    # a tag is 0 below the first cut, 1 below the second, 2 above it
+    cut1 = float(tags["both"])
+    cut2 = 1.0 - float(tags["r2"])
     device = torch.device(device)
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
@@ -115,6 +152,12 @@ def allelic_pairs(lengths, counts, seed: int, *, device, law: dict) -> dict:
         swap = uniform(n) < 0.5
         return c, torch.where(swap, p2, p1), c, torch.where(swap, p1, p2)
 
+    def homologs(n):
+        # two molecules: each locus anywhere on its genome copy
+        c1, c2 = chrom(n, by_length), chrom(n, by_length)
+        return (c1, (uniform(n) * sizes[c1]).long(),
+                c2, (uniform(n) * sizes[c2]).long())
+
     def trans(n):
         c1 = torch.empty(n, dtype=torch.int64, device=device)
         c2 = torch.empty_like(c1)
@@ -131,18 +174,22 @@ def allelic_pairs(lengths, counts, seed: int, *, device, law: dict) -> dict:
 
     out = {}
     for cls, n in counts.items():
-        far = uniform(n) < t
-        cols = [torch.empty(n, dtype=torch.int64, device=device)
-                for _ in range(4)]
-        for sel, part in ((~far, intra(int((~far).sum()))),
-                          (far, trans(int(far.sum())))):
-            for col, x in zip(cols, part):
-                col[sel] = x
+        if homolog == "trans" and cls in HOMOLOG:
+            cols = list(homologs(n))
+        else:
+            far = uniform(n) < t
+            cols = [torch.empty(n, dtype=torch.int64, device=device)
+                    for _ in range(4)]
+            for sel, part in ((~far, intra(int((~far).sum()))),
+                              (far, trans(int(far.sum())))):
+                for col, x in zip(cols, part):
+                    col[sel] = x
         cols = (cols[0].to(torch.int32), cols[1], cols[2].to(torch.int32),
                 cols[3])
         if cls in TAGGED:
             u = uniform(n)
-            cols += ((u >= 0.4).to(torch.int8) + (u >= 0.7).to(torch.int8),)
+            cols += ((u >= cut1).to(torch.int8)
+                     + (u >= cut2).to(torch.int8),)
         out[cls] = cols
     return out
 

@@ -31,9 +31,13 @@ PREFIX = "GM12878_R1_"
 
 def draw(cfg: dict, seed: int, device, pooled: bool) -> object:
     """The configuration's pairs from ``seed``: the allelic classes, or
-    their pooled valid pairs."""
-    classes = generator.allelic_pairs(cfg["lengths"], cfg["counts"], seed,
-                                      device=device, law=cfg["contacts"])
+    their pooled valid pairs.  The allelic draw is the one the
+    configuration states (``tags``, ``homolog``; the generator's defaults
+    where it states none); malformed values raise ``ValueError``."""
+    classes = generator.allelic_pairs(
+        cfg["lengths"], cfg["counts"], seed, device=device,
+        law=cfg["contacts"], tags=cfg.get("tags"),
+        homolog=cfg.get("homolog", "cis"))
     if not pooled:
         return classes
     out = generator.pooled(classes)
@@ -43,7 +47,9 @@ def draw(cfg: dict, seed: int, device, pooled: bool) -> object:
 
 class Job:
     """One cell's job: set up from the configuration, the traffic and the
-    seed, then ``run()`` as often as the window allows."""
+    seed, then ``run()`` as often as the window allows.  A configuration
+    with other ICE settings than the port's, or a malformed allelic draw,
+    is refused with ``ValueError``."""
 
     def __init__(self, cfg: dict, traffic: dict, seed: int, device):
         from hichap_master_tpu_torch.core import Genome
@@ -123,9 +129,6 @@ class Job:
     def iters(self, out) -> int:
         """ICE iterations of the job, summed over its resolutions."""
         return sum(sum(s["iters"]) for s in self.ice(out).values())
-
-    def iters_at(self, out, res: int) -> int:
-        return sum(self.ice(out)[res]["iters"])
 
     def digest(self, out) -> dict:
         """``compare.digest`` of the output, from host counts and one NaN

@@ -391,7 +391,11 @@ def haplotype(classes: dict, lengths, whole_res, local_res, vote_cfg: dict,
     """Every table of the haplotype build (Traditional, UnImputated and
     Imputated before correction), the vote's query and hit counts, and
     the single-side counts, keyed as ``traditional`` keys them; diploid
-    bins are the maternal copy of each chromosome, then the paternal."""
+    bins are the maternal copy of each chromosome, then the paternal.
+    ``vote_inputs[res]`` holds what the vote read at each genome-wide
+    resolution: ``S``, ``L``, the un-imputed matrix's sorted directed
+    ``keys`` (``row * S + col``), the ``disk`` (``disk_rows(L)``) and the
+    ``queries`` (row, same-haplotype column, cross column)."""
     dev = classes["M_M"][0].device
     nc = len(lengths)
     hap_lengths = list(lengths) + list(lengths)
@@ -401,7 +405,8 @@ def haplotype(classes: dict, lengths, whole_res, local_res, vote_cfg: dict,
     out = {"Tradition_Whole": out["whole"], "Tradition_Local": out["local"],
            "UnImputated_Whole": {}, "UnImputated_Local": {},
            "Imputated_Whole": {}, "Imputated_Local": {},
-           "vote_queries": {}, "vote_hits": {}, "single_side": {}}
+           "vote_queries": {}, "vote_hits": {}, "single_side": {},
+           "vote_inputs": {}}
     # the both-side pairs of M_M / P_P and every M_P / P_M pair, and the
     # single-side pairs of M_M / P_P, on diploid chromosome indices
     both, single = [], []
@@ -448,6 +453,9 @@ def haplotype(classes: dict, lengths, whole_res, local_res, vote_cfg: dict,
                         vote_cfg["imputation_ratio"], prec)
         parts.append(table(rk[hit] * S + tgt[hit], prec))
         out["Imputated_Whole"][res] = merge(prec, *parts)
+        out["vote_inputs"][res] = {"S": S, "L": L, "keys": dk,
+                                   "disk": disk_rows(L),
+                                   "queries": (rk, cs, cc)}
         out["vote_queries"][res] = int(rk.numel())
         out["vote_hits"][res] = int(hit.sum())
         out["single_side"][res] = n_single

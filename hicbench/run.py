@@ -13,8 +13,13 @@ warm; that is ``setup_s``.  Then it runs the job back to back for
 that, and ``job_s`` is the window over the jobs in it; ``peak_mem_gib`` is
 the allocator's peak over the window.  With ``--trace 1`` the second job
 of the window runs under ``torch.profiler`` (its Chrome trace goes to
-``TMPDIR``), a haplotype job passes the entry's synchronised ``walls``,
-and the per-layer metrics are printed instead of the end-to-end ones.
+``TMPDIR``), the port's kernel launch counters are read around it
+(``calls``, in the result beside the job's ICE iterations at each
+resolution, ``profiled_iters``), a haplotype job passes the entry's
+synchronised ``walls``, and the per-layer metrics are printed instead of
+the end-to-end ones; their readers also get the layout of the reference's
+10 kb map and, for a haplotype job, the reference's vote inputs
+(``vote``).
 
 Once the window has closed and the peak is read, the last job's output
 is compared with the plain reference (``compare``), and every job's
@@ -158,6 +163,7 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
     parts["warm_job"] = setup_s
 
     walls, iters, calls, trace_path, times = [], [], {}, None, []
+    prof_iters = {}
     # what set-up left behind is not traversed by the collections that
     # run inside the window
     gc.freeze()
@@ -168,9 +174,11 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
         out = None
         wd = {} if traced and job.kind == "haplotype_matrix" else None
         if traced and len(iters) == 1:
+            before = launch_counts()
             out, trace_path = _profiled(job, wd, name, seed)
-            k = job.iters_at(out, res_hi) if res_hi in job.ice(out) else 0
-            calls = {"k2": k + 2, "k7": k + 1} if k else {}
+            calls = launches_since(before)
+            prof_iters = {str(r): int(sum(st["iters"]))
+                          for r, st in job.ice(out).items()}
         else:
             t_job = time.perf_counter()
             out = job.run(wd)
@@ -221,7 +229,8 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
             keep = (r >= 0) & (c >= 0)
             layout = peaks.hybrid_layout(r[keep], c[keep], vals[keep], n)
         ctx = {"walls": walls, "iters": iters, "trace": tr_sum,
-               "layout": layout, "calls": calls}
+               "layout": layout, "calls": calls,
+               "vote": vote_inputs(want, cfg["dense_max_bins"])}
         for m in manifest.cell_metrics(name, bench, "per_layer"):
             v = manifest.metric_reader(m["name"], here)(ctx)
             if v is not None:
@@ -231,6 +240,9 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
                             window_s=tr_sum["window_s"])
             extra["breakdown"] = {"device_ops": tr_sum["device_ops"],
                                   "idle_gaps": tr_sum["idle_gaps"]}
+        # what the calls are counted against: the profiled job's ICE
+        # iterations at each resolution
+        extra.update(calls=calls, profiled_iters=prof_iters)
     else:
         # a quantity split by cells (``job_s.balance``) is read as the
         # quantity before the first dot
@@ -247,6 +259,42 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
                               if len(times) > 1 else times),
             "checks": {k: {"value": _finite(v), "limit": lim}
                        for k, v, lim in rows}}
+
+
+def launch_counts() -> dict:
+    """``{"<module>.<wrapper>": launches}`` of the port's kernel wrappers
+    loaded so far: each counts its CUDA launches in an integer attribute
+    ``launches`` (``hichap_master_tpu_torch/kernels/__init__.py``); a
+    wrapper that ran its plain version on the CPU counts none."""
+    pkg = "hichap_master_tpu_torch.kernels."
+    out = {}
+    for mod_name, mod in list(sys.modules.items()):
+        if not mod_name.startswith(pkg) or mod is None:
+            continue
+        for attr, f in vars(mod).items():
+            n = getattr(f, "launches", None)
+            if (callable(f) and type(n) is int
+                    and getattr(f, "__module__", None) == mod_name):
+                out[f"{mod_name[len(pkg):]}.{attr}"] = n
+    return out
+
+
+def launches_since(before: dict) -> dict:
+    """The wrappers that launched since ``launch_counts`` gave ``before``,
+    and how often: K2's calls are ``sparse_marginal.block_sym_matvec``,
+    K7's ``segment_marginal.segment_marginal``."""
+    return {k: n - before.get(k, 0) for k, n in launch_counts().items()
+            if n > before.get(k, 0)}
+
+
+def vote_inputs(want: dict, dense_max_bins: int) -> dict:
+    """``{res: the reference's vote inputs}`` (``reference.haplotype``) at
+    each resolution that the port votes on with K6: its diploid map is
+    past the dense cap, the disk has rows and the un-imputed matrix an
+    entry.  Empty for a job without a vote."""
+    return {res: v for res, v in want.get("vote_inputs", {}).items()
+            if v["S"] > dense_max_bins and v["L"] >= 1
+            and v["keys"].numel()}
 
 
 def _finite(v):

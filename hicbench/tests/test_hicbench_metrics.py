@@ -94,8 +94,38 @@ def test_trace_readers():
           "kernel_s": {"void sparse_marginal_tiles<float>": k2_t * 0.75,
                        "void sparse_marginal_reduce": k2_t * 0.25,
                        "other": 1.0}}
-    c = _ctx(trace=tr, layout=layout, calls={"k2": 20, "k7": 19})
+    c = _ctx(trace=tr, layout=layout,
+             calls={"sparse_marginal.block_sym_matvec": 20,
+                    "segment_marginal.segment_marginal": 19})
     assert manifest.metric_reader("device_idle_pct")(c) == pytest.approx(25)
     assert manifest.metric_reader("k2_roofline_pct")(c) == pytest.approx(50)
     # no K7 kernel in the trace: nothing to read, not 0
     assert manifest.metric_reader("k7_roofline_pct")(c) is None
+
+
+def test_k6_bytes_hand_worked(monkeypatch):
+    from hicbench import reference
+
+    # L = 2: the disk's rows 0, 1, 2 below the query's, columns c + 1,
+    # c .. c + 2 and c + 1
+    disk = reference.disk_rows(2)
+    assert [a.tolist() for a in disk] == [[0, 1, 2], [1, 0, 1], [1, 2, 1]]
+    S = 8
+    # directed U: (3, 4), (4, 3), (4, 5), (5, 4), (6, 6)
+    keys = torch.tensor([28, 35, 37, 44, 54])
+    vote = {"S": S, "L": 2, "keys": keys, "disk": disk,
+            "queries": (torch.tensor([3]), torch.tensor([3]),
+                        torch.tensor([5]))}
+    # query (3, 3 | 5): the same column's windows hold key 28 (prefix 0,
+    # 1), 35-37 (1, 3) and 44 (3, 4); the cross one's 37 (2, 3): prefix
+    # positions 0-4
+    fixed = 4 * 5 + 4 * (S + 1) + 3 * 4 * 3
+    assert peaks.k6_bytes(vote) == fixed + (24 + 5) * 1 + 8 * 5
+    # a query whose window leaves [0, S) reads nothing of U; (4, 5 | 2)
+    # reaches 54 (prefix 4, 5), 35 (1, 2) and 44 (3, 4): positions 0-5
+    vote["queries"] = (torch.tensor([3, 1, 4]), torch.tensor([3, 3, 5]),
+                       torch.tensor([5, 5, 2]))
+    assert peaks.k6_bytes(vote) == fixed + (24 + 5) * 3 + 8 * 6
+    # the windows searched a query at a time count the same
+    monkeypatch.setattr(peaks, "K6_QUERY_BLOCK", 1)
+    assert peaks.k6_bytes(vote) == fixed + (24 + 5) * 3 + 8 * 6
