@@ -474,7 +474,12 @@ def _haplotype_passes(blocks, genome: Genome, whole_res, local_res,
                       walls):
     """The three passes of ``build_haplotype_datasets`` over ``blocks(k)``,
     the blocks of class ``k`` (an iterable made anew for each pass), each
-    moved to ``device`` as it comes."""
+    moved to ``device`` as it comes.  Inside ``pass2``, a block's spans
+    ``hap.gw_<res>`` (its both-side symmetric and single-side directed
+    genome-wide adds) and ``hap.local_<res>``, and counters
+    ``hap.pairs_both`` and ``hap.pairs_single`` (its both-side and
+    single-side pairs); inside ``vote``, span ``vote.round`` around each
+    round (``_vote_round``)."""
     hap = genome.haplotype()
     nc = len(genome.labels)
     whole_res, local_res = list(whole_res or []), list(local_res or [])
@@ -505,30 +510,35 @@ def _haplotype_passes(blocks, genome: Genome, whole_res, local_res,
             for part in blocks(k):
                 cols = _columns(part, device)
                 c1, p1, c2, p2 = cols[:4]
-                both = (cols[4] == TAG_BOTH) if tagged else None
-                bc1, bp1, bc2, bp2 = ((t[both] for t in (c1, p1, c2, p2))
-                                      if tagged else (c1, p1, c2, p2))
+                if tagged:
+                    both = cols[4] == TAG_BOTH
+                    bc1, bp1, bc2, bp2 = (t[both] for t in (c1, p1, c2, p2))
+                    single = ~both
+                    tag = cols[4][single]
+                    s1, q1, s2, q2 = (t[single] for t in (c1, p1, c2, p2))
+                    intra = s1 == s2
+                    r1 = tag[intra] == TAG_R1
+                    i1, j1, i2, j2 = (t[intra] for t in (s1, q1, s2, q2))
+                    count("hap.pairs_single", s1.numel())
+                else:
+                    bc1, bp1, bc2, bp2 = c1, p1, c2, p2
+                count("hap.pairs_both", bc1.numel())
                 for res in whole_res:
-                    o = offs[res]
-                    uwhole[res].add_sym(bp1 // res + o[bc1 + h1 * nc],
-                                        bp2 // res + o[bc2 + h2 * nc])
+                    with span(f"hap.gw_{res}"):
+                        o = offs[res]
+                        uwhole[res].add_sym(bp1 // res + o[bc1 + h1 * nc],
+                                            bp2 // res + o[bc2 + h2 * nc])
+                        if tagged:
+                            b1 = j1 // res + o[i1 + h1 * nc]
+                            b2 = j2 // res + o[i2 + h1 * nc]
+                            swhole[res].add_directed(torch.where(r1, b1, b2),
+                                                     torch.where(r1, b2, b1))
                 if not tagged:
                     continue
                 for res in local_res:
-                    ulocal[res][side].add(bc1, bp1, bc2, bp2)
-                single = ~both
-                tag = cols[4][single]
-                s1, q1, s2, q2 = (t[single] for t in (c1, p1, c2, p2))
-                intra = s1 == s2
-                r1 = tag[intra] == TAG_R1
-                for res in whole_res:
-                    o = offs[res]
-                    b1 = q1[intra] // res + o[s1[intra] + h1 * nc]
-                    b2 = q2[intra] // res + o[s2[intra] + h1 * nc]
-                    swhole[res].add_directed(torch.where(r1, b1, b2),
-                                             torch.where(r1, b2, b1))
-                for res in local_res:
-                    slocal[res][side].add(s1, q1, s2, q2, tags=tag)
+                    with span(f"hap.local_{res}"):
+                        ulocal[res][side].add(bc1, bp1, bc2, bp2)
+                        slocal[res][side].add(s1, q1, s2, q2, tags=tag)
         unimp_whole = {res: uwhole[res].finish() for res in whole_res}
         unimp_local, imp_local = {}, {}
         for res in local_res:
@@ -539,7 +549,7 @@ def _haplotype_passes(blocks, genome: Genome, whole_res, local_res,
                 for c, m in ulocal[res][h].finish_plus(
                     slocal[res][h]).items()}
         for res in whole_res:
-            stats["single_side"][res] = float(swhole[res].finish().sum())
+            stats["single_side"][res] = _total(swhole[res].finish())
 
     with step(walls, "vote_setup", device):
         state = {}
@@ -573,26 +583,13 @@ def _haplotype_passes(blocks, genome: Genome, whole_res, local_res,
         rounds = (itertools.zip_longest(blocks("M_M"), blocks("P_P"))
                   if voting else ())
         for parts in rounds:           # a block of M_M and one of P_P
-            cols = [(k, _columns(part, device)) for k, part in
-                    zip(("M_M", "P_P"), parts) if part is not None]
-            for res in voting:
-                st = state[res]
-                rk, cs, cc = (torch.cat(t) for t in zip(*(
-                    _class_queries(c, k, nc, offs[res], res)
-                    for k, c in cols)))
-                stats["vote_queries"][res] += int(rk.numel())
-                if sparse[res]:
-                    hit, tgt = sparse_impute_vote_rowptr(
-                        st["su"], rk, cs, cc, *st["disk"], st["L"],
-                        float(imputation_min), float(imputation_ratio))
-                    st["acc"].add_directed(rk[hit], tgt[hit])
-                    stats["vote_hits"][res] += int(hit.sum())
-                else:
-                    _, hits = impute_inter_chunk(
-                        st["imp"], st["U"], rk, cs, cc, *st["disk"],
-                        st["L"], float(imputation_min),
-                        float(imputation_ratio))
-                    stats["vote_hits"][res] += hits
+            with span("vote.round"):
+                cols = [(k, _columns(part, device)) for k, part in
+                        zip(("M_M", "P_P"), parts) if part is not None]
+                for res in voting:
+                    _vote_round(state[res], sparse[res], cols, nc,
+                                offs[res], res, float(imputation_min),
+                                float(imputation_ratio), stats)
         imp_whole = {}
         for res in whole_res:
             st = state[res]
@@ -611,6 +608,43 @@ def _haplotype_passes(blocks, genome: Genome, whole_res, local_res,
         "Imputated_Local": imp_local,
         "stats": stats,
     }
+
+
+def _total(M) -> float:
+    """The sum of a genome-wide target's integer counts, exact: a sparse
+    accumulator's float64 counts, or a dense float32 map summed in
+    float64 (a float32 sum past 2^24 rounds)."""
+    if isinstance(M, _SparseAcc):
+        return M.sum()
+    return float(M.sum(dtype=torch.float64))
+
+
+def _vote_round(st: dict, sparse: bool, cols, nc: int, o: torch.Tensor,
+                res: int, imputation_min: float, imputation_ratio: float,
+                stats: dict) -> None:
+    """One round of pass 3 at ``res``: the queries of ``cols`` (a block of
+    M_M and one of P_P, as ``(class, columns)``) voted against the
+    un-imputed matrix of ``st`` (K6 past the dense cap, the dense gather
+    under it), the hits added to the imputed matrix.  Counters
+    ``vote.queries_<res>`` and ``vote.hits_<res>`` add what ``stats``
+    adds."""
+    rk, cs, cc = (torch.cat(t) for t in zip(*(
+        _class_queries(c, k, nc, o, res) for k, c in cols)))
+    queries = int(rk.numel())
+    if sparse:
+        hit, tgt = sparse_impute_vote_rowptr(
+            st["su"], rk, cs, cc, *st["disk"], st["L"], imputation_min,
+            imputation_ratio)
+        st["acc"].add_directed(rk[hit], tgt[hit])
+        hits = int(hit.sum())
+    else:
+        _, hits = impute_inter_chunk(st["imp"], st["U"], rk, cs, cc,
+                                     *st["disk"], st["L"], imputation_min,
+                                     imputation_ratio)
+    stats["vote_queries"][res] += queries
+    stats["vote_hits"][res] += hits
+    count(f"vote.queries_{res}", queries)
+    count(f"vote.hits_{res}", hits)
 
 
 def _class_queries(cols, k: str, nc: int, o: torch.Tensor, res: int):
@@ -729,46 +763,54 @@ def correct_haplotype_datasets(data, genome: Genome,
     COO past the cap, ``ops.sparse.genomewide_correction_coo``).  Local:
     the two-step correction of each chromosome's maternal/paternal pair,
     batched by the ``pad_to_shape`` ladder.  Gaps are numpy arrays of bin
-    indices."""
+    indices.  Spans ``correction.gw_<res>`` and
+    ``correction.local_<res>``."""
     balanced_whole = {}
     for res in whole_res:
-        H = data["Imputated_Whole"][res]
-        alpha = whole_alpha(data["Tradition_Whole"][res], H, genome, res)
-        if isinstance(H, SparseDirectedGW):
-            balanced_whole[res] = genomewide_correction_coo(
-                *H.coo(), alpha=torch.cat([alpha, alpha]), n=H.S)
-        else:
-            balanced_whole[res] = genomewide_correction(
-                H, torch.cat([alpha, alpha]).to(torch.float32))
+        with span(f"correction.gw_{res}"):
+            H = data["Imputated_Whole"][res]
+            alpha = whole_alpha(data["Tradition_Whole"][res], H, genome, res)
+            if isinstance(H, SparseDirectedGW):
+                balanced_whole[res] = genomewide_correction_coo(
+                    *H.coo(), alpha=torch.cat([alpha, alpha]), n=H.S)
+            else:
+                balanced_whole[res] = genomewide_correction(
+                    H, torch.cat([alpha, alpha]).to(torch.float32))
 
     balanced_local, gaps = {}, {}
     for res in local_res:
-        tra = data["Tradition_Local"][res]
-        happ = data["Imputated_Local"][res]
-        nb = {c: genome.n_bins(c, res) for c in genome.labels}
-        out, gap_lib = {}, {}
-        for group, N in bucket_groups(genome.labels, nb, ladder=True):
-            batch = torch.zeros(3, len(group), N, N, dtype=torch.float32,
-                                device=tra[group[0]].device)
-            for i, c in enumerate(group):
-                n = nb[c]
-                for j, m in enumerate((tra[c], happ["M" + c], happ["P" + c])):
-                    batch[j, i, :n, :n] = m
-            nm, npm, gm, gp = two_step_correction_batch(
-                *batch, torch.as_tensor([nb[c] for c in group],
-                                        device=batch.device))
-            gm, gp = gm.cpu().numpy(), gp.cpu().numpy()
-            for i, c in enumerate(group):
-                n = nb[c]
-                out["M" + c] = nm[i, :n, :n]
-                out["P" + c] = npm[i, :n, :n]
-                gap_lib["M" + c] = np.flatnonzero(gm[i, :n])
-                gap_lib["P" + c] = np.flatnonzero(gp[i, :n])
-        balanced_local[res] = {h + c: out[h + c] for h in "MP"
-                               for c in genome.labels}
-        gaps[str(res)] = {h + c: gap_lib[h + c] for h in "MP"
-                          for c in genome.labels}
+        with span(f"correction.local_{res}"):
+            balanced_local[res], gaps[str(res)] = _correct_local(
+                data["Tradition_Local"][res], data["Imputated_Local"][res],
+                genome, res)
     return balanced_whole, balanced_local, gaps
+
+
+def _correct_local(tra, happ, genome: Genome, res: int):
+    """The two-step corrections of every chromosome's maternal/paternal
+    pair at ``res``: (corrected {M/P label: [n, n]}, gaps {M/P label: bin
+    indices})."""
+    nb = {c: genome.n_bins(c, res) for c in genome.labels}
+    out, gap_lib = {}, {}
+    for group, N in bucket_groups(genome.labels, nb, ladder=True):
+        batch = torch.zeros(3, len(group), N, N, dtype=torch.float32,
+                            device=tra[group[0]].device)
+        for i, c in enumerate(group):
+            n = nb[c]
+            for j, m in enumerate((tra[c], happ["M" + c], happ["P" + c])):
+                batch[j, i, :n, :n] = m
+        nm, npm, gm, gp = two_step_correction_batch(
+            *batch, torch.as_tensor([nb[c] for c in group],
+                                    device=batch.device))
+        gm, gp = gm.cpu().numpy(), gp.cpu().numpy()
+        for i, c in enumerate(group):
+            n = nb[c]
+            out["M" + c] = nm[i, :n, :n]
+            out["P" + c] = npm[i, :n, :n]
+            gap_lib["M" + c] = np.flatnonzero(gm[i, :n])
+            gap_lib["P" + c] = np.flatnonzero(gp[i, :n])
+    return ({h + c: out[h + c] for h in "MP" for c in genome.labels},
+            {h + c: gap_lib[h + c] for h in "MP" for c in genome.labels})
 
 
 # ---------------------------------------------------------------- weights
